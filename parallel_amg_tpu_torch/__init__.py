@@ -5,10 +5,15 @@ Hopper GPU.  Module paths and public names mirror the JAX package; the JAX
 package stays the reference the port is tested against.  This package
 imports torch, numpy and scipy, and never jax.
 
-Ported so far: the host setup (Ruge–Stüben or greedy smoothed aggregation
-from the float64 oracle), DIA/TWELL/ELL formats, Jacobi and Chebyshev
-smoothing, V/W-cycles, standalone ``solve`` and ``amg_pcg``.  TWELL's SpMV is
-the hand-written CUDA kernel ``csrc/twell_spmv.cu``.
+Ported so far: the host setup (Ruge–Stüben, greedy or block smoothed
+aggregation from the float64 oracle); the structured block-SA setup on the
+device (``amg/device_setup.py``, from ``problems.poisson_stencil``); the
+DIA, TWELL, ELL, Stencil and FlatDIA formats with ``with_spmv_backend``;
+block transfers; Jacobi and Chebyshev smoothing, V/W-cycles, standalone
+``solve`` and ``amg_pcg``.  Two SpMVs are hand-written CUDA kernels: TWELL's
+(``csrc/twell_spmv.cu``) and FlatDIA's, which DIA shares
+(``csrc/flatdia_spmv.cu``).  Entry points that make tensors run on the CUDA
+card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -17,7 +22,9 @@ from parallel_amg_tpu_torch.config import AMGConfig, SolveConfig
 from parallel_amg_tpu_torch.ops.csr import CSR
 from parallel_amg_tpu_torch.ops.coo import COO
 from parallel_amg_tpu_torch.ops.ell import ELL
+from parallel_amg_tpu_torch.ops.stencil import Stencil
 from parallel_amg_tpu_torch.amg import setup, vcycle, solve, Hierarchy
+from parallel_amg_tpu_torch.amg.hierarchy import with_spmv_backend
 from parallel_amg_tpu_torch.solver import amg_pcg
 
 __all__ = [
@@ -26,9 +33,11 @@ __all__ = [
     "CSR",
     "COO",
     "ELL",
+    "Stencil",
     "setup",
     "vcycle",
     "solve",
     "Hierarchy",
     "amg_pcg",
+    "with_spmv_backend",
 ]

@@ -20,6 +20,20 @@ def coarse_solve(hierarchy, b):
     return x.to(b.dtype).reshape(b.shape)
 
 
+def _zeros_coarse(P, b):
+    if hasattr(P, "zeros_coarse"):
+        return P.zeros_coarse(b.dtype)
+    return torch.zeros(P.shape[1], dtype=b.dtype, device=b.device)
+
+
+def _apply_transfer(T, level, v):
+    """Apply P or R; linked block transfers borrow the level's operator and
+    d_inv, so the hierarchy holds the fine operator once."""
+    if getattr(T, "linked", False):
+        return T.matvec_linked(level.A, level.d_inv, v)
+    return T.matvec(v)
+
+
 def _cycle(hierarchy, lvl: int, x, b, gamma: int):
     cfg = hierarchy.config
     if lvl == hierarchy.n_levels - 1:
@@ -27,11 +41,11 @@ def _cycle(hierarchy, lvl: int, x, b, gamma: int):
     level = hierarchy.levels[lvl]
     x = smoothers.smooth(level, x, b, cfg, cfg.nu_pre)
     r = b - level.A.matvec(x)
-    bc = level.R.matvec(r)
-    xc = torch.zeros(level.P.shape[1], dtype=b.dtype, device=b.device)
+    bc = _apply_transfer(level.R, level, r)
+    xc = _zeros_coarse(level.P, b)
     for _ in range(gamma):
         xc = _cycle(hierarchy, lvl + 1, xc, bc, gamma)
-    x = x + level.P.matvec(xc)
+    x = x + _apply_transfer(level.P, level, xc)
     x = smoothers.smooth(level, x, b, cfg, cfg.nu_post)
     return x
 

@@ -3,7 +3,10 @@
 Counterpart of ``parallel_amg_tpu/amg/hierarchy.py``.  The host setup runs
 the float64 numpy oracle (``oracle/serial_amg.py``) and freezes each level
 with ``ops/select.py::best_format`` (DIA for banded operators, TWELL for the
-rest), then moves the hierarchy to the caller's device.
+rest), or as a Stencil with block transfers on the structured block-SA path,
+then moves the hierarchy to the caller's device.  The structured on-device
+setup lives in ``amg/device_setup.py``; ``with_spmv_backend`` swaps level
+operators between Stencil and FlatDIA after setup.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 
 from parallel_amg_tpu_torch.config import AMGConfig
+from parallel_amg_tpu_torch.device import resolve_device
 from parallel_amg_tpu_torch.ops.csr import CSR
 
 
@@ -116,51 +120,168 @@ class Hierarchy:
         return v.reshape(-1) if v.ndim > 1 else v
 
 
+def with_spmv_backend(h: "Hierarchy", backend: str = "mixed") -> "Hierarchy":
+    """Swap the level operators' SpMV engine after setup.
+
+    backend="pallas" turns every Stencil level operator into FlatDIA, whose
+    matvec is kernel B2 (``csrc/flatdia_spmv.cu``) on the card; "xla" turns
+    FlatDIA levels back into N-D Stencils (plain torch shifted slices);
+    "mixed" puts stencils of 9 points or more on the kernel and leaves the
+    thin ones (the 7-point fine level) as Stencils.  The backend names are
+    the JAX package's.  Unlike the JAX package, which keeps every level on
+    XLA off the TPU, the port applies the point rule on every device, so the
+    CPU walks the same format choices (with the kernel's plain version).
+    FlatDIA levels whose flattening merged aliased planes stay FlatDIA.
+    Transfers and smoother data are untouched.
+    """
+    from parallel_amg_tpu_torch.ops.flatdia import FlatDIA
+    from parallel_amg_tpu_torch.ops.stencil import Stencil
+
+    if backend not in ("mixed", "pallas", "xla"):
+        raise ValueError(f"backend must be mixed|pallas|xla, got {backend!r}")
+
+    def want_kernel(A) -> bool:
+        if backend == "mixed":
+            return A.n_points >= 9
+        return backend == "pallas"
+
+    def convert(A):
+        if isinstance(A, Stencil) and want_kernel(A):
+            return FlatDIA.from_stencil(A)
+        if isinstance(A, FlatDIA) and not want_kernel(A):
+            return A.to_stencil() or A
+        return A
+
+    levels = [Level(convert(l.A), l.P, l.R, l.d_inv, l.lam_max)
+              for l in h.levels]
+    return Hierarchy(levels, h.coarse_inv, h.config)
+
+
 # ---------------------------------------------------------------------------
 # Setup driver
 # ---------------------------------------------------------------------------
 
-def setup(A, config: AMGConfig = AMGConfig(), *, device, dtype=torch.float32,
-          seed: int = 0, dims=None) -> Hierarchy:
-    """Build an AMG hierarchy from a host CSR, COO or scipy matrix and move
-    it to ``device``.
+def setup(A, config: AMGConfig = AMGConfig(), *, device=None,
+          dtype=torch.float32, seed: int = 0, dims=None) -> Hierarchy:
+    """Build an AMG hierarchy on ``device`` (the CUDA card when None).
 
-    Only the host setup is ported: ``config.on_device_setup=True`` and the
-    structured block-SA branch raise ``NotImplementedError``.
+    ``A`` is a host CSR, COO or scipy matrix, or a Stencil.  ``dims``, the
+    grid shape of the row space, enables the structured aggregate="block"
+    SA path (Stencil levels with block transfers).
+
+    - ``config.on_device_setup=False``: the host setup (numpy oracle), frozen
+      to tensors on ``device``.
+    - ``config.on_device_setup=True``: the structured block-SA setup on
+      ``device`` (``amg/device_setup.py``), from a Stencil or from a matrix
+      with ``dims``.  The on-device Ruge–Stüben and algebraic SA setups are
+      not ported yet and raise ``NotImplementedError``.
     """
+    dev = resolve_device(device)
     if config.on_device_setup:
+        from parallel_amg_tpu_torch.amg.device_setup import (
+            device_structured_setup,
+        )
+        from parallel_amg_tpu_torch.ops.stencil import Stencil
+
+        if isinstance(A, Stencil):
+            return device_structured_setup(A.to(dev), config, dtype=dtype,
+                                           seed=seed)
+        if (dims is not None and config.coarsening == "sa"
+                and config.aggregate == "block"):
+            st = Stencil.from_csr(_host_csr(A), dims, dtype=dtype)
+            if st is None:
+                raise ValueError("matrix is not stencil-structured on dims")
+            return device_structured_setup(st.to(dev), config, dtype=dtype,
+                                           seed=seed)
         raise NotImplementedError(
-            "on-device setup is not ported yet (ROADMAP A4 structured, "
-            "A6 Ruge-Stüben, A7 smoothed aggregation)")
-    return host_setup(A, config, device=device, dtype=dtype, seed=seed,
+            "on-device setup is ported for the structured block-SA path only; "
+            "on-device Ruge-Stüben (ROADMAP A6) and algebraic smoothed "
+            "aggregation (A7) are not ported yet")
+    return host_setup(A, config, device=dev, dtype=dtype, seed=seed,
                       dims=dims)
 
 
-def host_setup(A, config: AMGConfig, *, device, dtype=torch.float32,
+def _host_csr(A) -> CSR:
+    if isinstance(A, CSR):
+        return A
+    if hasattr(A, "to_csr"):  # COO, Stencil
+        return A.to_csr()
+    return CSR.from_scipy(A)
+
+
+def _host_scipy(A):
+    if isinstance(A, CSR) or hasattr(A, "to_csr"):
+        return _host_csr(A).to_scipy()
+    return A  # scipy sparse or dense
+
+
+def host_setup(A, config: AMGConfig, *, device=None, dtype=torch.float32,
                seed: int = 0, dims=None) -> Hierarchy:
     """Host (numpy, float64) setup → hierarchy of tensors on ``device``.
 
     Runs the oracle's algorithms, then freezes each level into its solve
-    format (ops/select.py).
+    format (ops/select.py); structured block-SA levels become Stencils with
+    reshape-based BlockProlongator/BlockRestrictor transfers instead of
+    sparse P/R.
     """
+    from parallel_amg_tpu_torch.amg.transfers import (
+        BlockProlongator,
+        BlockRestrictor,
+    )
+    from parallel_amg_tpu_torch.ops.select import best_format
+    from parallel_amg_tpu_torch.ops.stencil import Stencil
     from parallel_amg_tpu_torch.oracle.serial_amg import oracle_setup
 
-    if (config.coarsening == "sa" and config.aggregate == "block"
-            and dims is not None):
-        raise NotImplementedError(
-            "structured block-SA host setup needs Stencil levels and block "
-            "transfers, not ported yet (ROADMAP A4)")
-    if isinstance(A, CSR):
-        A_sp = A.to_scipy()
-    elif hasattr(A, "to_csr"):  # COO
-        A_sp = A.to_csr().to_scipy()
-    else:
-        A_sp = A  # assume scipy sparse / dense
-    oh = oracle_setup(A_sp, config, seed=seed, dims=dims)
-    levels = [Level.from_numpy(ol.A, ol.P, ol.R, ol.d_inv, ol.lam_max,
-                               dtype=dtype) for ol in oh.levels]
+    dev = resolve_device(device)
+    oh = oracle_setup(_host_scipy(A), config, seed=seed, dims=dims)
+
+    # dims per level (structured path): level i's grid = previous cdims
+    level_dims: List = []
+    cur = tuple(dims) if dims is not None else None
+    for ol in oh.levels:
+        level_dims.append(ol.dims if ol.dims is not None else cur)
+        cur = ol.cdims if ol.cdims is not None else None
+
+    block_sa = config.coarsening == "sa" and config.aggregate == "block"
+    levels: List[Level] = []
+    n_levels = len(oh.levels)
+    for i, ol in enumerate(oh.levels):
+        A_i = None
+        if block_sa and level_dims[i] is not None:
+            A_i = Stencil.from_csr(CSR.from_scipy(ol.A), level_dims[i],
+                                   dtype=dtype)
+            if A_i is None:
+                # stencil blow-up: this level becomes the coarsest
+                n_levels = i + 1
+        if A_i is None:
+            levels.append(Level.from_numpy(
+                ol.A, ol.P if i + 1 < n_levels else None,
+                ol.R if i + 1 < n_levels else None, ol.d_inv, ol.lam_max,
+                dtype=dtype))
+        else:
+            lam = float(torch.as_tensor(np.float64(ol.lam_max)).to(dtype))
+            d_inv = torch.from_numpy(np.array(ol.d_inv, np.float64)).to(
+                dtype).reshape(A_i.dims)
+            P = R = None
+            if ol.P is not None and i + 1 < n_levels:
+                if ol.dims is not None:
+                    coef = float(torch.tensor(
+                        config.sa_omega / max(ol.lam_max, 1e-30),
+                        dtype=torch.float64).to(dtype))
+                    scale = torch.from_numpy(np.array(ol.agg_scale, np.float64)).to(
+                        dtype).reshape(ol.cdims)
+                    P = BlockProlongator(None, None, scale, coef, ol.dims,
+                                         ol.cdims, config.block_size)
+                    R = BlockRestrictor(None, None, scale, coef, ol.dims,
+                                        ol.cdims, config.block_size)
+                else:
+                    P = best_format(CSR.from_scipy(ol.P), dtype=dtype)
+                    R = best_format(CSR.from_scipy(ol.R), dtype=dtype)
+            levels.append(Level(A_i, P, R, d_inv, lam))
+        if i + 1 == n_levels:
+            break
     # Solve operator in f32 even when the cycle runs in a lower precision
     # (the coarse level is tiny).
     coarse_inv = torch.from_numpy(
-        coarse_inverse_np(oh.levels[-1].A.toarray())).to(torch.float32)
-    return Hierarchy(levels, coarse_inv, config).to(device)
+        coarse_inverse_np(oh.levels[n_levels - 1].A.toarray())).to(torch.float32)
+    return Hierarchy(levels, coarse_inv, config).to(dev)

@@ -1,9 +1,18 @@
 """Carry a hierarchy built elsewhere into the port.
 
 The JAX package's checkpoints pickle a jax treedef and cannot be read without
-jax, so a hierarchy crosses over as plain arrays: per level, A/P/R as scipy
-CSR (``to_csr().to_scipy()`` of the JAX operators) plus ``d_inv`` and
-``lam_max`` as numpy arrays.
+jax, so a hierarchy crosses over as plain arrays: per level, A, P and R plus
+``d_inv`` and ``lam_max`` as numpy arrays.  An operator is either a scipy
+matrix (``to_csr().to_scipy()`` of an algebraic level; it goes through
+``best_format``) or a mapping with a ``format`` key:
+
+- ``{"format": "Stencil", "weights": (D, *dims), "offsets", "dims"}``;
+- ``{"format": "FlatDIA", "diags": (D, ≥n), "offsets", "n", "dims",
+  "nd_offsets"}`` (columns past n, the JAX package's tile padding, are
+  dropped);
+- ``{"format": "BlockProlongator" | "BlockRestrictor", "scale": (*cdims,),
+  "coef", "dims", "cdims", "block"}``, a linked block transfer that borrows
+  the level's A and d_inv.
 """
 
 from __future__ import annotations
@@ -14,21 +23,63 @@ import numpy as np
 import torch
 
 from parallel_amg_tpu_torch.amg.hierarchy import Hierarchy, Level
+from parallel_amg_tpu_torch.amg.transfers import BlockProlongator, BlockRestrictor
 from parallel_amg_tpu_torch.config import AMGConfig
+from parallel_amg_tpu_torch.device import resolve_device
+from parallel_amg_tpu_torch.ops.csr import CSR
+from parallel_amg_tpu_torch.ops.flatdia import FlatDIA
+from parallel_amg_tpu_torch.ops.select import best_format
+from parallel_amg_tpu_torch.ops.stencil import Stencil
+
+_TRANSFERS = {"BlockProlongator": BlockProlongator,
+              "BlockRestrictor": BlockRestrictor}
+
+
+def _tensor(a, dtype):
+    return torch.from_numpy(np.array(a, np.float64)).to(dtype)
+
+
+def _operator(spec, dtype):
+    if spec is None:
+        return None
+    if not isinstance(spec, Mapping):
+        return best_format(CSR.from_scipy(spec), dtype=dtype)
+    fmt = spec["format"]
+    if fmt == "Stencil":
+        return Stencil(_tensor(spec["weights"], dtype), spec["offsets"],
+                       spec["dims"])
+    if fmt == "FlatDIA":
+        n = int(spec["n"])
+        nd = spec.get("nd_offsets")
+        return FlatDIA(_tensor(np.asarray(spec["diags"])[:, :n], dtype),
+                       spec["offsets"], n, spec.get("dims"),
+                       None if nd is None else tuple(tuple(o) for o in nd))
+    if fmt in _TRANSFERS:
+        coef = float(torch.tensor(float(np.asarray(spec["coef"])),
+                                  dtype=torch.float64).to(dtype))
+        return _TRANSFERS[fmt](None, None, _tensor(spec["scale"], dtype), coef,
+                               spec["dims"], spec["cdims"], spec["block"])
+    raise ValueError(f"unknown operator format {fmt!r}")
 
 
 def hierarchy_from_numpy(levels: Sequence[Mapping], coarse_inv,
-                         config: AMGConfig, *, device,
+                         config: AMGConfig, *, device=None,
                          dtype=torch.float32) -> Hierarchy:
-    """Build a :class:`Hierarchy` on ``device`` from host arrays.
+    """Build a :class:`Hierarchy` on ``device`` (the CUDA card when None)
+    from host arrays.
 
     Args:
-      levels: one mapping per level with keys ``A``, ``P``, ``R`` (scipy CSR;
-        ``P``/``R`` None on the coarsest level), ``d_inv`` and ``lam_max``
-        (numpy).  Operators go through ``best_format``.
+      levels: one mapping per level with keys ``A``, ``P``, ``R`` (see the
+        module docstring; ``P``/``R`` None on the coarsest level), ``d_inv``
+        and ``lam_max`` (numpy; ``d_inv`` N-D on a grid level).
       coarse_inv: (n_c, n_c) dense inverse of the coarsest operator.
     """
-    out = [Level.from_numpy(l["A"], l["P"], l["R"], l["d_inv"], l["lam_max"],
-                            dtype=dtype) for l in levels]
+    dev = resolve_device(device)
+    out = []
+    for l in levels:
+        lam = float(torch.as_tensor(np.asarray(l["lam_max"], np.float64)).to(dtype))
+        out.append(Level(_operator(l["A"], dtype), _operator(l["P"], dtype),
+                         _operator(l["R"], dtype), _tensor(l["d_inv"], dtype),
+                         lam))
     inv = torch.from_numpy(np.array(coarse_inv)).to(torch.float32)
-    return Hierarchy(out, inv, config).to(device)
+    return Hierarchy(out, inv, config).to(dev)

@@ -2,7 +2,9 @@
 
 Counterpart of ``parallel_amg_tpu/krylov/cg.py``: the same recurrences and
 the same history layout (``maxiter + 1`` entries, inf-padded).  The stopping
-test reads the residual norm back to the host once per iteration.
+test reads the residual norm back to the host once per iteration.  Inner
+products flatten their operands, as ``jnp.vdot`` does, so b may be an N-D
+grid (the structured path).
 """
 
 from __future__ import annotations
@@ -10,6 +12,10 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+
+def _dot(a, b):
+    return torch.vdot(a.reshape(-1), b.reshape(-1))
 
 
 class CGResult(NamedTuple):
@@ -37,7 +43,7 @@ def cg(A_matvec: Callable, b, M: Optional[Callable] = None, tol: float = 1e-8,
     r = b
     z = precond(r)
     p = z
-    rz = torch.dot(r, z)
+    rz = _dot(r, z)
     hist = torch.full((maxiter + 1,), float("inf"), dtype=b.dtype,
                       device=b.device)
     hist[0] = nb
@@ -45,7 +51,7 @@ def cg(A_matvec: Callable, b, M: Optional[Callable] = None, tol: float = 1e-8,
     converged = bool(nb <= target)
     while not converged and k < maxiter:
         q = A_matvec(p)
-        alpha = rz / torch.dot(p, q)
+        alpha = rz / _dot(p, q)
         x = x + alpha * p
         r = r - alpha * q
         r_norm = torch.linalg.norm(r)
@@ -55,7 +61,7 @@ def cg(A_matvec: Callable, b, M: Optional[Callable] = None, tol: float = 1e-8,
         if converged:
             break  # z, β and p of a finished solve are never read
         z = precond(r)
-        rz_new = torch.dot(r, z)
+        rz_new = _dot(r, z)
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new

@@ -3,7 +3,11 @@
 - :class:`~parallel_amg_tpu_torch.ops.coo.COO`,
   :class:`~parallel_amg_tpu_torch.ops.csr.CSR` — numpy host containers;
 - :class:`~parallel_amg_tpu_torch.ops.ell.ELL` — padded rows over tensors;
-- :class:`~parallel_amg_tpu_torch.ops.dia.DIA` — banded, shifted slices;
+- :class:`~parallel_amg_tpu_torch.ops.dia.DIA` — banded, on FlatDIA's kernel;
+- :class:`~parallel_amg_tpu_torch.ops.stencil.Stencil` — N-D stencils on
+  grids, shifted slices and the stencil algebra of the structured setup;
+- :class:`~parallel_amg_tpu_torch.ops.flatdia.FlatDIA` — flattened
+  diagonals with the hand-written CUDA SpMV kernel ``csrc/flatdia_spmv.cu``;
 - :class:`~parallel_amg_tpu_torch.ops.twell.TWELL` — any sparsity, int32 CSR
   with the hand-written CUDA SpMV kernel ``csrc/twell_spmv.cu``.
 """
@@ -12,6 +16,8 @@ from parallel_amg_tpu_torch.ops.coo import COO
 from parallel_amg_tpu_torch.ops.csr import CSR
 from parallel_amg_tpu_torch.ops.dia import DIA
 from parallel_amg_tpu_torch.ops.ell import ELL
+from parallel_amg_tpu_torch.ops.flatdia import FlatDIA
+from parallel_amg_tpu_torch.ops.stencil import Stencil
 from parallel_amg_tpu_torch.ops.twell import TWELL
 
-__all__ = ["COO", "CSR", "DIA", "ELL", "TWELL"]
+__all__ = ["COO", "CSR", "DIA", "ELL", "FlatDIA", "Stencil", "TWELL"]

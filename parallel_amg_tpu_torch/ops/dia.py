@@ -1,9 +1,11 @@
 """DIA (diagonal) sparse format over torch tensors.
 
 Counterpart of ``parallel_amg_tpu/ops/dia.py``.  Banded matrices (the Poisson
-fine levels) apply as ``y = Σ_d diag_d ⊙ shift(x, off_d)``: one padded copy of
-x and one contiguous shifted slice per diagonal, no gather.  Plain torch, as
-the JAX package leaves this format to XLA rather than to a kernel.
+fine levels, the Ruge–Stüben coarse levels that pass the DIA rule) apply as
+``y = Σ_d diag_d ⊙ shift(x, off_d)``.  The diagonals are FlatDIA's (D, n)
+layout, so ``matvec`` is ``flatdia.dia_spmv``: one launch of kernel B2 on a
+CUDA tensor, where the JAX package leaves DIA to XLA (one pass per
+diagonal), and the plain shifted-slice loop on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from parallel_amg_tpu_torch.ops.flatdia import dia_spmv
 
 
 class DIA:
@@ -91,14 +95,9 @@ class DIA:
         return max(0, -min(self.offsets)), max(0, max(self.offsets))
 
     def matvec(self, x):
-        """y = A @ x via shifted contiguous slices of one padded x."""
-        n = self.n_rows
-        lo, hi = self._pad()
-        xp = F.pad(x, (lo, hi))
-        y = torch.zeros_like(x)
-        for d, off in enumerate(self.offsets):
-            y = y + self.diags[d] * xp[lo + off:lo + off + n]
-        return y
+        """y = A @ x: kernel B2 (``flatdia.dia_spmv``, one launch) on a CUDA
+        tensor, shifted contiguous slices of one padded x on the CPU."""
+        return dia_spmv(self.diags, self.offsets, x)
 
     def matmat(self, X):
         """Y = A @ X for dense (n, k) X — k columns share each shifted pass."""

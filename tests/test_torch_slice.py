@@ -156,8 +156,19 @@ def test_unported_setups_raise():
     A = poisson2d(8).to_csr()
     with pytest.raises(NotImplementedError, match="A6"):
         ptt.setup(A, ptt.AMGConfig(on_device_setup=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        ptt.setup(A, ptt.AMGConfig(coarsening="sa", aggregate="block"),
+    # block SA with grid dims: the structured path, on the host and on device
+    for on_device in (False, True):
+        hb = ptt.setup(A, ptt.AMGConfig(coarsening="sa", aggregate="block",
+                                        n_coarse_max=16,
+                                        on_device_setup=on_device),
+                       device="cpu", dims=(8, 8))
+        assert hb.n_levels >= 2 and hb.grid_dims == (8, 8)
+        assert type(hb.levels[0].A).__name__ == "Stencil"
+        assert hb.levels[0].P.linked
+    with pytest.raises(NotImplementedError, match="A9"):
+        ptt.setup(A, ptt.AMGConfig(coarsening="sa", aggregate="block",
+                                   n_coarse_max=16, on_device_setup=True,
+                                   setup_product_path="slab"),
                   device="cpu", dims=(8, 8))
     h = ptt.setup(A, ptt.AMGConfig(coarsening="sa", n_coarse_max=16), device="cpu")
     assert h.n_levels >= 2
@@ -172,6 +183,14 @@ def test_port_runs_without_jax():
         "h = p.setup(poisson2d(24).to_csr(), cfg, device='cpu')\n"
         "res = p.amg_pcg(None, h, torch.ones(24 * 24), tol=1e-6, maxiter=30)\n"
         "assert res.converged, res\n"
+        "from parallel_amg_tpu_torch.problems import poisson_stencil\n"
+        "cfg3 = p.AMGConfig(coarsening='sa', aggregate='block', block_size=3,\n"
+        "                   smoother='chebyshev', n_coarse_max=64,\n"
+        "                   on_device_setup=True)\n"
+        "h3 = p.with_spmv_backend(p.setup(poisson_stencil((9, 9, 9), device='cpu'),\n"
+        "                                 cfg3, device='cpu'), 'mixed')\n"
+        "res = p.amg_pcg(None, h3, torch.ones(9 ** 3), tol=1e-6, maxiter=30)\n"
+        "assert res.converged and res.x.shape == (9 ** 3,), res\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'parallel_amg_tpu' not in sys.modules, 'JAX package imported'\n"
         "print('ok')\n"
