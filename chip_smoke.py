@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 1. Device: torch, CUDA and nvcc versions, the card's name and power limit.
-2. Build: compiles csrc/twell_spmv.cu and csrc/flatdia_spmv.cu with nvcc
-   into build/, both at once, and prints each one's ptxas lines; then the
-   card's copy bandwidth from a 1 GiB device-to-device copy.
+2. Build: compiles csrc/twell_spmv.cu, csrc/flatdia_spmv.cu and
+   csrc/spgemm.cu with nvcc into build/, all at once, and prints each one's
+   ptxas lines; then the card's copy bandwidth from a 1 GiB device-to-device
+   copy.
 3. Setup of acceptance config #2 at its full size (2D Poisson 1024²,
    Ruge–Stüben PMIS + extended+i, Chebyshev, n_coarse_max=256) on the card.
 4. Kernel B1 (twell_spmv) against its plain torch version on a random
@@ -24,9 +25,25 @@
 8. slice3d (config #3): with_spmv_backend "mixed", V-cycle time, amg_pcg to
    1e-6 with B2's launch count and the true residual in float64; then the
    V-cycle and iterations again under "pallas" (every level on B2).
-9. Profile: device kernels, device time and busy share per V-cycle of both
-   configs (torch.profiler).
-10. Config #1: 64², V(1,1) weighted Jacobi, standalone solve.
+9. Profile: device kernels, device time and busy share per V-cycle of
+   config #2 (host and device setup) and config #3 (torch.profiler); it
+   runs after phase 12.
+10. setup_rs: config #2 set up on the card (``on_device_setup=True``, the
+    Ruge–Stüben setup of amg/device_rs.py), twice: seconds, levels, the K and
+    w of every product, complexities beside the JAX package's, the launches
+    of B3, B4 and B5, peak memory, and bit-equality of the two runs.
+11. Kernels B3 (spgemm_expand), B5 (spgemm_dedup) and B4
+    (spgemm_dedup_compact) against their plain versions on config #2's
+    level-0 R·A and (R·A)·P and level-1 to level-3 R·A (K above the
+    merge's 512-slot stage from level 2 on), a random rectangular product
+    and a case with explicit zeros, empty rows and rows over out_width:
+    kernel, plain and bound times, and cuSPARSE's time for the product.
+12. convert and slice_rs: with_best_formats(h, device=True), then the
+    V-cycle and amg_pcg to 1e-6 on the device-built hierarchy, held to the
+    float64 oracle's iterations and the slice's residual limit.
+13. aniso: config #4 (anisotropic ε=1e-3 at 512²) set up on the card and
+    solved to 1e-6, against the float64 oracle on the same matrix.
+14. Config #1: 64², V(1,1) weighted Jacobi, standalone solve.
 
 Every phase prints JSON lines.  Any failure raises, so the script exits
 non-zero without its last line, which on success is
@@ -36,6 +53,7 @@ limit.  It needs no JAX and exits non-zero where torch finds no CUDA card.
 """
 
 import concurrent.futures
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -45,18 +63,37 @@ import time
 # |y_kernel − y_plain| ≤ ATOL + RTOL·(|A|·|x|): the two sum the same float32
 # products per row in another order.
 RTOL, ATOL = 1e-5, 1e-6
+# A merged SpGEMM value against the plain version's: the same float32
+# products summed in another order, |dv| ≤ ATOL + RTOL·Σ|merged candidates|.
+SPGEMM_RTOL, SPGEMM_ATOL = 1e-5, 1e-6
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor
 # cores (the kernels' products are float32 FMAs).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+SPGEMM_SOURCE = "parallel_amg_tpu_torch/csrc/spgemm.cu"
 KERNELS = {
     "twell_spmv": {"source": "parallel_amg_tpu_torch/csrc/twell_spmv.cu",
                    "replaces": "parallel_amg_tpu/ops/twell.py:234"},
     "flatdia_spmv": {"source": "parallel_amg_tpu_torch/csrc/flatdia_spmv.cu",
                      "replaces": "parallel_amg_tpu/ops/flatdia.py:193"},
+    "spgemm_expand": {"source": SPGEMM_SOURCE,
+                      "replaces": "parallel_amg_tpu/ops/gspgemm.py:305"},
+    "spgemm_dedup": {"source": SPGEMM_SOURCE,
+                     "replaces": "parallel_amg_tpu/ops/pspgemm.py:150"},
+    "spgemm_dedup_compact": {"source": SPGEMM_SOURCE,
+                             "replaces": "parallel_amg_tpu/ops/gspgemm.py:414"},
 }
+LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm")  # csrc/<name>.cu
 CONFIG3_ROWS = [2_097_152, 79_507, 3_375, 125]
 CONFIG3_ITERS = 12  # the JAX package's count (bench_details.json:40)
+# The JAX package's device-RS numbers: config #2 at 1024² (BENCH_r04.json,
+# stage amg_rs2d) and config #4 at 512² (BENCH_r05.json, stage anisotropic).
+CONFIG2_JAX = {"grid_complexity": 1.455, "operator_complexity": 2.397,
+               "pcg_iters": 7}
+CONFIG4_JAX = {"rows": [262_144, 113_363, 49_202, 21_369, 9_301, 2_604, 590,
+                        126],
+               "grid_complexity": 1.75, "operator_complexity": 2.383,
+               "pcg_iters": 7}
 
 
 def emit(phase, **fields):
@@ -155,14 +192,21 @@ def main():
 
     import parallel_amg_tpu_torch as ptt
     from parallel_amg_tpu_torch.amg import device_setup
-    from parallel_amg_tpu_torch.ops import _build, flatdia, twell
+    from parallel_amg_tpu_torch.ops import _build, flatdia, gspgemm, pspgemm, twell
     from parallel_amg_tpu_torch.ops.csr import CSR
     from parallel_amg_tpu_torch.ops.dia import DIA
+    from parallel_amg_tpu_torch.ops.ell import ELL
+    from parallel_amg_tpu_torch.ops.ell_setup import ell_spgemm
     from parallel_amg_tpu_torch.ops.flatdia import FlatDIA
     from parallel_amg_tpu_torch.ops.stencil import Stencil
     from parallel_amg_tpu_torch.ops.twell import TWELL, _matvec_plain
     from parallel_amg_tpu_torch.oracle import oracle_pcg, oracle_setup
-    from parallel_amg_tpu_torch.problems import poisson2d, poisson3d, poisson_stencil
+    from parallel_amg_tpu_torch.problems import (
+        anisotropic2d,
+        poisson2d,
+        poisson3d,
+        poisson_stencil,
+    )
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -184,15 +228,15 @@ def main():
         return name, was_built, time.perf_counter() - t0, lib
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = list(pool.map(timed_build, KERNELS))
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        built = list(pool.map(timed_build, LIBRARIES))
     wall_build = time.perf_counter() - t0
     for name, was_built, secs, lib in built:
         ptxas = [l.split(":", 1)[-1].strip()
                  for l in lib.with_suffix(".log").read_text().splitlines()
                  if "registers" in l or "stack frame" in l or "spill" in l]
-        emit("build", kernel=name, seconds=secs, wall_seconds_all=wall_build,
-             already_built=was_built, library=str(lib.name), ptxas=ptxas)
+        emit("build", library=name, seconds=secs, wall_seconds_all=wall_build,
+             already_built=was_built, file=str(lib.name), ptxas=ptxas)
 
     src = torch.empty(2**30, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(src)
@@ -474,9 +518,247 @@ def main():
         if launches3["flatdia_spmv"] <= 0:
             raise AssertionError(f"the config #3 ({backend}) solve launched no B2")
 
+    # -- setup_rs: config #2 set up on the card (Ruge–Stüben, device) ----------
+    cfg_rs = dataclasses.replace(cfg, on_device_setup=True)
+
+    def spgemm_counts():
+        return dict(pspgemm.LAUNCHES)
+
+    def reset_counts():
+        twell.LAUNCHES = flatdia.LAUNCHES = 0
+        for k in pspgemm.LAUNCHES:
+            pspgemm.LAUNCHES[k] = 0
+
+    def rs_setup(A_host, label):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        hh = ptt.setup(A_host, cfg_rs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = spgemm_counts()
+        stats = hh.setup_stats
+        gc, oc = hh.complexity()
+        emit(label, seconds=secs, levels=stats["levels"],
+             phase_seconds=stats["seconds"], grid_complexity=gc,
+             operator_complexity=oc, launches=counts,
+             peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"{label}: the setup skipped a kernel: {counts}")
+        return hh, secs, counts, (gc, oc)
+
+    h_rs, _, launches_rs, cx_rs = rs_setup(A_csr, "setup_rs")
+    emit("setup_rs_vs_jax", grid_complexity=cx_rs[0],
+         operator_complexity=cx_rs[1], jax_package=CONFIG2_JAX)
+    for got, key in zip(cx_rs, ("grid_complexity", "operator_complexity")):
+        if abs(got / CONFIG2_JAX[key] - 1) > 0.05:
+            raise AssertionError(f"config #2 device setup {key} {got}, the JAX "
+                                 f"package {CONFIG2_JAX[key]}")
+    h_rs2, secs2, _, _ = rs_setup(A_csr, "setup_rs_second_run")
+    for i, (l1, l2) in enumerate(zip(h_rs.levels, h_rs2.levels)):
+        for part in ("cols", "vals", "row_nnz"):
+            a, c = getattr(l1.A, part), getattr(l2.A, part)
+            if not (a.shape == c.shape and torch.equal(
+                    a.view(torch.int32), c.view(torch.int32))):
+                raise AssertionError(f"second setup differs at level {i} A.{part}")
+    if h_rs.n_levels != h_rs2.n_levels:
+        raise AssertionError("second setup has another depth")
+    emit("setup_rs_repeat", bit_equal=True, n_levels=h_rs.n_levels,
+         second_run_seconds=secs2)
+    del h_rs2
+
+    # -- kernels B3, B5, B4: spgemm against the plain versions -----------------
+    def random_ell(n_rows, n_cols, width, zero_frac=0.0, empty_frac=0.0):
+        nnz = rng.integers(0, width + 1, size=n_rows)
+        nnz[rng.random(n_rows) < empty_frac] = 0
+        cols = rng.integers(0, n_cols, size=(n_rows, width)).astype(np.int32)
+        vals = rng.normal(size=(n_rows, width)).astype(np.float32)
+        vals[rng.random((n_rows, width)) < zero_frac] = 0.0
+        pad = np.arange(width)[None, :] >= nnz[:, None]
+        cols[pad], vals[pad] = 0, 0.0
+        return ELL(torch.from_numpy(cols), torch.from_numpy(vals),
+                   torch.from_numpy(nnz.astype(np.int32)), (n_rows, n_cols)).to(dev)
+
+    def ell_csr(M):
+        m = M.mask()
+        rows = torch.arange(M.n_rows, device=dev)[:, None].expand_as(M.cols)
+        coo = torch.sparse_coo_tensor(
+            torch.stack([rows[m], M.cols[m].long()]), M.vals[m], M.shape)
+        return coo.coalesce().to_sparse_csr()
+
+    R0, A0, P0 = h_rs.levels[0].R, h_rs.levels[0].A, h_rs.levels[0].P
+    RA0 = ell_spgemm(R0, A0)
+    spgemm_cases = {
+        "config2_L0_RA": (R0, A0, None),
+        "config2_L0_RAP": (RA0, P0, None),
+        "config2_L1_RA": (h_rs.levels[1].R, h_rs.levels[1].A, None),
+        # K above the merge's 512-slot stage: its chunked branch
+        "config2_L2_RA": (h_rs.levels[2].R, h_rs.levels[2].A, None),
+        "config2_L3_RA": (h_rs.levels[3].R, h_rs.levels[3].A, None),
+        "random_rect_200000x150000": (random_ell(200_000, 150_000, 8),
+                                      random_ell(150_000, 120_000, 6), None),
+        "zeros_empty_overflow": (random_ell(50_000, 3_000, 12, 0.2, 0.1),
+                                 random_ell(3_000, 2_000, 9, 0.2, 0.1), 40),
+    }
+    slow = dict(reps=1, samples=3, warmup=1)  # the plain versions
+    for name in ("spgemm_expand", "spgemm_dedup", "spgemm_dedup_compact"):
+        results[name] = {"max_abs_err": 0.0}
+    for case, (A, B, cap) in spgemm_cases.items():
+        sent = B.n_cols
+        R_, K_, Rb = A.n_rows, A.width * B.width, B.n_rows
+        cc, cv = gspgemm.gather_candidates(A, B)
+        pc, pv = gspgemm._gather_candidates_plain(A, B)
+        torch.cuda.synchronize()
+        if not (torch.equal(cc, pc) and torch.equal(cv, pv)):
+            raise AssertionError(f"spgemm_expand {case}: kernel disagrees with "
+                                 "the plain version")
+        n_valid = (cc != sent).sum(1).double()
+        compares = float((n_valid * (n_valid - 1) / 2).sum())
+        counts = pspgemm.dedup(cc, cv, sent, counts_only=True)
+        full = pspgemm.dedup(cc, cv, sent)
+        ref5 = pspgemm._dedup_plain(cc, cv, sent)
+        bound5 = SPGEMM_ATOL + SPGEMM_RTOL * pspgemm._dedup_plain(cc, cv.abs(), sent)[1]
+        w = cap or max(int(ref5[2].max()), 1)
+        comp = gspgemm.dedup_compact(cc, cv, sent, w)
+        ref4 = gspgemm._dedup_compact_plain(cc, cv, sent, w)
+        bound4 = SPGEMM_ATOL + SPGEMM_RTOL * gspgemm._dedup_compact_plain(
+            cc, cv.abs(), sent, w)[1]
+        torch.cuda.synchronize()
+        err5 = float((full[1] - ref5[1]).abs().max())
+        err4 = float((comp[1] - ref4[1]).abs().max())
+        ok = (torch.equal(counts, ref5[2]) and torch.equal(full[0], ref5[0])
+              and torch.equal(full[2], ref5[2])
+              and bool(((full[1] - ref5[1]).abs() <= bound5).all())
+              and torch.equal(comp[0], ref4[0]) and torch.equal(comp[2], ref4[2])
+              and bool(((comp[1] - ref4[1]).abs() <= bound4).all()))
+        over = int((ref5[2] > w).sum())
+        timing = {
+            "spgemm_expand": (
+                device_ms(lambda: gspgemm.gather_candidates(A, B)),
+                device_ms(lambda: gspgemm._gather_candidates_plain(A, B), **slow),
+                bound_ms(R_ * A.width * 8 + R_ * 4 + Rb * B.width * 8 + Rb * 4
+                         + R_ * K_ * 8, R_ * K_), 0.0),
+            "spgemm_dedup": (
+                device_ms(lambda: pspgemm.dedup(cc, cv, sent, counts_only=True)),
+                device_ms(lambda: pspgemm._dedup_plain(cc, cv, sent, True), **slow),
+                # count-only: reads the columns, writes the counts
+                bound_ms(R_ * K_ * 4 + R_ * 4, compares), err5),
+            "spgemm_dedup_compact": (
+                device_ms(lambda: gspgemm.dedup_compact(cc, cv, sent, w)),
+                device_ms(lambda: gspgemm._dedup_compact_plain(cc, cv, sent, w),
+                          **slow),
+                bound_ms(R_ * K_ * 8 + R_ * w * 8 + R_ * 4, compares), err4),
+        }
+        full_ms = device_ms(lambda: pspgemm.dedup(cc, cv, sent))
+        product_ms = device_ms(lambda: gspgemm.gather_spgemm(A, B, out_width=w,
+                                                             strict=False))
+        lib_ms, lib_err = None, None
+        if cap is None:
+            a_csr, b_csr = ell_csr(A), ell_csr(B)
+            try:
+                lib_ms = device_ms(lambda: a_csr @ b_csr, **slow)
+            except RuntimeError as e:  # the yardstick only; never on the path
+                lib_err = f"{e}"[:200]
+            del a_csr, b_csr
+        for name, (ms, p_ms, (b_ms, b_by), err) in timing.items():
+            emit("kernel", name=name, case=case, rows=R_, K=K_, out_width=w,
+                 rows_over_width=over, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+                 bound_by=b_by, compares=compares, max_abs_err=err, ok=ok,
+                 tolerance=f"cols and counts equal, |dv| <= {SPGEMM_ATOL} + "
+                           f"{SPGEMM_RTOL}*sum|merged|",
+                 **({"full_mode_ms": full_ms} if name == "spgemm_dedup" else {}))
+            r = results[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if case == "config2_L0_RAP":
+                r.update(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         copy_bound_ms=None, library_ms=None,
+                         product_ms=product_ms, product_library_ms=lib_ms,
+                         main_case=case)
+        emit("spgemm_product", case=case, rows=R_, K=K_, out_width=w,
+             gather_spgemm_ms=product_ms, library_csr_spgemm_ms=lib_ms,
+             library_error=lib_err)
+        if not ok:
+            raise AssertionError(f"spgemm kernels {case}: a kernel disagrees "
+                                 f"with its plain version (|dv| {err5}, {err4})")
+        del cc, cv, pc, pv, full, ref5, comp, ref4, bound4, bound5
+    del spgemm_cases, RA0
+
+    # -- convert and slice_rs: the device-built hierarchy solves config #2 ------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_fast = ptt.with_best_formats(h_rs, device=True)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    emit("convert", seconds=convert_s,
+         formats=[{"A": fmt(l.A), "P": fmt(l.P), "R": fmt(l.R)}
+                  for l in h_fast.levels])
+    vtimes_rs, v = wall_ms(lambda: ptt.vcycle(h_fast, zero, b))
+    if not bool(torch.isfinite(v).all()):
+        raise AssertionError("device-RS vcycle output not finite")
+    reset_counts()
+    t0 = time.perf_counter()
+    res_rs = ptt.amg_pcg(None, h_fast, b, tol=1e-6, maxiter=100)
+    torch.cuda.synchronize()
+    solve_rs_s = time.perf_counter() - t0
+    launches_rs_pcg = {"twell_spmv": twell.LAUNCHES, "flatdia_spmv": flatdia.LAUNCHES}
+    true_rs = true_rel_residual(A_sp, b_np, res_rs.x.cpu().numpy())
+    limit_rs = 1e-6 + (res_rs.iters + 1) * f32_floor
+    emit("slice_rs", problem=f"poisson2d({nx})",
+         vcycle_ms_median=statistics.median(vtimes_rs), vcycle_ms=vtimes_rs,
+         pcg_iters=res_rs.iters, converged=res_rs.converged, solve_s=solve_rs_s,
+         residual_history=res_rs.residual_history[:res_rs.iters + 1].cpu().tolist(),
+         true_rel_residual=true_rs, true_rel_residual_limit=limit_rs,
+         launches=launches_rs_pcg, oracle_iters=int(oracle_iters),
+         jax_package_iters=CONFIG2_JAX["pcg_iters"])
+    if not res_rs.converged:
+        raise AssertionError("device-RS amg_pcg did not converge to 1e-6")
+    if abs(res_rs.iters - int(oracle_iters)) > 1:
+        raise AssertionError(f"device-RS PCG took {res_rs.iters} iterations, "
+                             f"the float64 oracle {oracle_iters}")
+    if not true_rs <= limit_rs:
+        raise AssertionError(f"device-RS true residual {true_rs} > {limit_rs}")
+    if min(launches_rs_pcg.values()) <= 0:
+        raise AssertionError(f"the device-RS solve skipped a kernel: {launches_rs_pcg}")
+
+    # -- aniso: config #4, anisotropic ε=1e-3 at 512² ---------------------------
+    na = 512
+    A4 = anisotropic2d(na, epsilon=1e-3).to_csr()
+    A4_sp = A4.to_scipy()
+    h4, _, _, cx4 = rs_setup(A4, "aniso_setup")
+    rows4 = [l.A.n_rows for l in h4.levels]
+    h4_fast = ptt.with_best_formats(h4, device=True)
+    b4_np = np.random.default_rng(0).normal(size=A4.n_rows).astype(np.float32)
+    b4 = torch.from_numpy(b4_np).to(dev)
+    res4 = ptt.amg_pcg(None, h4_fast, b4, tol=1e-6, maxiter=100)
+    true4 = true_rel_residual(A4_sp, b4_np, res4.x.cpu().numpy())
+    oh4 = oracle_setup(A4_sp, cfg)
+    x4_oracle, oracle4_iters, _ = oracle_pcg(A4_sp, b4_np.astype(np.float64), oh4,
+                                             tol=1e-6)
+    floor4 = true_rel_residual(A4_sp, b4_np, x4_oracle.astype(np.float32))
+    limit4 = 1e-6 + (res4.iters + 1) * floor4
+    emit("aniso", problem=f"anisotropic2d({na}, epsilon=1e-3)", rows=rows4,
+         jax_package_rows=CONFIG4_JAX["rows"], grid_complexity=cx4[0],
+         operator_complexity=cx4[1],
+         jax_package_complexity=[CONFIG4_JAX["grid_complexity"],
+                                 CONFIG4_JAX["operator_complexity"]],
+         formats=[fmt(l.A) for l in h4_fast.levels], pcg_iters=res4.iters,
+         converged=res4.converged, oracle_iters=int(oracle4_iters),
+         oracle_rows=[l.A.shape[0] for l in oh4.levels],
+         jax_package_iters=CONFIG4_JAX["pcg_iters"], true_rel_residual=true4,
+         f32_rounding_floor=floor4, true_rel_residual_limit=limit4)
+    if not res4.converged or abs(res4.iters - int(oracle4_iters)) > 1:
+        raise AssertionError(f"config #4 PCG took {res4.iters} iterations "
+                             f"(converged {res4.converged}), the oracle "
+                             f"{oracle4_iters}")
+    if not true4 <= limit4:
+        raise AssertionError(f"config #4 true residual {true4} > {limit4}")
+    del h4, h4_fast, oh4, x4_oracle
+
     # -- profile: kernels and device time per V-cycle ------------------------------
     for label, hh, bb in (
             ("config2", h, b),
+            ("config2_device", h_fast, b),
             ("config3_mixed", ptt.with_spmv_backend(h3, "mixed"),
              torch.from_numpy(b3_np).to(dev).reshape(h3.grid_dims)),
             ("config3_pallas", ptt.with_spmv_backend(h3, "pallas"),
@@ -504,20 +786,25 @@ def main():
         raise AssertionError(f"config #1 residual reduction {rate} per cycle")
 
     launches = {"twell_spmv": launches2["twell_spmv"],
-                "flatdia_spmv": slice3["mixed"]["launches"]["flatdia_spmv"]}
+                "flatdia_spmv": slice3["mixed"]["launches"]["flatdia_spmv"],
+                **launches_rs}
     by_path = {"config2_pcg": launches2,
                "config3_mixed_pcg": slice3["mixed"]["launches"],
-               "config3_pallas_pcg": slice3["pallas"]["launches"]}
+               "config3_pallas_pcg": slice3["pallas"]["launches"],
+               "config2_device_rs_setup": launches_rs,
+               "config2_device_rs_pcg": launches_rs_pcg}
     line = []
     for name, meta in KERNELS.items():
         r = results[name]
+        extra = {k: r[k] for k in ("product_ms", "product_library_ms") if k in r}
         line.append({"name": name, "route": "cuda", "source": meta["source"],
                      "replaces": meta["replaces"], "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "copy_bound_ms": r["copy_bound_ms"], "main_case": r["main_case"],
-                     "launches_by_path": {k: v[name] for k, v in by_path.items()}})
+                     "launches_by_path": {k: v.get(name, 0) for k, v in by_path.items()},
+                     **extra})
     print(json.dumps({"kernels": line}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,15 @@ imports torch, numpy and scipy, and never jax.
 Ported so far: the host setup (Ruge–Stüben, greedy or block smoothed
 aggregation from the float64 oracle); the structured block-SA setup on the
 device (``amg/device_setup.py``, from ``problems.poisson_stencil``); the
+Ruge–Stüben setup on the device (``amg/device_rs.py``: strength, PMIS, three
+interpolations, ELL transpose and SpGEMM) with ``with_best_formats``; the
 DIA, TWELL, ELL, Stencil and FlatDIA formats with ``with_spmv_backend``;
 block transfers; Jacobi and Chebyshev smoothing, V/W-cycles, standalone
-``solve`` and ``amg_pcg``.  Two SpMVs are hand-written CUDA kernels: TWELL's
-(``csrc/twell_spmv.cu``) and FlatDIA's, which DIA shares
-(``csrc/flatdia_spmv.cu``).  Entry points that make tensors run on the CUDA
-card unless the caller passes ``device="cpu"``.
+``solve`` and ``amg_pcg``.  Five kernels are hand-written CUDA: TWELL's SpMV
+(``csrc/twell_spmv.cu``), FlatDIA's SpMV, which DIA shares
+(``csrc/flatdia_spmv.cu``), and the setup SpGEMM's expand, merge and
+merge-and-compact steps (``csrc/spgemm.cu``).  Entry points that make
+tensors run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -24,7 +27,10 @@ from parallel_amg_tpu_torch.ops.coo import COO
 from parallel_amg_tpu_torch.ops.ell import ELL
 from parallel_amg_tpu_torch.ops.stencil import Stencil
 from parallel_amg_tpu_torch.amg import setup, vcycle, solve, Hierarchy
-from parallel_amg_tpu_torch.amg.hierarchy import with_spmv_backend
+from parallel_amg_tpu_torch.amg.hierarchy import (
+    with_best_formats,
+    with_spmv_backend,
+)
 from parallel_amg_tpu_torch.solver import amg_pcg
 
 __all__ = [
@@ -39,5 +45,6 @@ __all__ = [
     "solve",
     "Hierarchy",
     "amg_pcg",
+    "with_best_formats",
     "with_spmv_backend",
 ]

@@ -4,9 +4,11 @@ Counterpart of ``parallel_amg_tpu/amg/hierarchy.py``.  The host setup runs
 the float64 numpy oracle (``oracle/serial_amg.py``) and freezes each level
 with ``ops/select.py::best_format`` (DIA for banded operators, TWELL for the
 rest), or as a Stencil with block transfers on the structured block-SA path,
-then moves the hierarchy to the caller's device.  The structured on-device
-setup lives in ``amg/device_setup.py``; ``with_spmv_backend`` swaps level
-operators between Stencil and FlatDIA after setup.
+then moves the hierarchy to the caller's device.  The on-device setups live
+in ``amg/device_setup.py`` (structured block SA) and ``amg/device_rs.py``
+(Ruge–Stüben, ELL levels); ``with_best_formats`` turns ELL levels into the
+solve formats and ``with_spmv_backend`` swaps level operators between
+Stencil and FlatDIA after setup.
 """
 
 from __future__ import annotations
@@ -87,6 +89,9 @@ class Hierarchy:
         # pseudo-inverse — see coarse_inverse_np).
         self.coarse_inv = coarse_inv
         self.config = config
+        # Per-level shapes and seconds per phase of the on-device
+        # Ruge–Stüben setup that built this hierarchy (None otherwise).
+        self.setup_stats = None
 
     def to(self, device) -> "Hierarchy":
         return Hierarchy([l.to(device) for l in self.levels],
@@ -157,6 +162,36 @@ def with_spmv_backend(h: "Hierarchy", backend: str = "mixed") -> "Hierarchy":
     return Hierarchy(levels, h.coarse_inv, h.config)
 
 
+def with_best_formats(h: "Hierarchy", device: bool = False) -> "Hierarchy":
+    """Convert ELL level operators (A, P, R) to the solve formats: DIA for
+    banded square operators, TWELL for everything else, on every device.
+
+    ``device=True`` builds them where the planes lie
+    (``ops/format_device.py``; only sizes and offsets reach the host);
+    ``device=False`` copies each operator to the host and goes through
+    ``ops/select.py::best_format``.  Both give the same operators.  The JAX
+    package's ``target_backend`` chose TWELL on TPUs only; the port takes
+    TWELL everywhere, so the argument has no counterpart.
+    """
+    from parallel_amg_tpu_torch.ops.ell import ELL
+    from parallel_amg_tpu_torch.ops.select import best_format
+
+    if device:
+        from parallel_amg_tpu_torch.ops.format_device import (
+            best_format_from_ell as conv,
+        )
+    else:
+        def conv(T):
+            if not isinstance(T, ELL):
+                return T
+            return best_format(T.to_csr(), dtype=T.vals.dtype).to(
+                T.vals.device)
+
+    levels = [Level(conv(l.A), conv(l.P), conv(l.R), l.d_inv, l.lam_max)
+              for l in h.levels]
+    return Hierarchy(levels, h.coarse_inv, h.config)
+
+
 # ---------------------------------------------------------------------------
 # Setup driver
 # ---------------------------------------------------------------------------
@@ -173,8 +208,10 @@ def setup(A, config: AMGConfig = AMGConfig(), *, device=None,
       to tensors on ``device``.
     - ``config.on_device_setup=True``: the structured block-SA setup on
       ``device`` (``amg/device_setup.py``), from a Stencil or from a matrix
-      with ``dims``.  The on-device Ruge–Stüben and algebraic SA setups are
-      not ported yet and raise ``NotImplementedError``.
+      with ``dims``; with ``coarsening="rs"`` the Ruge–Stüben setup on
+      ``device`` (``amg/device_rs.py``), whose levels stay ELL until
+      ``with_best_formats``.  The algebraic SA setup on the device is not
+      ported yet and raises ``NotImplementedError``.
     """
     dev = resolve_device(device)
     if config.on_device_setup:
@@ -193,10 +230,14 @@ def setup(A, config: AMGConfig = AMGConfig(), *, device=None,
                 raise ValueError("matrix is not stencil-structured on dims")
             return device_structured_setup(st.to(dev), config, dtype=dtype,
                                            seed=seed)
+        if config.coarsening == "rs":
+            from parallel_amg_tpu_torch.amg.device_rs import device_rs_setup
+
+            return device_rs_setup(A, config, dtype=dtype, seed=seed,
+                                   device=dev)
         raise NotImplementedError(
-            "on-device setup is ported for the structured block-SA path only; "
-            "on-device Ruge-Stüben (ROADMAP A6) and algebraic smoothed "
-            "aggregation (A7) are not ported yet")
+            "on-device algebraic smoothed aggregation (ROADMAP A7) is not "
+            "ported yet; the structured block-SA and Ruge-Stüben setups are")
     return host_setup(A, config, device=dev, dtype=dtype, seed=seed,
                       dims=dims)
 

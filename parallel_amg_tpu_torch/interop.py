@@ -12,7 +12,10 @@ matrix (``to_csr().to_scipy()`` of an algebraic level; it goes through
   dropped);
 - ``{"format": "BlockProlongator" | "BlockRestrictor", "scale": (*cdims,),
   "coef", "dims", "cdims", "block"}``, a linked block transfer that borrows
-  the level's A and d_inv.
+  the level's A and d_inv;
+- ``{"format": "ELL", "cols": (R, W), "vals": (R, W), "row_nnz": (R,),
+  "shape"}``, carried over unconverted (the levels of an on-device
+  Ruge–Stüben setup).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from parallel_amg_tpu_torch.amg.transfers import BlockProlongator, BlockRestrict
 from parallel_amg_tpu_torch.config import AMGConfig
 from parallel_amg_tpu_torch.device import resolve_device
 from parallel_amg_tpu_torch.ops.csr import CSR
+from parallel_amg_tpu_torch.ops.ell import ELL
 from parallel_amg_tpu_torch.ops.flatdia import FlatDIA
 from parallel_amg_tpu_torch.ops.select import best_format
 from parallel_amg_tpu_torch.ops.stencil import Stencil
@@ -54,6 +58,11 @@ def _operator(spec, dtype):
         return FlatDIA(_tensor(np.asarray(spec["diags"])[:, :n], dtype),
                        spec["offsets"], n, spec.get("dims"),
                        None if nd is None else tuple(tuple(o) for o in nd))
+    if fmt == "ELL":
+        return ELL(torch.from_numpy(np.array(spec["cols"], np.int32)),
+                   _tensor(spec["vals"], dtype),
+                   torch.from_numpy(np.array(spec["row_nnz"], np.int32)),
+                   spec["shape"])
     if fmt in _TRANSFERS:
         coef = float(torch.tensor(float(np.asarray(spec["coef"])),
                                   dtype=torch.float64).to(dtype))

@@ -1,0 +1,185 @@
+"""Rank-plane SpGEMM C = A·B for ELL operands: expand (B3), merge (B5),
+merge-and-compact (B4).
+
+Counterpart of ``parallel_amg_tpu/ops/gspgemm.py``.  The product runs in
+three steps over a (R, K) candidate table, K = Wa·Wb:
+
+1. ``gather_candidates`` (kernel B3): slot m·Wa + k of row r holds
+   A[r, k]·B[A.cols[r, k], m] and its column, or (SENT, 0) where the slot
+   is padding or the product is 0 (SENT = B's column count).
+2. ``pspgemm.dedup`` in count-only mode (kernel B5): the distinct columns
+   per row, whose maximum is the output width (one host read).
+3. ``dedup_compact`` (kernel B4): duplicate columns summed into their first
+   slot, leaders compacted to the front in slot order.
+
+The JAX package's ``GatherSpgemmPlan`` and its piece tables re-bucket A by
+128-column window for Mosaic's in-tile gather; a Hopper thread loads any
+address, so the kernel reads A's ELL planes directly and there is no plan.
+
+Each wrapper launches its kernel from ``csrc/spgemm.cu`` on a CUDA tensor (or
+raises) and runs its plain torch version on a CPU tensor;
+``pspgemm.LAUNCHES`` counts the launches.  Column order in C is first
+occurrence; explicit zeros drop.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from parallel_amg_tpu_torch.ops import pspgemm
+from parallel_amg_tpu_torch.ops.ell import ELL
+
+
+def _check_operands(A: ELL, B: ELL) -> None:
+    if A.n_cols != B.n_rows:
+        raise ValueError(f"A {A.shape} @ B {B.shape}: inner sizes differ")
+    for name, M in (("A", A), ("B", B)):
+        if M.cols.dtype != torch.int32 or M.row_nnz.dtype != torch.int32:
+            raise TypeError(f"{name} needs int32 columns and row lengths")
+        if M.vals.dtype != torch.float32:
+            raise TypeError(f"{name} needs float32 values, got {M.vals.dtype}")
+        for t in (M.cols, M.vals, M.row_nnz):
+            if t.device != A.cols.device:
+                raise ValueError("A and B must lie on one device")
+    if max(B.n_cols, A.width * B.width) >= 2**31:
+        raise ValueError("SENT and K must fit int32")
+
+
+def _gather_candidates_plain(A: ELL, B: ELL):
+    """Plain torch B3: a gather of B's rows and a permute to m-major order."""
+    R, Wa = A.cols.shape
+    K = Wa * B.width
+    c = A.cols.long()
+    v = A.vals[:, :, None] * B.vals[c]                       # (R, Wa, Wb)
+    ok = A.mask()[:, :, None] & B.mask()[c] & (v != 0)
+    cols = torch.where(ok, B.cols[c], B.n_cols)
+    vals = torch.where(ok, v, 0.0)
+    return (cols.transpose(1, 2).reshape(R, K).contiguous(),
+            vals.transpose(1, 2).reshape(R, K).contiguous())
+
+
+def _gather_candidates_cuda(A: ELL, B: ELL):
+    """Launch ``spgemm_expand`` (B3) on the current stream."""
+    planes = (A.cols, A.vals, A.row_nnz, B.cols, B.vals, B.row_nnz)
+    if not all(t.is_contiguous() for t in planes):
+        raise ValueError("ELL planes must be contiguous")
+    R, Wa = A.cols.shape
+    K = Wa * B.width
+    dev = A.cols.device
+    cols = torch.empty((R, K), dtype=torch.int32, device=dev)
+    vals = torch.empty((R, K), dtype=torch.float32, device=dev)
+    pspgemm.launch("spgemm_expand", dev, *(t.data_ptr() for t in planes),
+                   cols.data_ptr(), vals.data_ptr(), R, Wa, B.width, B.n_cols)
+    return cols, vals
+
+
+def gather_candidates(A: ELL, B: ELL):
+    """(R, Wa·Wb) candidate (cols, vals) of A·B; cols == SENT = B.n_cols on
+    empty slots."""
+    _check_operands(A, B)
+    if A.cols.device.type == "cpu":
+        return _gather_candidates_plain(A, B)
+    if A.cols.device.type != "cuda":
+        raise ValueError(f"SpGEMM runs on cpu or cuda, not {A.cols.device}")
+    return _gather_candidates_cuda(A, B)
+
+
+def _dedup_compact_plain(cand_cols, cand_vals, sent: int, out_width: int):
+    """Plain torch B4: the equality-matrix merge, then leaders scattered to
+    their rank (a trash column takes the rest)."""
+    R, K = cand_cols.shape
+    dev = cand_cols.device
+    out_c = torch.empty((R, out_width), dtype=torch.int32, device=dev)
+    out_v = torch.empty((R, out_width), dtype=torch.float32, device=dev)
+    counts = torch.empty(R, dtype=torch.int32, device=dev)
+    for r0, r1 in pspgemm.plain_row_blocks(R, K):
+        cc = cand_cols[r0:r1]
+        leader, sums = pspgemm.merge_rows_plain(cc, cand_vals[r0:r1], sent)
+        pos = leader.int().cumsum(1) - 1
+        slot = torch.where(leader & (pos < out_width), pos, out_width).long()
+        buf_c = torch.zeros((r1 - r0, out_width + 1), dtype=torch.int32,
+                            device=dev)
+        buf_v = torch.zeros((r1 - r0, out_width + 1), dtype=torch.float32,
+                            device=dev)
+        buf_c.scatter_(1, slot, torch.where(leader, cc, 0))
+        buf_v.scatter_(1, slot, torch.where(leader, sums, 0.0))
+        out_c[r0:r1] = buf_c[:, :out_width]
+        out_v[r0:r1] = buf_v[:, :out_width]
+        counts[r0:r1] = leader.sum(1)
+    return out_c, out_v, counts
+
+
+def _dedup_compact_cuda(cand_cols, cand_vals, sent: int, out_width: int):
+    """Launch ``spgemm_dedup_compact`` (B4) on the current stream."""
+    if not (cand_cols.is_contiguous() and cand_vals.is_contiguous()):
+        raise ValueError("candidate planes must be contiguous")
+    R, K = cand_cols.shape
+    dev = cand_cols.device
+    out_c = torch.empty((R, out_width), dtype=torch.int32, device=dev)
+    out_v = torch.empty((R, out_width), dtype=torch.float32, device=dev)
+    counts = torch.empty(R, dtype=torch.int32, device=dev)
+    pspgemm.launch("spgemm_dedup_compact", dev, cand_cols.data_ptr(),
+                   cand_vals.data_ptr(), out_c.data_ptr(), out_v.data_ptr(),
+                   counts.data_ptr(), R, K, out_width, sent)
+    return out_c, out_v, counts
+
+
+def dedup_compact(cand_cols, cand_vals, sent: int, out_width: int):
+    """Merge duplicate columns per row and compact the leaders to the front.
+
+    Returns (cols, vals) of shape (R, out_width), leaders in slot order with
+    zeros after them, and (R,) int32 counts of distinct columns, uncapped: a
+    row whose count exceeds ``out_width`` keeps its first ``out_width``
+    leaders.
+    """
+    sent, out_width = int(sent), int(out_width)
+    pspgemm.check_candidates(cand_cols, cand_vals, sent)
+    if not 1 <= out_width < 2**31:
+        raise ValueError(f"out_width {out_width} must be a positive int32")
+    if cand_cols.device.type == "cpu":
+        return _dedup_compact_plain(cand_cols, cand_vals, sent, out_width)
+    return _dedup_compact_cuda(cand_cols, cand_vals, sent, out_width)
+
+
+def _product(A: ELL, B: ELL, out_width, strict, expand, count, compact) -> ELL:
+    """C = A @ B from its three steps: ``expand`` (B3), ``count`` (B5's
+    counts, for the width unless ``out_width`` is given), ``compact`` (B4)."""
+    sent = B.n_cols
+    cand_c, cand_v = expand(A, B)
+    explicit = out_width is not None
+    if not explicit:
+        counts = count(cand_c, cand_v, sent, counts_only=True)
+        out_width = max(int(counts.max()) if counts.numel() else 0, 1)
+    cols, vals, counts = compact(cand_c, cand_v, sent, out_width)
+    if explicit and strict and counts.numel():
+        worst = int(counts.max())
+        if worst > out_width:
+            raise ValueError(
+                f"gather_spgemm: out_width={out_width} < max distinct columns "
+                f"{worst}; entries would be dropped (pass strict=False to clamp)")
+    nnz = torch.clamp(counts, max=out_width)
+    return ELL(cols, vals, nnz, (A.n_rows, B.n_cols))
+
+
+def gather_spgemm(A: ELL, B: ELL, out_width: int | None = None,
+                  strict: bool = True) -> ELL:
+    """C = A @ B in ELL: B3, then B5's counts for the width (one host read)
+    unless ``out_width`` is given, then B4.
+
+    An explicit ``out_width`` below a row's count of distinct columns raises
+    with ``strict=True`` (one host read); ``strict=False`` keeps each such
+    row's first ``out_width`` columns.
+    """
+    return _product(A, B, out_width, strict, gather_candidates, pspgemm.dedup,
+                    dedup_compact)
+
+
+def plain_spgemm(A: ELL, B: ELL, out_width: int | None = None,
+                 strict: bool = True) -> ELL:
+    """``gather_spgemm`` by the plain torch versions of its three steps, on
+    any device."""
+    _check_operands(A, B)
+    if out_width is not None and not 1 <= int(out_width) < 2**31:
+        raise ValueError(f"out_width {out_width} must be a positive int32")
+    return _product(A, B, out_width, strict, _gather_candidates_plain,
+                    pspgemm._dedup_plain, _dedup_compact_plain)

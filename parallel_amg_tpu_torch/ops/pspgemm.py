@@ -1,0 +1,149 @@
+"""SpGEMM duplicate merge (kernel B5) and the binding of ``csrc/spgemm.cu``.
+
+Counterpart of the dedup phase of ``parallel_amg_tpu/ops/pspgemm.py``
+(``_dedup_call``): per row of a candidate table, sum the values of equal
+columns into the first slot that holds the column (the leader), turn every
+other slot into (SENT, 0), and count the distinct columns.  ``dedup`` with
+``counts_only=True`` returns the counts alone, which is how ``gather_spgemm``
+sizes its output width.
+
+``dedup`` launches ``spgemm_dedup`` from ``csrc/spgemm.cu`` on a CUDA tensor
+(or raises) and runs the plain torch version ``_dedup_plain`` on a CPU tensor.
+``launch`` calls the three C entries of ``csrc/spgemm.cu`` (B3, B5, B4) and
+counts each one's launches in ``LAUNCHES``, keyed by symbol.  The JAX
+module's first SpGEMM
+(``pallas_spgemm`` and its TWELL-piece gather, B9) is not ported: the
+rank-plane pipeline of ``ops/gspgemm.py`` computes the same product.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from parallel_amg_tpu_torch.ops import _build
+
+# kernel launches by C entry, counted in ``launch``; callers may reset them
+LAUNCHES = {"spgemm_expand": 0, "spgemm_dedup": 0, "spgemm_dedup_compact": 0}
+
+_INT32_LIMIT = 2**31
+# Rows of one (rows, K, K) equality block in the plain versions.
+_PLAIN_ELEMENTS = 1 << 24
+
+_ARGTYPES = {
+    "spgemm_expand": [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p],
+    "spgemm_dedup": [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                             ctypes.c_int, ctypes.c_void_p],
+    "spgemm_dedup_compact": [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
+}
+
+
+@functools.cache
+def kernel(symbol: str):
+    """The C entry ``symbol`` of ``csrc/spgemm.cu``, built on first use."""
+    fn = getattr(_build.load("spgemm"), symbol)
+    # pointers and the stream as c_void_p: without argtypes ctypes passes a
+    # Python int as a 32-bit C int and cuts the pointer
+    fn.argtypes = _ARGTYPES[symbol]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(symbol: str, device, *args) -> None:
+    """Call ``symbol`` on the current stream of ``device`` and count the
+    launch; raise on a CUDA error code."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = kernel(symbol)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
+    LAUNCHES[symbol] += 1
+
+
+def check_candidates(cand_cols, cand_vals, sent: int) -> None:
+    """Shapes and types the merge kernels take (and the plain versions)."""
+    if cand_cols.dim() != 2 or cand_cols.shape != cand_vals.shape:
+        raise ValueError(f"candidate planes {tuple(cand_cols.shape)} and "
+                         f"{tuple(cand_vals.shape)} must be one (R, K) shape")
+    if cand_cols.dtype != torch.int32 or cand_vals.dtype != torch.float32:
+        raise TypeError("candidates must be int32 columns and float32 values")
+    if cand_cols.device != cand_vals.device:
+        raise ValueError("candidate planes lie on different devices")
+    if not 0 <= sent < _INT32_LIMIT:
+        raise ValueError(f"SENT {sent} does not fit int32")
+    if cand_cols.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"SpGEMM runs on cpu or cuda, not {cand_cols.device}")
+
+
+def merge_rows_plain(cc, cv, sent: int):
+    """(leader, sums) of one block of candidate rows, plain torch.
+
+    E[r, k, j] = (col k == col j) for valid slots; slot j leads when no
+    earlier slot k < j has its column; sums[r, j] = Σ_k vals[k]·E[k, j].
+    """
+    K = cc.shape[1]
+    valid = cc != sent
+    E = (cc[:, :, None] == cc[:, None, :]) & valid[:, :, None]
+    earlier = torch.ones((K, K), dtype=torch.bool, device=cc.device).triu(1)
+    leader = valid & ~(E & earlier).any(1)
+    sums = (cv[:, :, None] * E).sum(1)
+    return leader, sums
+
+
+def plain_row_blocks(R: int, K: int):
+    """Row ranges whose (rows, K, K) equality blocks stay bounded."""
+    step = max(_PLAIN_ELEMENTS // max(K * K, 1), 1)
+    return [(r0, min(r0 + step, R)) for r0 in range(0, R, step)]
+
+
+def _dedup_plain(cand_cols, cand_vals, sent: int, counts_only: bool = False):
+    """Plain torch B5: an equality matrix per block of rows."""
+    R, K = cand_cols.shape
+    out_c = torch.empty_like(cand_cols)
+    out_v = torch.empty_like(cand_vals)
+    counts = torch.empty(R, dtype=torch.int32, device=cand_cols.device)
+    for r0, r1 in plain_row_blocks(R, K):
+        cc = cand_cols[r0:r1]
+        leader, sums = merge_rows_plain(cc, cand_vals[r0:r1], sent)
+        out_c[r0:r1] = torch.where(leader, cc, sent)
+        out_v[r0:r1] = torch.where(leader, sums, 0.0)
+        counts[r0:r1] = leader.sum(1)
+    return counts if counts_only else (out_c, out_v, counts)
+
+
+def _dedup_cuda(cand_cols, cand_vals, sent: int, counts_only: bool = False):
+    """Launch ``spgemm_dedup`` (B5) on the current stream."""
+    if not (cand_cols.is_contiguous() and cand_vals.is_contiguous()):
+        raise ValueError("candidate planes must be contiguous")
+    R, K = cand_cols.shape
+    counts = torch.empty(R, dtype=torch.int32, device=cand_cols.device)
+    out_c = out_v = None
+    if not counts_only:
+        out_c = torch.empty_like(cand_cols)
+        out_v = torch.empty_like(cand_vals)
+    launch("spgemm_dedup", cand_cols.device, cand_cols.data_ptr(),
+           cand_vals.data_ptr(), None if counts_only else out_c.data_ptr(),
+           None if counts_only else out_v.data_ptr(), counts.data_ptr(), R, K,
+           sent)
+    return counts if counts_only else (out_c, out_v, counts)
+
+
+def dedup(cand_cols, cand_vals, sent: int, counts_only: bool = False):
+    """Merge duplicate columns per row of (R, K) candidate planes.
+
+    Returns (cols, vals, counts): leaders keep their slot and carry the sum
+    of their column's values in ascending slot order; every other slot is
+    (SENT, 0); counts (R,) int32 is the number of distinct columns.  With
+    ``counts_only`` only the counts are computed and returned.
+    """
+    sent = int(sent)
+    check_candidates(cand_cols, cand_vals, sent)
+    if cand_cols.device.type == "cpu":
+        return _dedup_plain(cand_cols, cand_vals, sent, counts_only)
+    return _dedup_cuda(cand_cols, cand_vals, sent, counts_only)

@@ -15,20 +15,21 @@ import torch
 from parallel_amg_tpu_torch.ops.dia import DIA
 from parallel_amg_tpu_torch.ops.twell import TWELL
 
-# DIA is preferred while its traffic D·n stays within this factor of the
-# nnz-proportional traffic (diagonal fill can be sparse on deep levels).
-_DIA_MAX_DIAGS = 192
+DIA_MAX_DIAGS = 192
+
+
+def prefer_dia(nnz: int, n_diags: int, n_rows: int) -> bool:
+    """DIA unless the band is mostly empty (traffic blow-up): the D·n
+    values stored against the nnz actual."""
+    fill = nnz / max(n_diags * n_rows, 1)
+    return fill > 0.15 or n_diags <= 32
 
 
 def best_format(csr, dtype=torch.float32):
     """Pick the solve format for a host CSR matrix (tensors on the CPU)."""
     n_rows, n_cols = csr.shape
     if n_rows == n_cols:
-        dia = DIA.from_csr(csr, dtype=dtype, max_diags=_DIA_MAX_DIAGS)
-        if dia is not None:
-            # reject DIA when the band is mostly empty (traffic blow-up):
-            # D·n values stored vs nnz actual
-            fill = csr.nnz / max(dia.n_diags * n_rows, 1)
-            if fill > 0.15 or dia.n_diags <= 32:
-                return dia
+        dia = DIA.from_csr(csr, dtype=dtype, max_diags=DIA_MAX_DIAGS)
+        if dia is not None and prefer_dia(csr.nnz, dia.n_diags, n_rows):
+            return dia
     return TWELL.from_csr(csr, dtype=dtype)

@@ -154,8 +154,13 @@ def test_interop_carries_jax_hierarchy():
 
 def test_unported_setups_raise():
     A = poisson2d(8).to_csr()
-    with pytest.raises(NotImplementedError, match="A6"):
-        ptt.setup(A, ptt.AMGConfig(on_device_setup=True), device="cpu")
+    # Ruge–Stüben on the device is ported: ELL levels until with_best_formats
+    h = ptt.setup(A, ptt.AMGConfig(on_device_setup=True, n_coarse_max=16),
+                  device="cpu")
+    assert h.n_levels >= 2 and type(h.levels[0].A).__name__ == "ELL"
+    with pytest.raises(NotImplementedError, match="A7"):
+        ptt.setup(A, ptt.AMGConfig(coarsening="sa", on_device_setup=True),
+                  device="cpu")
     # block SA with grid dims: the structured path, on the host and on device
     for on_device in (False, True):
         hb = ptt.setup(A, ptt.AMGConfig(coarsening="sa", aggregate="block",
@@ -191,6 +196,12 @@ def test_port_runs_without_jax():
         "                                 cfg3, device='cpu'), 'mixed')\n"
         "res = p.amg_pcg(None, h3, torch.ones(9 ** 3), tol=1e-6, maxiter=30)\n"
         "assert res.converged and res.x.shape == (9 ** 3,), res\n"
+        "cfg_rs = p.AMGConfig(coarsening='rs', smoother='chebyshev', n_coarse_max=32,\n"
+        "                     on_device_setup=True, interpolation='extended_i')\n"
+        "hr = p.with_best_formats(p.setup(poisson2d(24).to_csr(), cfg_rs, device='cpu'),\n"
+        "                         device=True)\n"
+        "res = p.amg_pcg(None, hr, torch.ones(24 * 24), tol=1e-6, maxiter=30)\n"
+        "assert res.converged, res\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'parallel_amg_tpu' not in sys.modules, 'JAX package imported'\n"
         "print('ok')\n"

@@ -1,0 +1,289 @@
+"""The port's setup SpGEMM (kernels B3, B4, B5) against the JAX package.
+
+On the CPU the port's wrappers run their plain torch versions; the JAX side
+runs its Pallas kernels in interpret mode (``gather_candidates``,
+``_dedup_call``, ``_dedup_compact_call``) on at most 400 rows.  Columns and
+counts must be equal exactly.  B3's candidate values are single float32
+products and must be bit-equal; a merged value sums the same float32
+products in another order, so it is held to
+|Δ| ≤ 1e-6 + 1e-5·Σ|merged candidates|.  Whole
+products are held against scipy as (column, value) sets at 1e-5.  The CUDA
+cases hold each kernel against its plain version on the card with the same
+bounds.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from parallel_amg_tpu_torch.ops import gspgemm, pspgemm
+from parallel_amg_tpu_torch.ops.csr import CSR
+from parallel_amg_tpu_torch.ops.ell import ELL
+from parallel_amg_tpu_torch.ops.ell_setup import ell_spgemm, ell_spgemm_pairwise
+from parallel_amg_tpu_torch.problems import poisson2d
+
+torch.set_num_threads(2)
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _random(n_rows, n_cols, density, seed, zeros=0.0):
+    rng = np.random.default_rng(seed)
+    m = sp.random(n_rows, n_cols, density=density,
+                  random_state=np.random.RandomState(seed), format="csr")
+    m.data[:] = rng.normal(size=m.nnz).astype(np.float32)
+    m.data[rng.random(m.nnz) < zeros] = 0.0  # explicit zeros stay stored
+    m.sort_indices()
+    return m
+
+
+def _poisson(n):
+    return poisson2d(n).to_csr().to_scipy().tocsr()
+
+
+def _ell(m):
+    return ELL.from_csr(CSR.from_scipy(m), dtype=torch.float32)
+
+
+@functools.cache
+def _galerkin_pair():
+    """(A, P) of a Galerkin-shaped product on a 16² Poisson."""
+    A = _poisson(16)
+    n = A.shape[0]
+    P = (sp.random(n, 70, density=0.02, random_state=1, format="csr")
+         + sp.eye(n, 70) * 0.5).tocsr()
+    P.sort_indices()
+    return A, P
+
+
+CASES = {
+    "square_poisson": lambda: (_poisson(16), _poisson(16)),
+    "rect_AP": lambda: _galerkin_pair(),
+    "rect_RAP": lambda: (_galerkin_pair()[1].T.tocsr(),
+                         (_galerkin_pair()[0] @ _galerkin_pair()[1]).tocsr()),
+    "explicit_zeros": lambda: (_random(120, 90, 0.06, 3, zeros=0.3),
+                               _random(90, 140, 0.05, 4, zeros=0.3)),
+}
+
+
+def _jax():
+    jnp = pytest.importorskip("jax.numpy")
+    from parallel_amg_tpu.ops.csr import CSR as JCSR
+    from parallel_amg_tpu.ops.ell import ELL as JELL
+    from parallel_amg_tpu.ops import gspgemm as jg
+    from parallel_amg_tpu.ops import pspgemm as jp
+    return jnp, JCSR, JELL, jg, jp
+
+
+def _jax_candidates(a, b):
+    jnp, JCSR, JELL, jg, _ = _jax()
+    A = JELL.from_csr(JCSR.from_scipy(a), dtype=jnp.float32)
+    B = JELL.from_csr(JCSR.from_scipy(b), dtype=jnp.float32)
+    cc, cv = jg.gather_candidates(jg.GatherSpgemmPlan.from_ell(A), B)
+    return np.asarray(cc)[:a.shape[0]], np.asarray(cv)[:a.shape[0]]
+
+
+def _merge_bound(cand_c, cand_v, sent):
+    """Σ|merged candidates| at each leader (B5's in-place layout)."""
+    return pspgemm._dedup_plain(cand_c, cand_v.abs(), sent)[1]
+
+
+@pytest.mark.parametrize("name", ["rect_AP", "explicit_zeros"])
+def test_expand_matches_jax_gather_candidates(name):
+    a, b = CASES[name]()
+    cc, cv = gspgemm.gather_candidates(_ell(a), _ell(b))
+    jc, jv = _jax_candidates(a, b)
+    assert cc.shape == jc.shape and cc.dtype == torch.int32
+    np.testing.assert_array_equal(cc.numpy(), jc)
+    # every candidate is one float32 product: bit-equal.  Empty slots are 0
+    # here; the JAX kernel leaves some of them −0.0 (its sum of a signed
+    # zero product), which no merge reads.
+    real = jc < b.shape[1]
+    np.testing.assert_array_equal(cv.numpy().view(np.int32)[real],
+                                  jv.view(np.int32)[real])
+    assert (cv.numpy().view(np.int32)[~real] == 0).all()
+    assert (jv[~real] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["rect_AP", "explicit_zeros"])
+def test_dedup_matches_jax(name):
+    a, b = CASES[name]()
+    _, _, _, _, jp = _jax()
+    sent = b.shape[1]
+    cc, cv = gspgemm.gather_candidates(_ell(a), _ell(b))
+    oc, ov, on = pspgemm.dedup(cc, cv, sent)
+    jc, jv, jn = (np.asarray(t) for t in jp._dedup_call(cc.numpy(), cv.numpy(), sent))
+    np.testing.assert_array_equal(oc.numpy(), jc)
+    np.testing.assert_array_equal(on.numpy(), jn)
+    bound = ATOL + RTOL * _merge_bound(cc, cv, sent).numpy()
+    assert (np.abs(ov.numpy() - jv) <= bound).all()
+    np.testing.assert_array_equal(
+        pspgemm.dedup(cc, cv, sent, counts_only=True).numpy(), jn)
+
+
+def _hand_case():
+    """tests/test_gspgemm.py's hand case: duplicates, an all-SENT row and a
+    row over out_width=3."""
+    sent = 100
+    cand_c = torch.tensor([[3, 7, 3, sent, 9, 7],
+                           [5, sent, sent, 5, 5, 5],
+                           [sent] * 6,
+                           [1, 2, 3, 4, 5, 6]], dtype=torch.int32)
+    cand_v = torch.tensor([[1.0, 2.0, 10.0, 0.0, 4.0, 20.0],
+                           [1.0, 0.0, 0.0, 1.0, 1.0, 1.0],
+                           [0.0] * 6,
+                           [1.0] * 6], dtype=torch.float32)
+    return cand_c, cand_v, sent, 3
+
+
+def _random_candidates():
+    """250 rows of K = 40 candidates over 12 columns: many duplicates."""
+    rng = np.random.default_rng(9)
+    sent = 12
+    cc = rng.integers(0, sent + 1, size=(250, 40)).astype(np.int32)
+    cv = np.where(cc < sent, rng.normal(size=cc.shape), 0.0).astype(np.float32)
+    return torch.from_numpy(cc), torch.from_numpy(cv), sent, 8
+
+
+@pytest.mark.parametrize("make", [_hand_case, _random_candidates],
+                         ids=["hand", "random"])
+def test_dedup_compact_matches_jax(make):
+    _, _, _, jg, _ = _jax()
+    cc, cv, sent, w = make()
+    oc, ov, on = gspgemm.dedup_compact(cc, cv, sent, w)
+    jc, jv, jn = (np.asarray(t) for t in jg._dedup_compact_call(
+        cc.numpy(), cv.numpy(), sent, out_width=w))
+    np.testing.assert_array_equal(on.numpy(), jn)
+    np.testing.assert_array_equal(oc.numpy(), jc)
+    bound = ATOL + RTOL * gspgemm._dedup_compact_plain(cc, cv.abs(), sent, w)[1]
+    assert (np.abs(ov.numpy() - jv) <= bound.numpy()).all()
+    if make is _hand_case:
+        assert on.tolist() == [3, 1, 0, 6]
+        assert oc[0].tolist() == [3, 7, 9] and ov[0].tolist() == [11.0, 22.0, 4.0]
+        assert oc[3].tolist() == [1, 2, 3]
+
+
+def _assert_same_sets(C: ELL, ref):
+    ref = ref.tocsr()
+    ref.eliminate_zeros()
+    got = C.to_csr().to_scipy()
+    assert got.shape == ref.shape
+    assert got.nnz == ref.nnz
+    d = abs(got - ref)
+    assert (d.max() if d.nnz else 0.0) <= RTOL * max(abs(ref).max(), 1.0)
+    # every row's columns are distinct and padding is (0, 0)
+    m = C.mask()
+    assert bool((C.cols[~m] == 0).all()) and bool((C.vals[~m] == 0).all())
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_spgemm_matches_scipy(name):
+    a, b = CASES[name]()
+    ref = a @ b
+    for C in (gspgemm.gather_spgemm(_ell(a), _ell(b)), ell_spgemm(_ell(a), _ell(b)),
+              ell_spgemm_pairwise(_ell(a), _ell(b))):
+        _assert_same_sets(C, ref)
+    # the pairwise formulation is the same three steps: same layout
+    C1 = ell_spgemm(_ell(a), _ell(b))
+    C2 = ell_spgemm_pairwise(_ell(a), _ell(b))
+    assert torch.equal(C1.cols, C2.cols) and torch.equal(C1.row_nnz, C2.row_nnz)
+
+
+def test_strict_out_width():
+    a, b = CASES["rect_AP"]()
+    ref = (a @ b).tocsr()
+    ref.eliminate_zeros()
+    widest = int(np.diff(ref.indptr).max())
+    _assert_same_sets(gspgemm.gather_spgemm(_ell(a), _ell(b), out_width=widest), ref)
+    with pytest.raises(ValueError, match="out_width"):
+        gspgemm.gather_spgemm(_ell(a), _ell(b), out_width=widest - 1)
+    with pytest.raises(ValueError, match="out_width"):
+        ell_spgemm_pairwise(_ell(a), _ell(b), out_width=widest - 1)
+    C = gspgemm.gather_spgemm(_ell(a), _ell(b), out_width=widest - 1, strict=False)
+    assert C.width == widest - 1
+    assert int(C.row_nnz.max()) == widest - 1
+    full = gspgemm.gather_spgemm(_ell(a), _ell(b))
+    # clamped rows keep their first columns
+    keep = torch.arange(widest - 1)[None, :] < C.row_nnz[:, None]
+    assert torch.equal(torch.where(keep, full.cols[:, :widest - 1], 0), C.cols)
+
+
+def test_wrapper_checks():
+    a, b = CASES["rect_AP"]()
+    with pytest.raises(ValueError, match="inner"):
+        gspgemm.gather_candidates(_ell(b), _ell(b))
+    A = _ell(a)
+    with pytest.raises(TypeError):
+        gspgemm.gather_candidates(ELL(A.cols, A.vals.double(), A.row_nnz, A.shape),
+                                  _ell(b))
+    cc, cv = gspgemm.gather_candidates(A, _ell(b))
+    with pytest.raises(TypeError):
+        pspgemm.dedup(cc.long(), cv, b.shape[1])
+    with pytest.raises(ValueError):
+        gspgemm.dedup_compact(cc, cv, b.shape[1], 0)
+
+
+# -- the kernels on the card ---------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("kernels B3, B4 and B5 are CUDA C++ and need a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cuda_kernels_match_plain(name):
+    dev = _cuda()
+    a, b = CASES[name]()
+    A, B = _ell(a).to(dev), _ell(b).to(dev)
+    sent = B.n_cols
+    before = dict(pspgemm.LAUNCHES)
+    cc, cv = gspgemm.gather_candidates(A, B)
+    pc, pv = gspgemm._gather_candidates_plain(A, B)
+    torch.cuda.synchronize()
+    assert torch.equal(cc, pc) and torch.equal(cv, pv)
+    oc, ov, on = pspgemm.dedup(cc, cv, sent)
+    qc, qv, qn = pspgemm._dedup_plain(cc, cv, sent)
+    counts = pspgemm.dedup(cc, cv, sent, counts_only=True)
+    torch.cuda.synchronize()
+    assert torch.equal(oc, qc) and torch.equal(on, qn) and torch.equal(counts, qn)
+    assert bool(((ov - qv).abs() <= ATOL + RTOL * _merge_bound(cc, cv, sent)).all())
+    w = max(int(qn.max()) - 1, 1)  # one row over out_width
+    oc, ov, on = gspgemm.dedup_compact(cc, cv, sent, w)
+    qc, qv, qn = gspgemm._dedup_compact_plain(cc, cv, sent, w)
+    bound = ATOL + RTOL * gspgemm._dedup_compact_plain(cc, cv.abs(), sent, w)[1]
+    torch.cuda.synchronize()
+    assert torch.equal(oc, qc) and torch.equal(on, qn)
+    assert bool(((ov - qv).abs() <= bound).all())
+    assert pspgemm.LAUNCHES == {"spgemm_expand": before["spgemm_expand"] + 1,
+                                "spgemm_dedup": before["spgemm_dedup"] + 2,
+                                "spgemm_dedup_compact": before["spgemm_dedup_compact"] + 1}
+    _assert_same_sets(gspgemm.gather_spgemm(A, B).to("cpu"), a @ b)
+
+
+@pytest.mark.cuda
+def test_cuda_merge_wide_rows():
+    """K above the kernel's 512-slot shared-memory stage: chunked path, in
+    all three modes of the merge."""
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    sent = 300
+    cc = torch.from_numpy(rng.integers(0, sent + 1, size=(64, 1100)).astype(np.int32))
+    cv = torch.where(cc < sent, torch.from_numpy(
+        rng.normal(size=cc.shape).astype(np.float32)), 0.0)
+    cc, cv = cc.to(dev), cv.to(dev)
+    oc, ov, on = gspgemm.dedup_compact(cc, cv, sent, 290)
+    qc, qv, qn = gspgemm._dedup_compact_plain(cc, cv, sent, 290)
+    bound = ATOL + RTOL * gspgemm._dedup_compact_plain(cc, cv.abs(), sent, 290)[1]
+    counts = pspgemm.dedup(cc, cv, sent, counts_only=True)
+    fc, fv, fn = pspgemm.dedup(cc, cv, sent)
+    rc, rv, rn = pspgemm._dedup_plain(cc, cv, sent)
+    torch.cuda.synchronize()
+    assert torch.equal(oc, qc) and torch.equal(on, qn)
+    assert bool(((ov - qv).abs() <= bound).all())
+    assert torch.equal(counts, qn) and torch.equal(fn, qn) and torch.equal(fc, rc)
+    assert bool(((fv - rv).abs() <= ATOL + RTOL * _merge_bound(cc, cv, sent)).all())
