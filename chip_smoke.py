@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 1. Device: torch, CUDA and nvcc versions, the card's name and power limit.
-2. Build: compiles csrc/twell_spmv.cu, csrc/flatdia_spmv.cu and
-   csrc/spgemm.cu with nvcc into build/, all at once, and prints each one's
-   ptxas lines; then the card's copy bandwidth from a 1 GiB device-to-device
-   copy.
+2. Build: compiles csrc/twell_spmv.cu, csrc/flatdia_spmv.cu,
+   csrc/spgemm.cu, csrc/bsr_spmv.cu and csrc/flatdia_spmm.cu with nvcc into
+   build/, all at once, and prints each one's ptxas lines; then the card's
+   copy bandwidth from a 1 GiB device-to-device copy.
 3. Setup of acceptance config #2 at its full size (2D Poisson 1024²,
    Ruge–Stüben PMIS + extended+i, Chebyshev, n_coarse_max=256) on the card.
 4. Kernel B1 (twell_spmv) against its plain torch version on a random
@@ -26,8 +26,8 @@
    1e-6 with B2's launch count and the true residual in float64; then the
    V-cycle and iterations again under "pallas" (every level on B2).
 9. Profile: device kernels, device time and busy share per V-cycle of
-   config #2 (host and device setup) and config #3 (torch.profiler); it
-   runs after phase 12.
+   config #2 (host and device setup), config #3 and config #5
+   (torch.profiler); it runs after phase 16.
 10. setup_rs: config #2 set up on the card (``on_device_setup=True``, the
     Ruge–Stüben setup of amg/device_rs.py), twice: seconds, levels, the K and
     w of every product, complexities beside the JAX package's, the launches
@@ -43,7 +43,27 @@
     float64 oracle's iterations and the slice's residual limit.
 13. aniso: config #4 (anisotropic ε=1e-3 at 512²) set up on the card and
     solved to 1e-6, against the float64 oracle on the same matrix.
-14. Config #1: 64², V(1,1) weighted Jacobi, standalone solve.
+14. setup_vec: acceptance config #5 at 128³×3 (the coupled vector Laplacian
+    L ⊗ C, γ=0.3, config #3's block-SA config) set up on the card with the
+    BSR fine level: seconds, node rows, product paths, complexities against
+    the JAX package's, peak memory.
+15. Kernel B6 (bsr_spmv) against its plain version on config #5's 128³×3
+    BSR (float32 and bfloat16), its BTWELL form through matvec_planes and a
+    random block matrix with empty rows; kernel B7 (flatdia_spmm) on the
+    128³ scalar L with k = 3 (float32 and bfloat16), 1 and 8, config #3's
+    level 1 with k = 3 and a stencil with nonzero off-grid weights: kernel,
+    plain, bound and library (torch sparse BSR or CSR) times.
+16. slice_vec: config #5's V-cycle (with B6 and B7 launches per cycle) and
+    amg_pcg to 1e-6 with the float64 true residual, then the same solve
+    with fine_format "btwell" and "bstencil", held to the same count.
+17. slice_vec_100m: config #5 at 324³×3 = 102,036,672 DOF set up on the
+    card (level 0 on the slab product path; the scalar setup first alone,
+    for its seconds and the peak of the slab temporaries), one B6 time at
+    that size, and
+    amg_pcg to 1e-6 within 60 iterations with the float64 true residual.
+    It runs last, after config #1, with the earlier hierarchies of config #5
+    freed.
+18. Config #1: 64², V(1,1) weighted Jacobi, standalone solve (before 17).
 
 Every phase prints JSON lines.  Any failure raises, so the script exits
 non-zero without its last line, which on success is
@@ -82,14 +102,24 @@ KERNELS = {
                      "replaces": "parallel_amg_tpu/ops/pspgemm.py:150"},
     "spgemm_dedup_compact": {"source": SPGEMM_SOURCE,
                              "replaces": "parallel_amg_tpu/ops/gspgemm.py:414"},
+    "bsr_spmv": {"source": "parallel_amg_tpu_torch/csrc/bsr_spmv.cu",
+                 "replaces": "parallel_amg_tpu/ops/btwell.py:288"},
+    "flatdia_spmm": {"source": "parallel_amg_tpu_torch/csrc/flatdia_spmm.cu",
+                     "replaces": "parallel_amg_tpu/ops/flatdia.py:212"},
 }
-LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm")  # csrc/<name>.cu
+LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm", "bsr_spmv",
+             "flatdia_spmm")  # csrc/<name>.cu
 CONFIG3_ROWS = [2_097_152, 79_507, 3_375, 125]
 CONFIG3_ITERS = 12  # the JAX package's count (bench_details.json:40)
 # The JAX package's device-RS numbers: config #2 at 1024² (BENCH_r04.json,
 # stage amg_rs2d) and config #4 at 512² (BENCH_r05.json, stage anisotropic).
 CONFIG2_JAX = {"grid_complexity": 1.455, "operator_complexity": 2.397,
                "pcg_iters": 7}
+# The JAX package's config #5 numbers: 128³×3 with the BSR fine level
+# (bench_details.json:251-254) and the 324³×3 level rows
+# (artifacts/probe_100m_bsr.log:28).
+CONFIG5_JAX = {"complexity": (1.0396, 1.1459), "pcg_iters": 12}
+CONFIG5_100M_ROWS = [102_036_672, 3_779_136, 139_968, 5_184, 192]
 CONFIG4_JAX = {"rows": [262_144, 113_363, 49_202, 21_369, 9_301, 2_604, 590,
                         126],
                "grid_complexity": 1.75, "operator_complexity": 2.383,
@@ -192,17 +222,21 @@ def main():
 
     import parallel_amg_tpu_torch as ptt
     from parallel_amg_tpu_torch.amg import device_setup
-    from parallel_amg_tpu_torch.ops import _build, flatdia, gspgemm, pspgemm, twell
+    from parallel_amg_tpu_torch.ops import _build, bsr, flatdia, gspgemm, pspgemm, twell
     from parallel_amg_tpu_torch.ops.csr import CSR
     from parallel_amg_tpu_torch.ops.dia import DIA
     from parallel_amg_tpu_torch.ops.ell import ELL
     from parallel_amg_tpu_torch.ops.ell_setup import ell_spgemm
     from parallel_amg_tpu_torch.ops.flatdia import FlatDIA
     from parallel_amg_tpu_torch.ops.stencil import Stencil
+    from parallel_amg_tpu_torch.ops.bsr import BSR
+    from parallel_amg_tpu_torch.ops.btwell import btwell_from_kron_stencil
     from parallel_amg_tpu_torch.ops.twell import TWELL, _matvec_plain
     from parallel_amg_tpu_torch.oracle import oracle_pcg, oracle_setup
     from parallel_amg_tpu_torch.problems import (
         anisotropic2d,
+        coupled_laplacian,
+        coupling_matrix,
         poisson2d,
         poisson3d,
         poisson_stencil,
@@ -247,6 +281,21 @@ def main():
 
     def copy_bound_ms(n_bytes):
         return 1e3 * n_bytes / copy_bytes_s
+
+    def reset_counts():
+        """Every kernel's launch count to 0."""
+        twell.LAUNCHES = bsr.LAUNCHES = 0
+        for counts in (flatdia.LAUNCHES, pspgemm.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+    def spmv_counts():
+        return {"twell_spmv": twell.LAUNCHES,
+                "flatdia_spmv": flatdia.LAUNCHES["flatdia_spmv"]}
+
+    def vector_counts():
+        return {"bsr_spmv": bsr.LAUNCHES,
+                "flatdia_spmm": flatdia.LAUNCHES["flatdia_spmm"]}
 
     def check_kernel(name, case, dtype, y, ref, bound, extra):
         torch.cuda.synchronize()
@@ -440,12 +489,12 @@ def main():
     if not bool(torch.isfinite(v).all()):
         raise AssertionError("vcycle output not finite")
 
-    twell.LAUNCHES = flatdia.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = ptt.amg_pcg(None, h, b, tol=1e-6, maxiter=100)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches2 = {"twell_spmv": twell.LAUNCHES, "flatdia_spmv": flatdia.LAUNCHES}
+    launches2 = spmv_counts()
 
     def true_rel_residual(A_host, b_host, x):
         x = np.asarray(x, np.float64).reshape(-1)
@@ -493,12 +542,12 @@ def main():
         vt, v3 = wall_ms(lambda: ptt.vcycle(hb, zero3, b3))
         if not bool(torch.isfinite(v3).all()):
             raise AssertionError(f"{backend} vcycle output not finite")
-        twell.LAUNCHES = flatdia.LAUNCHES = 0
+        reset_counts()
         t0 = time.perf_counter()
         r3 = ptt.amg_pcg(hb.levels[0].A, hb, b3, tol=1e-6, maxiter=100)
         torch.cuda.synchronize()
         s3 = time.perf_counter() - t0
-        launches3 = {"twell_spmv": twell.LAUNCHES, "flatdia_spmv": flatdia.LAUNCHES}
+        launches3 = spmv_counts()
         true3 = true_rel_residual(A3_sp, b3_np, r3.x.cpu().numpy())
         slice3[backend] = dict(launches=launches3, iters=r3.iters)
         emit("slice3d", problem=f"poisson_stencil(({n3},)*3)", backend=backend,
@@ -523,11 +572,6 @@ def main():
 
     def spgemm_counts():
         return dict(pspgemm.LAUNCHES)
-
-    def reset_counts():
-        twell.LAUNCHES = flatdia.LAUNCHES = 0
-        for k in pspgemm.LAUNCHES:
-            pspgemm.LAUNCHES[k] = 0
 
     def rs_setup(A_host, label):
         torch.cuda.synchronize()
@@ -701,7 +745,7 @@ def main():
     res_rs = ptt.amg_pcg(None, h_fast, b, tol=1e-6, maxiter=100)
     torch.cuda.synchronize()
     solve_rs_s = time.perf_counter() - t0
-    launches_rs_pcg = {"twell_spmv": twell.LAUNCHES, "flatdia_spmv": flatdia.LAUNCHES}
+    launches_rs_pcg = spmv_counts()
     true_rs = true_rel_residual(A_sp, b_np, res_rs.x.cpu().numpy())
     limit_rs = 1e-6 + (res_rs.iters + 1) * f32_floor
     emit("slice_rs", problem=f"poisson2d({nx})",
@@ -755,6 +799,258 @@ def main():
         raise AssertionError(f"config #4 true residual {true4} > {limit4}")
     del h4, h4_fast, oh4, x4_oracle
 
+    # -- setup_vec: config #5 at 128³×3 on the card (BSR fine level) ------------
+    n5 = 128
+    C5 = coupling_matrix(3, 0.3)
+    C5_64 = torch.tensor(C5, dtype=torch.float64, device=dev)
+
+    def vector_setup(dims, fine_format, label):
+        L, _ = coupled_laplacian(dims, 3, 0.3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hv = ptt.setup_vector_kron(L, C5, cfg3, fine_format=fine_format)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        gc, oc = hv.complexity()
+        levels = [{"node_rows": l.n // 3, "rows": l.n, "format": fmt(l.A),
+                   "points": getattr(l.A, "n_points", None),
+                   "width": getattr(getattr(l.A, "bsr", None), "width", None),
+                   "nnz": l.A.nnz, "lam_max": l.lam_max} for l in hv.levels]
+        info = dict(problem=f"coupled_laplacian({dims}, bs=3, gamma=0.3)",
+                    fine_format=fine_format, seconds=secs, n_levels=hv.n_levels,
+                    levels=levels, product_paths=hv.setup_stats["product_paths"],
+                    grid_complexity=gc, operator_complexity=oc,
+                    jax_package_complexity=CONFIG5_JAX["complexity"],
+                    peak_device_gb_setup=torch.cuda.max_memory_allocated() / 1e9)
+        emit(label, **info)
+        return L, hv, info
+
+    L5, h5, info5 = vector_setup((n5,) * 3, "bsr", "setup_vec")
+    rows5 = [lv["node_rows"] for lv in info5["levels"]]
+    if rows5 != CONFIG3_ROWS:
+        raise AssertionError(f"config #5 node rows {rows5}, want {CONFIG3_ROWS}")
+    for got, want in zip((info5["grid_complexity"], info5["operator_complexity"]),
+                         CONFIG5_JAX["complexity"]):
+        if abs(got / want - 1) > 0.01:
+            raise AssertionError(f"config #5 complexity {got}, the JAX package {want}")
+
+    # -- kernel B6: bsr_spmv -------------------------------------------------------
+    def random_bsr(n_rows, n_cols, width, bs_, empty_frac):
+        g6 = torch.Generator(device=dev).manual_seed(6)
+        nnz = torch.randint(0, width + 1, (n_rows,), generator=g6, device=dev)
+        nnz[torch.rand(n_rows, generator=g6, device=dev) < empty_frac] = 0
+        live = torch.arange(width, device=dev)[:, None] < nnz[None]
+        cols = torch.randint(0, n_cols, (width, n_rows), generator=g6, device=dev)
+        vals = torch.randn((width, bs_ * bs_, n_rows), generator=g6, device=dev)
+        return BSR(torch.where(live, cols, 0).to(torch.int32),
+                   (vals * live[:, None]).reshape(width * bs_ * bs_, n_rows),
+                   nnz.to(torch.int32), (n_rows * bs_, n_cols * bs_), bs_)
+
+    def bsr_library(A, x):
+        """One torch sparse product on A's live blocks: a BSR tensor where
+        torch runs one on CUDA, else the expanded CSR.  (ms, kind, error)."""
+        bs_, RB = A.bs, A.n_block_rows
+        live = torch.arange(A.width, device=dev)[None, :] < A.brow_nnz[:, None].long()
+        r_idx, w_idx = torch.nonzero(live, as_tuple=True)  # row-major
+        cols = A.bcols[w_idx, r_idx].long()
+        blocks = A.vals.reshape(A.width, bs_ * bs_, RB)[w_idx, :, r_idx].float()
+        crow = torch.zeros(RB + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(A.brow_nnz.long(), 0)
+        size = (RB * bs_, A.n_block_cols * bs_)
+        xs = x if x.shape[0] == size[1] else torch.nn.functional.pad(x, (0, size[1] - x.shape[0]))
+        errors = []
+        try:
+            t = torch.sparse_bsr_tensor(crow, cols, blocks.reshape(-1, bs_, bs_), size=size)
+            return device_ms(lambda: t @ xs), "bsr", None
+        except RuntimeError as e:  # the yardstick only; never on the path
+            errors.append(f"{e}"[:200])
+        ii = torch.arange(bs_, device=dev)
+        rows = (r_idx[:, None, None] * bs_ + ii[None, :, None]).expand(-1, bs_, bs_)
+        ccols = (cols[:, None, None] * bs_ + ii[None, None, :]).expand(-1, bs_, bs_)
+        vv = blocks.reshape(-1, bs_, bs_)
+        keep = vv != 0
+        coo = torch.sparse_coo_tensor(torch.stack([rows[keep], ccols[keep]]), vv[keep], size)
+        del rows, ccols, vv, keep, blocks
+        lib = coo.coalesce().to_sparse_csr()
+        del coo
+        ms_, err = library_ms(lib, xs)
+        return ms_, "csr", "; ".join(errors + ([err] if err else [])) or None
+
+    def bsr_bytes(A):
+        n_live = int(A.brow_nnz.long().sum())
+        return (n_live * (4 + A.bs * A.bs * A.vals.element_size()) + A.n_block_rows * 4
+                + A.n_block_cols * A.bs * 4 + A.n_block_rows * A.bs * 4), n_live
+
+    A5 = h5.levels[0].A.bsr
+    bsr_cases = {
+        "config5_128^3x3": (A5, "matvec"),
+        "config5_128^3x3_btwell_planes": (btwell_from_kron_stencil(L5, C5), "planes"),
+        "random_500000x400000_w12_empty": (random_bsr(500_000, 400_000, 12, 3, 0.1),
+                                           "matvec"),
+    }
+    results["bsr_spmv"] = {"max_abs_err": 0.0}
+    for name, (A, how) in bsr_cases.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and name != "config5_128^3x3":
+                continue
+            Ad = type(A)(A.bcols, A.vals.to(dtype), A.brow_nnz, A.shape, A.bs)
+            x = torch.randn(Ad.n_block_cols * Ad.bs, generator=g, device=dev)
+            xb = x.reshape(-1, Ad.bs)
+            if how == "planes":
+                xp = xb.T.contiguous()
+                run = lambda: Ad.matvec_planes(xp)  # noqa: E731
+                y = run().T
+            else:
+                run = lambda: Ad.matvec(x)  # noqa: E731
+                y = run().reshape(-1, Ad.bs)
+            ref = bsr._matvec_plain(Ad.bcols, Ad.vals, Ad.bs, xb)
+            bound = ATOL + RTOL * bsr._matvec_plain(Ad.bcols, Ad.vals.abs(), Ad.bs, xb.abs())
+            n_bytes, n_live = bsr_bytes(Ad)
+            b_ms, b_by = bound_ms(n_bytes, 2 * n_live * Ad.bs ** 2)
+            lib_ms, lib_kind, lib_err = None, None, None
+            if dtype == torch.float32:
+                lib_ms, lib_kind, lib_err = bsr_library(Ad, x)
+            ms = device_ms(run)
+            plain_ms = device_ms(lambda: bsr._matvec_plain(Ad.bcols, Ad.vals, Ad.bs, xb),
+                                 reps=2, samples=5)
+            err = check_kernel("bsr_spmv", name, dtype, y, ref, bound, dict(
+                block_rows=Ad.n_block_rows, width=Ad.width, live_blocks=n_live,
+                vals_gb=Ad.vals_nbytes / 1e9, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, copy_bound_ms=copy_bound_ms(n_bytes),
+                library_ms=lib_ms, library_kind=lib_kind, library_error=lib_err,
+                gb_s=n_bytes / ms / 1e6))
+            r = results["bsr_spmv"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if name == "config5_128^3x3" and dtype == torch.float32:
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         copy_bound_ms=copy_bound_ms(n_bytes), library_ms=lib_ms,
+                         library_kind=lib_kind, main_case=f"{name} f32")
+            del Ad, x, xb, y, ref, bound
+    del bsr_cases
+
+    # -- kernel B7: flatdia_spmm -----------------------------------------------------
+    def offgrid_stencil(dims):
+        st = poisson_stencil(dims)
+        w = 0.5 + torch.rand(st.weights.shape, generator=g, device=dev)
+        return Stencil(w * torch.where(st.weights < 0, -1.0, 1.0), st.offsets, dims)
+
+    spmm_cases = {
+        "poisson_128^3_k3": (L5, 3),
+        "config3_level1_k3": (h3.levels[1].A, 3),
+        "poisson_128^3_k1": (L5, 1),
+        "poisson_128^3_k8": (L5, 8),
+        "offgrid_weights_64^3_k3": (offgrid_stencil((64,) * 3), 3),
+    }
+    results["flatdia_spmm"] = {"max_abs_err": 0.0}
+    for name, (st, k) in spmm_cases.items():
+        planes, offs = st.flat_planes()
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and name != "poisson_128^3_k3":
+                continue
+            W = planes.to(dtype).contiguous()
+            X = torch.randn((st.n, k), generator=g, device=dev)
+            Y = flatdia.dia_spmm(W, offs, X)
+            ref = flatdia._matmat_plain(W, offs, X)
+            bound = ATOL + RTOL * flatdia._matmat_plain(W.abs(), offs, X.abs())
+            extra_ok = True
+            if name.startswith("offgrid"):  # the stencil's two routes agree too
+                Xg = X.reshape(st.dims + (k,))
+                padded = st._matmat_plain(Xg).reshape(st.n, k)
+                extra_ok = bool(((st.matmat(Xg).reshape(st.n, k) - padded).abs()
+                                 <= bound).all())
+            n_bytes = len(offs) * st.n * W.element_size() + 2 * st.n * k * 4
+            b_ms, b_by = bound_ms(n_bytes, 2 * len(offs) * st.n * k)
+            lib_ms, lib_err = None, None
+            if dtype == torch.float32:
+                lib = flat_csr(FlatDIA(W, offs, st.n))
+                lib_ms, lib_err = library_ms(lib, X)
+                del lib
+            ms = device_ms(lambda: flatdia.dia_spmm(W, offs, X))
+            plain_ms = device_ms(lambda: flatdia._matmat_plain(W, offs, X),
+                                 reps=2, samples=5)
+            err = check_kernel("flatdia_spmm", name, dtype, Y, ref, bound, dict(
+                rows=st.n, diags=len(offs), k=k, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, copy_bound_ms=copy_bound_ms(n_bytes),
+                library_csr_ms=lib_ms, library_error=lib_err,
+                stencil_routes_agree=extra_ok, gb_s=n_bytes / ms / 1e6))
+            if not extra_ok:
+                raise AssertionError(f"flatdia_spmm {name}: Stencil.matmat on the "
+                                     "card disagrees with the padded plain version")
+            r = results["flatdia_spmm"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if name == "poisson_128^3_k3" and dtype == torch.float32:
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         copy_bound_ms=copy_bound_ms(n_bytes), library_ms=lib_ms,
+                         main_case=f"{name} f32")
+            del W, X, Y, ref, bound
+    del spmm_cases
+
+    # -- slice_vec: config #5 V-cycle and AMG-PCG at 128³×3 ---------------------------
+    def true_rel_residual_vec(L, b_host, x):
+        """‖b − (L ⊗ C)x‖/‖b‖ in float64 on the card: the plain
+        Stencil.matmat on float64 planes, then the C mix."""
+        L64 = Stencil(L.weights.double(), L.offsets, L.dims)
+        x64 = x.double().reshape(L.dims + (3,))
+        ax = L64._matmat_plain(x64) @ C5_64.T
+        b64 = torch.from_numpy(b_host).to(dev).double().reshape(ax.shape)
+        return float(torch.linalg.norm(b64 - ax) / torch.linalg.norm(b64))
+
+    def vector_solve(L, hv, b_host, label, maxiter, **extra):
+        b_dev = torch.from_numpy(b_host).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        rv = ptt.amg_pcg(None, hv, b_dev, tol=1e-6, maxiter=maxiter)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = vector_counts()
+        true_v = true_rel_residual_vec(L, b_host, rv.x)
+        emit(label, pcg_iters=rv.iters, converged=rv.converged, solve_s=secs,
+             residual_history=rv.residual_history[:rv.iters + 1].cpu().tolist(),
+             true_rel_residual=true_v, launches=counts,
+             peak_device_gb_solve=torch.cuda.max_memory_allocated() / 1e9, **extra)
+        if not rv.converged:
+            raise AssertionError(f"{label} did not converge to 1e-6")
+        if not true_v <= 1e-5:
+            raise AssertionError(f"{label} true relative residual {true_v} > 1e-5")
+        if counts["flatdia_spmm"] <= 0:
+            raise AssertionError(f"{label}: the solve launched no B7: {counts}")
+        return rv, counts
+
+    b5_np = np.random.default_rng(0).normal(size=h5.levels[0].n).astype(np.float32)
+    b5 = torch.from_numpy(b5_np).to(dev).reshape(h5.grid_dims)
+    zero5 = torch.zeros_like(b5)
+    vt5, v5 = wall_ms(lambda: ptt.vcycle(h5, zero5, b5))
+    if not bool(torch.isfinite(v5).all()):
+        raise AssertionError("config #5 vcycle output not finite")
+    reset_counts()
+    ptt.vcycle(h5, zero5, b5)
+    per_cycle5 = vector_counts()
+    res5, launches_vec = vector_solve(
+        L5, h5, b5_np, "slice_vec", 100, problem=info5["problem"],
+        fine_format="bsr", vcycle_ms_median=statistics.median(vt5), vcycle_ms=vt5,
+        launches_per_vcycle=per_cycle5, jax_package_iters=CONFIG5_JAX["pcg_iters"])
+    if abs(res5.iters - CONFIG5_JAX["pcg_iters"]) > 1:
+        raise AssertionError(f"config #5 took {res5.iters} iterations, the JAX "
+                             f"package {CONFIG5_JAX['pcg_iters']}")
+    if launches_vec["bsr_spmv"] <= 0:
+        raise AssertionError(f"the config #5 solve launched no B6: {launches_vec}")
+    launches_by_format = {"bsr": launches_vec}
+    for fine_format in ("btwell", "bstencil"):
+        Lf, hf, infof = vector_setup((n5,) * 3, fine_format, "setup_vec")
+        rf, cf = vector_solve(Lf, hf, b5_np, "slice_vec", 100,
+                              problem=infof["problem"], fine_format=fine_format,
+                              bsr_iters=res5.iters)
+        launches_by_format[fine_format] = cf
+        if rf.iters != res5.iters:
+            raise AssertionError(f"config #5 {fine_format} took {rf.iters} "
+                                 f"iterations, bsr {res5.iters}")
+        if (cf["bsr_spmv"] > 0) != (fine_format == "btwell"):
+            raise AssertionError(f"config #5 {fine_format}: B6 launches {cf}")
+        del Lf, hf
+
     # -- profile: kernels and device time per V-cycle ------------------------------
     for label, hh, bb in (
             ("config2", h, b),
@@ -762,11 +1058,12 @@ def main():
             ("config3_mixed", ptt.with_spmv_backend(h3, "mixed"),
              torch.from_numpy(b3_np).to(dev).reshape(h3.grid_dims)),
             ("config3_pallas", ptt.with_spmv_backend(h3, "pallas"),
-             torch.from_numpy(b3_np).to(dev).reshape(h3.grid_dims))):
+             torch.from_numpy(b3_np).to(dev).reshape(h3.grid_dims)),
+            ("config5_bsr", h5, b5)):
         zz = torch.zeros_like(bb)
-        twell.LAUNCHES = flatdia.LAUNCHES = 0
+        reset_counts()
         ptt.vcycle(hh, zz, bb)
-        per_cycle = {"twell_spmv": twell.LAUNCHES, "flatdia_spmv": flatdia.LAUNCHES}
+        per_cycle = {**spmv_counts(), **vector_counts()}
         emit("profile", cell=label, kernel_launches_per_vcycle=per_cycle,
              **profile_cycles(lambda: ptt.vcycle(hh, zz, bb)))
 
@@ -785,18 +1082,80 @@ def main():
     if not 0.05 <= rate <= 0.5:
         raise AssertionError(f"config #1 residual reduction {rate} per cycle")
 
+    # -- slice_vec_100m: config #5 at 324³×3 = 102,036,672 DOF --------------------
+    del h5, A5, L5, b5, zero5, v5
+    torch.cuda.empty_cache()
+    n100 = 324
+    plan = device_setup.slab_plan(poisson_stencil((4,) * 3).offsets, (n100,) * 3,
+                                  (n100 // 3,) * 3, cfg3.block_size,
+                                  cfg3.setup_chunk_budget_mb * 2**20)
+    # the scalar setup alone: its peak holds the slab product's temporaries
+    L_s, _ = coupled_laplacian((n100,) * 3, 3, 0.3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    hs100 = device_setup.device_structured_setup(L_s, cfg3)
+    torch.cuda.synchronize()
+    emit("setup_vec_100m_scalar", seconds=time.perf_counter() - t0,
+         product_paths=hs100.setup_stats["product_paths"], slab_plan=plan,
+         held_before_gb=held_gb,
+         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del hs100, L_s
+    L100, h100, info100 = vector_setup((n100,) * 3, "bsr", "setup_vec_100m")
+    rows100 = [lv["rows"] for lv in info100["levels"]]
+    emit("setup_vec_100m_plan", slab_plan=plan, rows=rows100,
+         jax_package_rows=CONFIG5_100M_ROWS,
+         bsr_gb=h100.levels[0].A.bsr.vals_nbytes / 1e9,
+         memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    if rows100 != CONFIG5_100M_ROWS:
+        raise AssertionError(f"324³×3 levels {rows100}, want {CONFIG5_100M_ROWS}")
+    if info100["product_paths"][0] != "slab":
+        raise AssertionError(f"324³ level 0 took the {info100['product_paths'][0]} "
+                             "product path, not slab")
+    A100 = h100.levels[0].A.bsr
+    x100 = torch.randn(A100.n_block_cols * 3, generator=g, device=dev)
+    xb100 = x100.reshape(-1, 3)
+    y100 = A100.matvec(x100).reshape(-1, 3)
+    ref100 = bsr._matvec_plain(A100.bcols, A100.vals, 3, xb100)
+    bound100 = ATOL + RTOL * bsr._matvec_plain(A100.bcols, A100.vals.abs(), 3,
+                                               xb100.abs())
+    n_bytes100, n_live100 = bsr_bytes(A100)
+    b_ms100, b_by100 = bound_ms(n_bytes100, 2 * n_live100 * 9)
+    ms100 = device_ms(lambda: A100.matvec(x100), reps=3, samples=9)
+    err100 = check_kernel("bsr_spmv", "config5_324^3x3", torch.float32, y100, ref100,
+                          bound100, dict(block_rows=A100.n_block_rows, width=A100.width,
+                                         live_blocks=n_live100,
+                                         vals_gb=A100.vals_nbytes / 1e9, ms=ms100,
+                                         bound_ms=b_ms100, bound_by=b_by100,
+                                         gb_s=n_bytes100 / ms100 / 1e6))
+    results["bsr_spmv"]["max_abs_err"] = max(results["bsr_spmv"]["max_abs_err"], err100)
+    results["bsr_spmv"].update(ms_324=ms100, bound_ms_324=b_ms100)
+    del x100, xb100, y100, ref100, bound100
+    b100_np = np.random.default_rng(0).normal(size=h100.levels[0].n).astype(np.float32)
+    res100, launches_100m = vector_solve(
+        L100, h100, b100_np, "slice_vec_100m", 60, problem=info100["problem"],
+        fine_format="bsr", dof=h100.levels[0].n, setup_s=info100["seconds"],
+        peak_device_gb_setup=info100["peak_device_gb_setup"])
+    if launches_100m["bsr_spmv"] <= 0:
+        raise AssertionError(f"the 324³×3 solve launched no B6: {launches_100m}")
+    del L100, h100, A100
+
     launches = {"twell_spmv": launches2["twell_spmv"],
                 "flatdia_spmv": slice3["mixed"]["launches"]["flatdia_spmv"],
-                **launches_rs}
+                **launches_rs, **launches_vec}
     by_path = {"config2_pcg": launches2,
                "config3_mixed_pcg": slice3["mixed"]["launches"],
                "config3_pallas_pcg": slice3["pallas"]["launches"],
                "config2_device_rs_setup": launches_rs,
-               "config2_device_rs_pcg": launches_rs_pcg}
+               "config2_device_rs_pcg": launches_rs_pcg,
+               **{f"config5_{k}_pcg": v for k, v in launches_by_format.items()},
+               "config5_324^3_bsr_pcg": launches_100m}
     line = []
     for name, meta in KERNELS.items():
         r = results[name]
-        extra = {k: r[k] for k in ("product_ms", "product_library_ms") if k in r}
+        extra = {k: r[k] for k in ("product_ms", "product_library_ms", "library_kind",
+                                   "ms_324", "bound_ms_324") if k in r}
         line.append({"name": name, "route": "cuda", "source": meta["source"],
                      "replaces": meta["replaces"], "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -7,15 +7,20 @@ imports torch, numpy and scipy, and never jax.
 
 Ported so far: the host setup (Ruge–Stüben, greedy or block smoothed
 aggregation from the float64 oracle); the structured block-SA setup on the
-device (``amg/device_setup.py``, from ``problems.poisson_stencil``); the
-Ruge–Stüben setup on the device (``amg/device_rs.py``: strength, PMIS, three
-interpolations, ELL transpose and SpGEMM) with ``with_best_formats``; the
-DIA, TWELL, ELL, Stencil and FlatDIA formats with ``with_spmv_backend``;
+device (``amg/device_setup.py``, from ``problems.poisson_stencil``, with the
+dense, bucketed and slab Galerkin products); the Ruge–Stüben setup on the
+device (``amg/device_rs.py``: strength, PMIS, three interpolations, ELL
+transpose and SpGEMM) with ``with_best_formats``; the vector (BSR) setup
+``setup_vector_kron`` (``amg/vector.py``, from
+``problems.coupled_laplacian``); the DIA, TWELL, ELL, Stencil, FlatDIA, BSR,
+BTWELL and BlockStencil formats with ``with_spmv_backend``; block and vector
 block transfers; Jacobi and Chebyshev smoothing, V/W-cycles, standalone
-``solve`` and ``amg_pcg``.  Five kernels are hand-written CUDA: TWELL's SpMV
-(``csrc/twell_spmv.cu``), FlatDIA's SpMV, which DIA shares
-(``csrc/flatdia_spmv.cu``), and the setup SpGEMM's expand, merge and
-merge-and-compact steps (``csrc/spgemm.cu``).  Entry points that make
+``solve`` and ``amg_pcg``.  Seven kernels are hand-written CUDA: TWELL's
+SpMV (``csrc/twell_spmv.cu``), FlatDIA's SpMV, which DIA shares
+(``csrc/flatdia_spmv.cu``), the setup SpGEMM's expand, merge and
+merge-and-compact steps (``csrc/spgemm.cu``), the block SpMV of BSR and
+BTWELL (``csrc/bsr_spmv.cu``) and the multi-RHS flattened-diagonal product
+behind ``Stencil.matmat`` (``csrc/flatdia_spmm.cu``).  Entry points that make
 tensors run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
@@ -27,6 +32,7 @@ from parallel_amg_tpu_torch.ops.coo import COO
 from parallel_amg_tpu_torch.ops.ell import ELL
 from parallel_amg_tpu_torch.ops.stencil import Stencil
 from parallel_amg_tpu_torch.amg import setup, vcycle, solve, Hierarchy
+from parallel_amg_tpu_torch.amg.vector import setup_vector_kron
 from parallel_amg_tpu_torch.amg.hierarchy import (
     with_best_formats,
     with_spmv_backend,
@@ -45,6 +51,7 @@ __all__ = [
     "solve",
     "Hierarchy",
     "amg_pcg",
+    "setup_vector_kron",
     "with_best_formats",
     "with_spmv_backend",
 ]

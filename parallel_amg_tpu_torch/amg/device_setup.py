@@ -6,18 +6,19 @@ the whole setup reduces to stencil algebra on device tensors:
 - tentative aggregation: block partition; its only data is the aggregate
   size normalization, a sum-pool of a ones field;
 - prolongator smoothing S = I − (ω/λ)D⁻¹A: plane scaling plus identity;
-- Galerkin product A_c = Tᵀ (Sᵀ A S) T, by one of two product paths:
+- Galerkin product A_c = Tᵀ (Sᵀ A S) T, by one of three product paths:
   "dense" (two closed-form stencil products, then a residue-class pooled
-  reduction) or "bucketed" (intermediates indexed by coarse offset, so the
-  plane count stays at 3^d);
+  reduction), "slab" (the dense pipeline in axis-0 slabs with halos, for
+  grids whose full-grid intermediates exceed the chunk budget) or
+  "bucketed" (intermediates indexed by coarse offset, so the plane count
+  stays at 3^d);
 - λ_max(D⁻¹A): device power iteration;
 - sparsification with diagonal lumping, then pruning of all-zero planes (one
   small host read per level).
 
 The host decides shapes only; every O(n) operation runs on the tensors'
-device.  The JAX package's third product path, "slab" (the dense pipeline
-in axis-0 slabs, for grids whose intermediates exceed the chunk budget), is
-not ported: choosing it raises ``NotImplementedError``.
+device.  The slab path takes no ``mask`` of sharded-grid padding rows: that
+argument serves the JAX package's distributed setup, which is not ported.
 """
 
 from __future__ import annotations
@@ -97,18 +98,30 @@ def galerkin_out_offsets(offsets, block: int):
     })
 
 
-def _normalize(planes, out_offs, cdims, scale):
-    """Tentative normalization: row scale times offset-shifted column scale."""
-    col_scales = torch.stack([shift_nd(scale, o, cdims) for o in out_offs])
-    return planes * scale[None] * col_scales
+def _normalize(planes, out_offs, cdims, scale, halo0: int = 0):
+    """Tentative normalization: row scale times offset-shifted column scale.
+
+    ``scale`` may carry ``halo0`` extra rows on both ends of axis 0 (the slab
+    path): the shifts then read those rows, and the result is cropped to the
+    cdims[0] rows of the slab.
+    """
+    rows = slice(halo0, halo0 + cdims[0])
+    col_scales = torch.stack([shift_nd(scale, o, scale.shape)[rows]
+                              for o in out_offs])
+    return planes * scale[rows][None] * col_scales
 
 
-def galerkin_block(M: Stencil, cdims, block: int, scale) -> Stencil:
+def galerkin_block(M: Stencil, cdims, block: int, scale,
+                   scale_halo0: int = 0) -> Stencil:
     """A_c = Tᵀ M T for normalized block-injection T (scale = 1/√|agg|).
 
     Residue-class pooled reduction: per block residue rp one strided slice
     takes all D planes, and each fine offset o lands in the coarse offset
     floor((rp+o)/b) per axis by ``bucket_add``.
+
+    scale_halo0 > 0 means ``scale`` already carries that many halo rows on
+    both ends of axis 0 (the slab path: coarse columns just outside the slab
+    have their real normalization, not the zero a local pad would give).
     """
     nd = len(M.dims)
     b = block
@@ -128,8 +141,91 @@ def galerkin_block(M: Stencil, cdims, block: int, scale) -> Stencil:
                for o in M.offsets]
         acc = acc + bucket_add(torch.zeros_like(acc), ids, piece)
     planes = acc.reshape((len(out_offs),) + tuple(cdims))
-    return Stencil(_normalize(planes, out_offs, tuple(cdims), scale),
-                   tuple(out_offs), cdims)
+    r0 = max(abs(o[0]) for o in out_offs)
+    if scale_halo0 and scale_halo0 < r0:
+        raise ValueError(f"slab scale halo {scale_halo0} < coarse reach {r0}")
+    return Stencil(_normalize(planes, out_offs, tuple(cdims), scale,
+                              scale_halo0), tuple(out_offs), cdims)
+
+
+def _slab_coarse_operator(W_ext, d_ext, scale_ext, coef, ca, *, offsets,
+                          dims_slab, cdims_slab, block, halo, rc, it):
+    """One axis-0 slab of the Galerkin triple product.
+
+    W_ext/d_ext are the fine operator and its diagonal inverse padded by
+    ``halo`` rows on both ends of axis 0 (and to a whole number of slabs);
+    scale_ext is the coarse normalization padded by ``rc`` rows on both
+    ends.  Returns the slab's coarse planes, exact because every shift that
+    could reach a slab edge stays inside the halo (halo = 2·reach of
+    sym(Sᵀ A S)).
+    """
+    b = block
+    fa = ca * b  # the slab's first fine row in padded coordinates
+    rows = slice(fa, fa + dims_slab[0])
+    A_s = Stencil(W_ext[:, rows], offsets, dims_slab)
+    ds = d_ext[rows]
+    S = smoothing_operator(A_s, ds, coef)
+    St = smoothing_operator_T(A_s, ds, coef)
+    AS = sparsify_stencil(A_s.matmul(S), it)
+    del S
+    M = symmetrize_stencil(sparsify_stencil(St.matmul(AS), it))
+    del St, AS
+    # crop the halo: the reduction reads only fine rows [halo, halo + cc·b),
+    # which are exact
+    inner = (cdims_slab[0] * b,) + tuple(dims_slab[1:])
+    Mc = Stencil(M.weights[:, halo:halo + inner[0]], M.offsets, inner)
+    ssl = scale_ext[ca:ca + cdims_slab[0] + 2 * rc]
+    return galerkin_block(Mc, cdims_slab, b, ssl, scale_halo0=rc)
+
+
+def slab_plan(offsets, dims, cdims, block: int, budget_bytes: int) -> dict:
+    """Slab sizes of ``chunked_coarse_operator`` (the JAX package's rule):
+    halo = 2·axis-0 reach of sym(Sᵀ A S), rc = the coarse reach, and cc
+    coarse rows per slab such that the n_M planes of one slab, cc·b + 2·halo
+    fine rows, fit the budget in float32."""
+    sym_offs = product_offsets(offsets, len(dims))
+    halo = 2 * max(abs(o[0]) for o in sym_offs)
+    rc = max(abs(o[0]) for o in galerkin_out_offsets(sym_offs, block))
+    row_bytes = int(np.prod(dims[1:])) * 4 * len(sym_offs)
+    cc = max(1, (budget_bytes // row_bytes - 2 * halo) // block)
+    cc = min(cc, cdims[0])
+    return {"halo": halo, "rc": rc, "cc": cc, "n_slabs": -(-cdims[0] // cc),
+            "planes": len(sym_offs),
+            "slab_rows": cc * block + 2 * halo}
+
+
+def chunked_coarse_operator(A: Stencil, d_inv, coef, cdims, block: int,
+                            scale, it: float, budget_bytes: int) -> Stencil:
+    """A_c = Tᵀ Sᵀ A S T computed in axis-0 slabs.
+
+    The unchunked path holds the ~D_M-plane intermediate Sᵀ(A S) on the whole
+    fine grid; slabbing along axis 0 bounds it to one slab and its halo at a
+    time, and gives the dense path's coarse operator (each slab's halo
+    covers every shift any stage applies).  Slabs of ``cc`` coarse rows are
+    sized so that n_M planes on cc·b + 2·halo fine rows fit the budget; the
+    last slab is padded and the result cropped to cdims[0].
+    """
+    nd = len(A.dims)
+    b = block
+    plan = slab_plan(A.offsets, A.dims, cdims, b, budget_bytes)
+    halo, rc, cc, n_slabs = (plan[k] for k in ("halo", "rc", "cc", "n_slabs"))
+    f0_pad = n_slabs * cc * b
+    rest = [0, 0] * (nd - 1)
+    W_ext = torch.nn.functional.pad(
+        A.weights, rest + [halo, halo + f0_pad - A.dims[0]])
+    d_ext = torch.nn.functional.pad(
+        d_inv, rest + [halo, halo + f0_pad - A.dims[0]])
+    scale_ext = torch.nn.functional.pad(
+        scale, rest + [rc, rc + n_slabs * cc - cdims[0]])
+    dims_slab = (cc * b + 2 * halo,) + tuple(A.dims[1:])
+    cdims_slab = (cc,) + tuple(cdims[1:])
+    parts = [_slab_coarse_operator(
+        W_ext, d_ext, scale_ext, coef, i * cc, offsets=A.offsets,
+        dims_slab=dims_slab, cdims_slab=cdims_slab, block=b, halo=halo, rc=rc,
+        it=it) for i in range(n_slabs)]
+    del W_ext, d_ext
+    planes = torch.cat([p.weights for p in parts], dim=1)[:, :cdims[0]]
+    return Stencil(planes, parts[0].offsets, tuple(cdims))
 
 
 def product_offsets(offsets, nd: int):
@@ -336,15 +432,12 @@ def coarse_operator(A: Stencil, d_inv, coef, cdims, config: AMGConfig,
     picks, before the coarse-level sparsification."""
     b = config.block_size
     path = select_product_path(A, config)
+    it = config.setup_intermediate_tol
     if path == "bucketed":
         return bucketed_coarse_operator(A, d_inv, coef, cdims, b, scale)
-    if path != "dense":
-        raise NotImplementedError(
-            f"the {path!r} Galerkin product path (the dense product in axis-0 "
-            f"slabs, for {A.n} rows of {A.n_points} points over the "
-            f"{config.setup_chunk_budget_mb} MB budget) is not ported yet "
-            "(ROADMAP A9)")
-    it = config.setup_intermediate_tol
+    if path == "slab":
+        return chunked_coarse_operator(A, d_inv, coef, cdims, b, scale, it,
+                                       config.setup_chunk_budget_mb * 2**20)
     S = smoothing_operator(A, d_inv, coef)
     St = smoothing_operator_T(A, d_inv, coef)
     AS = _prune_zero_planes(sparsify_stencil(A.matmul(S), it))
@@ -359,6 +452,7 @@ def device_structured_setup(A: Stencil, config: AMGConfig,
 
     The host loop decides shapes and prunes zero planes (one small read per
     level, plus λ_max, which the Chebyshev smoother takes as a host float).
+    ``setup_stats["product_paths"]`` names each level's product path.
     """
     if not (config.coarsening == "sa" and config.aggregate == "block"):
         raise ValueError("device_structured_setup implements the structured "
@@ -368,6 +462,7 @@ def device_structured_setup(A: Stencil, config: AMGConfig,
     A = Stencil(A.weights.to(dtype), A.offsets, A.dims)
     dev = A.weights.device
     levels: List[Level] = []
+    paths: List[str] = []
     for lvl in range(config.max_levels):
         d_inv = diag_inverse(A)
         lam = power_iteration_lambda_max(A, d_inv, config.lambda_power_iters,
@@ -381,6 +476,7 @@ def device_structured_setup(A: Stencil, config: AMGConfig,
                                    cdims, b)
         scale = 1.0 / torch.sqrt(torch.clamp(counts, min=1.0))
         coef = torch.full_like(lam, config.sa_omega) / torch.clamp(lam, min=1e-30)
+        paths.append(select_product_path(A, config))
         A_c = coarse_operator(A, d_inv, coef, cdims, config, scale)
         A_c = _prune_zero_planes(symmetrize_stencil(
             sparsify_stencil(A_c, config.coarse_drop_tol)))
@@ -394,4 +490,6 @@ def device_structured_setup(A: Stencil, config: AMGConfig,
     coarse_inv = torch.from_numpy(coarse_inverse_np(
         np.asarray(levels[-1].A.to_csr().to_dense(), np.float64))).to(
             torch.float32).to(dev)
-    return Hierarchy(levels, coarse_inv, config)
+    h = Hierarchy(levels, coarse_inv, config)
+    h.setup_stats = {"product_paths": paths}
+    return h

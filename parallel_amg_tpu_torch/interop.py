@@ -15,7 +15,17 @@ matrix (``to_csr().to_scipy()`` of an algebraic level; it goes through
   the level's A and d_inv;
 - ``{"format": "ELL", "cols": (R, W), "vals": (R, W), "row_nnz": (R,),
   "shape"}``, carried over unconverted (the levels of an on-device
-  Ruge–Stüben setup).
+  Ruge–Stüben setup);
+- ``{"format": "BSR", "bcols": (RB, WB), "vals": (WB·bs², RB),
+  "brow_nnz": (RB,), "shape", "bs", "node_dims"}``: the JAX package's
+  block-ELL (its tuple of value planes stacked), stored slot-major; with
+  ``node_dims`` it is the grid-layout fine level of a vector hierarchy;
+- ``{"format": "BlockStencil", "weights": (D, *node_dims), "offsets",
+  "dims", "C": (bs, bs)}``;
+- ``{"format": "VectorBlockProlongator" | "VectorBlockRestrictor", "L",
+  "d_inv_L", "scale", "coef", "dims", "cdims", "block", "bs"}``, with ``L``
+  a Stencil mapping and ``d_inv_L`` its diagonal inverse where the level is
+  BSR, or both None for a transfer linked to a BlockStencil level.
 """
 
 from __future__ import annotations
@@ -29,6 +39,13 @@ from parallel_amg_tpu_torch.amg.hierarchy import Hierarchy, Level
 from parallel_amg_tpu_torch.amg.transfers import BlockProlongator, BlockRestrictor
 from parallel_amg_tpu_torch.config import AMGConfig
 from parallel_amg_tpu_torch.device import resolve_device
+from parallel_amg_tpu_torch.ops.bsr import BSR
+from parallel_amg_tpu_torch.ops.bstencil import (
+    BlockStencil,
+    BSRGridOperator,
+    VectorBlockProlongator,
+    VectorBlockRestrictor,
+)
 from parallel_amg_tpu_torch.ops.csr import CSR
 from parallel_amg_tpu_torch.ops.ell import ELL
 from parallel_amg_tpu_torch.ops.flatdia import FlatDIA
@@ -37,10 +54,17 @@ from parallel_amg_tpu_torch.ops.stencil import Stencil
 
 _TRANSFERS = {"BlockProlongator": BlockProlongator,
               "BlockRestrictor": BlockRestrictor}
+_VECTOR_TRANSFERS = {"VectorBlockProlongator": VectorBlockProlongator,
+                     "VectorBlockRestrictor": VectorBlockRestrictor}
 
 
 def _tensor(a, dtype):
     return torch.from_numpy(np.array(a, np.float64)).to(dtype)
+
+
+def _coef(spec, dtype) -> float:
+    return float(torch.tensor(float(np.asarray(spec["coef"])),
+                              dtype=torch.float64).to(dtype))
 
 
 def _operator(spec, dtype):
@@ -64,10 +88,26 @@ def _operator(spec, dtype):
                    torch.from_numpy(np.array(spec["row_nnz"], np.int32)),
                    spec["shape"])
     if fmt in _TRANSFERS:
-        coef = float(torch.tensor(float(np.asarray(spec["coef"])),
-                                  dtype=torch.float64).to(dtype))
-        return _TRANSFERS[fmt](None, None, _tensor(spec["scale"], dtype), coef,
-                               spec["dims"], spec["cdims"], spec["block"])
+        return _TRANSFERS[fmt](None, None, _tensor(spec["scale"], dtype),
+                               _coef(spec, dtype), spec["dims"], spec["cdims"],
+                               spec["block"])
+    if fmt == "BSR":
+        bsr = BSR(torch.from_numpy(np.array(spec["bcols"], np.int32).T.copy()),
+                  _tensor(spec["vals"], dtype),
+                  torch.from_numpy(np.array(spec["brow_nnz"], np.int32)),
+                  spec["shape"], spec["bs"])
+        dims = spec.get("node_dims")
+        return bsr if dims is None else BSRGridOperator(bsr, dims)
+    if fmt == "BlockStencil":
+        return BlockStencil(_tensor(spec["weights"], dtype), spec["offsets"],
+                            spec["dims"], _tensor(spec["C"], dtype))
+    if fmt in _VECTOR_TRANSFERS:
+        d_inv_L = spec.get("d_inv_L")
+        return _VECTOR_TRANSFERS[fmt](
+            _operator(spec.get("L"), dtype),
+            None if d_inv_L is None else _tensor(d_inv_L, dtype),
+            _tensor(spec["scale"], dtype), _coef(spec, dtype), spec["dims"],
+            spec["cdims"], spec["block"], spec["bs"])
     raise ValueError(f"unknown operator format {fmt!r}")
 
 

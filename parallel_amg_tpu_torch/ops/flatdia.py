@@ -7,9 +7,13 @@ outside the grid, so the flattened form is exact, boundaries included.
 
 The planes are stored ``(D, n)``: the JAX package pads them to a multiple of
 its 1024-lane tile, which buys nothing on Hopper.  ``dia_spmv`` launches
-``csrc/flatdia_spmv.cu`` on a CUDA tensor (or raises) and runs the plain torch
-version ``_matvec_plain`` on a CPU tensor; ``DIA.matvec`` (ops/dia.py) goes
-through the same function.  ``LAUNCHES`` counts kernel launches.
+``csrc/flatdia_spmv.cu`` (kernel B2) on a CUDA tensor (or raises) and runs
+the plain torch version ``_matvec_plain`` on a CPU tensor; ``DIA.matvec``
+(ops/dia.py) goes through the same function.  ``dia_spmm``, the multi-RHS
+product over (n, k) row-major right-hand sides, does the same with
+``csrc/flatdia_spmm.cu`` (kernel B7) and ``_matmat_plain``; it carries
+``Stencil.matmat`` and ``FlatDIA.matmat`` on the card.  ``LAUNCHES`` counts
+each kernel's launches, keyed by kernel.
 """
 
 from __future__ import annotations
@@ -24,10 +28,14 @@ import torch.nn.functional as F
 from parallel_amg_tpu_torch.ops import _build
 from parallel_amg_tpu_torch.ops.stencil import bucket_add
 
-LAUNCHES = 0  # kernel launches made by dia_spmv; callers may reset it
+# kernel launches made by dia_spmv (B2) and dia_spmm (B7); callers may reset
+LAUNCHES = {"flatdia_spmv": 0, "flatdia_spmm": 0}
 
-MAX_DIAGS = 192  # offsets per launch (csrc/flatdia_spmv.cu kMaxDiags)
+MAX_DIAGS = 192  # offsets per launch (kMaxDiags of both sources)
+MAX_COLS = 8     # right-hand sides per dia_spmm launch (kMaxCols)
 _SYMBOLS = {torch.float32: "flatdia_spmv_f32", torch.bfloat16: "flatdia_spmv_bf16"}
+_SPMM_SYMBOLS = {torch.float32: "flatdia_spmm_f32",
+                 torch.bfloat16: "flatdia_spmm_bf16"}
 _INT32_LIMIT = 2**31
 
 
@@ -50,6 +58,16 @@ def _kernel(symbol: str):
     fn = getattr(_build.load("flatdia_spmv"), symbol)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, _Offsets,
                                            ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _spmm_kernel(symbol: str):
+    fn = getattr(_build.load("flatdia_spmm"), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_longlong,
+                                           ctypes.c_int, _Offsets, ctypes.c_int,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,7 +111,6 @@ def _matvec_plain(diags, offsets, x):
 def _matvec_cuda(diags, offsets, x):
     """Launch ``csrc/flatdia_spmv.cu`` on the current stream of x's device,
     in chunks of MAX_DIAGS planes."""
-    global LAUNCHES
     if diags.dtype not in _SYMBOLS:
         raise TypeError(f"the kernel takes float32 or bfloat16 diagonals, "
                         f"got {diags.dtype}")
@@ -116,8 +133,77 @@ def _matvec_cuda(diags, offsets, x):
                      stream)
             if err != 0:
                 raise RuntimeError(f"flatdia_spmv launch failed: cudaError {err}")
-            LAUNCHES += 1
+            LAUNCHES["flatdia_spmv"] += 1
     return y
+
+
+def dia_spmm(diags, offsets, X):
+    """Y = A @ X for (D, n) flattened diagonals and a float32 X of shape
+    (n, k), k right-hand sides side by side in each row.
+
+    diags[d, r] multiplies X[r + offsets[d], :]; rows outside [0, n) read 0.
+    Y is float32 (n, k).
+    """
+    offsets = tuple(int(o) for o in offsets)
+    n = X.shape[0] if X.dim() == 2 else -1
+    if X.dim() != 2 or diags.dim() != 2 or tuple(diags.shape) != (len(offsets), n):
+        raise ValueError(f"diags {tuple(diags.shape)}, {len(offsets)} offsets "
+                         f"and X {tuple(X.shape)} do not make (D, n) and (n, k)")
+    if X.dtype != torch.float32:
+        raise TypeError(f"X must be float32, got {X.dtype}")
+    if X.device != diags.device:
+        raise ValueError(f"X is on {X.device}, the diagonals on {diags.device}")
+    if X.device.type == "cpu":
+        return _matmat_plain(diags, offsets, X)
+    if X.device.type != "cuda":
+        raise ValueError(f"dia_spmm runs on cpu or cuda, not {X.device}")
+    return _matmat_cuda(diags, offsets, X)
+
+
+def _matmat_plain(diags, offsets, X):
+    """Plain torch Y = A @ X: one row-padded X, one shifted row slice per
+    diagonal, products and sums in float32 in offset order."""
+    n, k = X.shape
+    Y = torch.zeros((n, k), dtype=torch.float32, device=X.device)
+    if not offsets:
+        return Y
+    lo, hi = max(0, -min(offsets)), max(0, max(offsets))
+    Xp = F.pad(X, (0, 0, lo, hi))
+    for d, off in enumerate(offsets):
+        Y = Y + diags[d].float()[:, None] * Xp[lo + off:lo + off + n]
+    return Y
+
+
+def _matmat_cuda(diags, offsets, X):
+    """Launch ``csrc/flatdia_spmm.cu`` on the current stream of X's device,
+    in chunks of MAX_DIAGS planes and MAX_COLS columns."""
+    if diags.dtype not in _SPMM_SYMBOLS:
+        raise TypeError(f"the kernel takes float32 or bfloat16 diagonals, "
+                        f"got {diags.dtype}")
+    if not (diags.is_contiguous() and X.is_contiguous()):
+        raise ValueError("diags and X must be contiguous")
+    if offsets and max(abs(o) for o in offsets) >= _INT32_LIMIT:
+        raise ValueError("offsets do not fit the kernel's int32")
+    n, k = X.shape
+    Y = torch.empty((n, k), dtype=torch.float32, device=X.device)
+    if n == 0 or k == 0:
+        return Y
+    fn = _spmm_kernel(_SPMM_SYMBOLS[diags.dtype])
+    step = n * diags.element_size()
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for c0 in range(0, k, MAX_COLS):
+            kc = min(MAX_COLS, k - c0)
+            for start in range(0, max(len(offsets), 1), MAX_DIAGS):
+                chunk = offsets[start:start + MAX_DIAGS]
+                err = fn(diags.data_ptr() + start * step, X.data_ptr() + c0 * 4,
+                         Y.data_ptr() + c0 * 4, n, k, kc,
+                         _offsets_struct(chunk), int(start > 0), stream)
+                if err != 0:
+                    raise RuntimeError(
+                        f"flatdia_spmm launch failed: cudaError {err}")
+                LAUNCHES["flatdia_spmm"] += 1
+    return Y
 
 
 class FlatDIA:
@@ -202,6 +288,12 @@ class FlatDIA:
     # -- tensor ops ---------------------------------------------------------
     def matvec(self, x):
         return dia_spmv(self.diags, self.offsets, x.reshape(-1)).reshape(x.shape)
+
+    def matmat(self, X):
+        """Y = A @ X for k right-hand sides, X of shape (n, k) or (*dims, k)."""
+        k = X.shape[-1]
+        return dia_spmm(self.diags, self.offsets,
+                        X.reshape(self.n, k).contiguous()).reshape(X.shape)
 
     def diagonal(self):
         if 0 in self.offsets:

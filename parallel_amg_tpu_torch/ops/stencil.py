@@ -71,6 +71,7 @@ class Stencil:
         self.weights = weights
         self.offsets = tuple(tuple(int(c) for c in o) for o in offsets)
         self.dims = tuple(int(d) for d in dims)
+        self._flat = None  # (planes, 1-D offsets) of flat_planes, once built
 
     def to(self, device) -> "Stencil":
         return Stencil(self.weights.to(device), self.offsets, self.dims)
@@ -154,6 +155,67 @@ class Stencil:
                         for i, n in enumerate(self.dims))
             y = y + self.weights[d] * xp[idx]
         return y
+
+    def matmat(self, X):
+        """Y = A @ X for k right-hand sides, X of shape (*dims, k).
+
+        On the CPU the plain version (``_matmat_plain``); on the card kernel
+        B7 over ``flat_planes``, which gives the same sums because the planes
+        there are zero wherever the neighbor leaves the grid, where the plain
+        version reads zero padding.  Y is float32 on the card.
+        """
+        if X.device.type == "cpu":
+            return self._matmat_plain(X)
+        from parallel_amg_tpu_torch.ops.flatdia import dia_spmm
+
+        planes, offsets = self.flat_planes()
+        k = X.shape[-1]
+        return dia_spmm(planes, offsets,
+                        X.reshape(self.n, k).contiguous()).reshape(X.shape)
+
+    def _matmat_plain(self, X):
+        """Plain torch Y = A @ X: one padded copy of X, one shifted slice per
+        plane, products and sums in offset order (the JAX package's
+        ``Stencil.matmat``); any float type."""
+        pads = self._pads()
+        Xp = _pad_nd(X, pads + [(0, 0)])
+        Y = torch.zeros_like(X)
+        for d, off in enumerate(self.offsets):
+            idx = tuple(slice(pads[i][0] + off[i], pads[i][0] + off[i] + n)
+                        for i, n in enumerate(self.dims))
+            Y = Y + self.weights[d][..., None].to(X.dtype) * Xp[idx]
+        return Y
+
+    def flat_planes(self):
+        """(planes (D', n), sorted 1-D offsets): the flattened form of this
+        stencil with every weight whose neighbor leaves the grid set to 0
+        (where it is not 0 already) and aliased planes summed, as
+        ``FlatDIA.from_stencil`` flattens.  Built once and kept: a Stencil's
+        weights are not changed in place after it is built."""
+        if self._flat is None:
+            from parallel_amg_tpu_torch.ops.flatdia import FlatDIA
+
+            ok = [self._in_grid(off) for off in self.offsets]
+            off_grid = torch.stack([((w != 0) & ~m).any() for w, m in
+                                    zip(self.weights, ok)]).any()
+            st = self
+            if bool(off_grid):  # one host read, once per Stencil
+                st = Stencil(torch.stack([torch.where(m, w, 0.0) for w, m in
+                                          zip(self.weights, ok)]),
+                             self.offsets, self.dims)
+            fd = FlatDIA.from_stencil(st)
+            self._flat = (fd.diags.contiguous(), fd.offsets)
+        return self._flat
+
+    def _in_grid(self, off):
+        """Bool grid: True where p + off lies on the grid."""
+        m = torch.ones(self.dims, dtype=torch.bool, device=self.weights.device)
+        for i, (c, n) in enumerate(zip(off, self.dims)):
+            shape = [1] * len(self.dims)
+            shape[i] = n
+            p = torch.arange(n, device=self.weights.device).reshape(shape)
+            m = m & (p + c >= 0) & (p + c < n)
+        return m
 
     def diagonal(self):
         """Main diagonal as an N-D grid."""

@@ -170,11 +170,16 @@ def test_unported_setups_raise():
         assert hb.n_levels >= 2 and hb.grid_dims == (8, 8)
         assert type(hb.levels[0].A).__name__ == "Stencil"
         assert hb.levels[0].P.linked
-    with pytest.raises(NotImplementedError, match="A9"):
-        ptt.setup(A, ptt.AMGConfig(coarsening="sa", aggregate="block",
-                                   n_coarse_max=16, on_device_setup=True,
-                                   setup_product_path="slab"),
-                  device="cpu", dims=(8, 8))
+    # the slab Galerkin path (ROADMAP A9) is ported: the dense path's levels
+    hs, hd = (ptt.setup(A, ptt.AMGConfig(coarsening="sa", aggregate="block",
+                                         n_coarse_max=16, on_device_setup=True,
+                                         setup_product_path=path),
+                        device="cpu", dims=(8, 8)) for path in ("slab", "dense"))
+    assert hs.setup_stats["product_paths"][0] == "slab"
+    assert [l.A.offsets for l in hs.levels] == [l.A.offsets for l in hd.levels]
+    for ls, ld in zip(hs.levels, hd.levels):
+        np.testing.assert_allclose(ls.A.weights.numpy(), ld.A.weights.numpy(),
+                                   rtol=1e-5, atol=1e-6)
     h = ptt.setup(A, ptt.AMGConfig(coarsening="sa", n_coarse_max=16), device="cpu")
     assert h.n_levels >= 2
 
