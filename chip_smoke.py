@@ -64,6 +64,27 @@
     It runs last, after config #1, with the earlier hierarchies of config #5
     freed.
 18. Config #1: 64², V(1,1) weighted Jacobi, standalone solve (before 17).
+19. setup_dist3d: config #3 split into 4 parts on the card
+    (``poisson_stencil_sharded`` over ``make_row_mesh(4)``, then
+    ``sharded_device_setup`` with halo_mode "pallas_async"): seconds, peak
+    memory, true level rows (levels 0 and 1 sharded, the rest gathered).
+20. Kernel B8 (halo_stencil) against its plain version (the "xla"
+    formulation): config #3's level 0 (144×128×128 padded, random weights)
+    and level 1 (48×43×43, 27 points) in 4 parts, a reach-2 128³ stencil,
+    and a case with m0 ≤ h that must not launch; kernel, plain, bound and
+    library-CSR times, bit-equality over 20 calls, and the device time of
+    one matvec (torch.profiler) beside its CUDA-event window.
+21. slice_dist3d: the 4-part V-cycle (B8 launches per cycle) and amg_pcg to
+    1e-6 with the float64 true residual, held within 2 iterations of
+    slice3d's single-device count; the same solve under "xla".
+22. Kernel B9's route: pallas_spgemm (B3 + B5 + B4) against its plain
+    version at config #2's level-0 A·A (K = 25), a random rectangular
+    product and a product with explicit zeros; the product's time beside
+    its bound, the plain version's and cuSPARSE's (after phase 11).
+23. slice_dist_100m: 468³ = 102,503,232 DOF in 8 parts on the card: setup
+    seconds, peak memory, level rows, one B8 time at level 0, amg_pcg to
+    1e-6 within 60 iterations with the float64 true residual.  It runs
+    last, with the earlier hierarchies freed.
 
 Every phase prints JSON lines.  Any failure raises, so the script exits
 non-zero without its last line, which on success is
@@ -106,9 +127,15 @@ KERNELS = {
                  "replaces": "parallel_amg_tpu/ops/btwell.py:288"},
     "flatdia_spmm": {"source": "parallel_amg_tpu_torch/csrc/flatdia_spmm.cu",
                      "replaces": "parallel_amg_tpu/ops/flatdia.py:212"},
+    "halo_stencil": {"source": "parallel_amg_tpu_torch/csrc/halo_stencil.cu",
+                     "replaces": "parallel_amg_tpu/parallel/phalo_async.py:173"},
+    # kernel B9's product, routed to spgemm_expand + spgemm_dedup +
+    # spgemm_dedup_compact
+    "pallas_spgemm": {"source": SPGEMM_SOURCE,
+                      "replaces": "parallel_amg_tpu/ops/pspgemm.py:72"},
 }
 LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm", "bsr_spmv",
-             "flatdia_spmm")  # csrc/<name>.cu
+             "flatdia_spmm", "halo_stencil")  # csrc/<name>.cu
 CONFIG3_ROWS = [2_097_152, 79_507, 3_375, 125]
 CONFIG3_ITERS = 12  # the JAX package's count (bench_details.json:40)
 # The JAX package's device-RS numbers: config #2 at 1024² (BENCH_r04.json,
@@ -120,6 +147,9 @@ CONFIG2_JAX = {"grid_complexity": 1.455, "operator_complexity": 2.397,
 # (artifacts/probe_100m_bsr.log:28).
 CONFIG5_JAX = {"complexity": (1.0396, 1.1459), "pcg_iters": 12}
 CONFIG5_100M_ROWS = [102_036_672, 3_779_136, 139_968, 5_184, 192]
+# 468³ in 8 parts: levels 0 and 1 sharded (d0p = 504), then the gathered
+# tail (plan_sharded_levels; tests/test_pdevice_setup.py:156-160).
+DIST_100M_ROWS = [102_503_232, 3_796_416, 140_608, 5_832, 216]
 CONFIG4_JAX = {"rows": [262_144, 113_363, 49_202, 21_369, 9_301, 2_604, 590,
                         126],
                "grid_complexity": 1.75, "operator_complexity": 2.383,
@@ -207,9 +237,18 @@ def profile_cycles(fn, n=5):
     kernels = [e for e in prof.events()
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.device_time_total for e in kernels) / n
+    # B8's halo copies against its interior kernels: how much of the copies'
+    # device time ran while an interior kernel ran
+    copies = [e.time_range for e in kernels if "memcpy" in e.name.lower()]
+    interior = [e.time_range for e in kernels if "interior_kernel" in e.name]
+    overlap = sum(max(0.0, min(c.end, k.end) - max(c.start, k.start))
+                  for c in copies for k in interior)
     return {"kernels_per_call": len(kernels) / n, "device_ms_per_call": dev_us / 1e3,
             "wall_ms_per_call_profiled": wall,
-            "device_busy_share": (dev_us / 1e3) / wall if wall else None}
+            "device_busy_share": (dev_us / 1e3) / wall if wall else None,
+            "copies_per_call": len(copies) / n,
+            "copy_us_per_call": sum(c.end - c.start for c in copies) / n,
+            "copy_overlap_with_b8_interior_us_per_call": overlap / n}
 
 
 def main():
@@ -222,7 +261,11 @@ def main():
 
     import parallel_amg_tpu_torch as ptt
     from parallel_amg_tpu_torch.amg import device_setup
+    from parallel_amg_tpu_torch.amg.hierarchy import Hierarchy
     from parallel_amg_tpu_torch.ops import _build, bsr, flatdia, gspgemm, pspgemm, twell
+    from parallel_amg_tpu_torch.parallel import phalo_async
+    from parallel_amg_tpu_torch.parallel.pgrid import PGrid
+    from parallel_amg_tpu_torch.parallel.pstencil import ShardedStencil, apply_halo_mode
     from parallel_amg_tpu_torch.ops.csr import CSR
     from parallel_amg_tpu_torch.ops.dia import DIA
     from parallel_amg_tpu_torch.ops.ell import ELL
@@ -285,7 +328,7 @@ def main():
     def reset_counts():
         """Every kernel's launch count to 0."""
         twell.LAUNCHES = bsr.LAUNCHES = 0
-        for counts in (flatdia.LAUNCHES, pspgemm.LAUNCHES):
+        for counts in (flatdia.LAUNCHES, pspgemm.LAUNCHES, phalo_async.LAUNCHES):
             for k in counts:
                 counts[k] = 0
 
@@ -296,6 +339,10 @@ def main():
     def vector_counts():
         return {"bsr_spmv": bsr.LAUNCHES,
                 "flatdia_spmm": flatdia.LAUNCHES["flatdia_spmm"]}
+
+    def halo_counts():
+        """B8's launches: each part's interior and boundary entry."""
+        return dict(phalo_async.LAUNCHES)
 
     def check_kernel(name, case, dtype, y, ref, bound, extra):
         torch.cuda.synchronize()
@@ -567,6 +614,166 @@ def main():
         if launches3["flatdia_spmv"] <= 0:
             raise AssertionError(f"the config #3 ({backend}) solve launched no B2")
 
+    # -- setup_dist3d: config #3 split into 4 parts on the card -----------------
+    cfg3_async = dataclasses.replace(cfg3, halo_mode="pallas_async")
+    dims3 = (n3,) * 3
+    mesh4 = ptt.make_row_mesh(4)
+
+    def dist_setup(dims, mesh, label):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        A_d, true_dims = ptt.poisson_stencil_sharded(dims, mesh, cfg3_async)
+        hd = ptt.sharded_device_setup(A_d, cfg3_async, true_dims=true_dims)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        levels = [{"rows": l.n, "padded_rows": l.A.n_rows, "format": fmt(l.A),
+                   "points": l.A.n_points, "parts": getattr(getattr(l.A, "mesh", None),
+                                                             "size", None),
+                   "m0": getattr(l.A, "m0", None), "halo": getattr(l.A, "halo", None),
+                   "lam_max": l.lam_max} for l in hd.levels]
+        info = dict(problem=f"poisson_stencil_sharded({dims}, make_row_mesh({mesh.size}))",
+                    seconds=secs, n_levels=hd.n_levels, levels=levels,
+                    padded_dims=list(A_d.dims), setup_stats=hd.setup_stats,
+                    complexity=hd.complexity(),
+                    peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+        emit(label, **info)
+        return hd, info
+
+    hd3, info_d3 = dist_setup(dims3, mesh4, "setup_dist3d")
+    rows_d3 = [lv["rows"] for lv in info_d3["levels"]]
+    if rows_d3 != CONFIG3_ROWS:
+        raise AssertionError(f"config #3 in 4 parts: levels {rows_d3}, want {CONFIG3_ROWS}")
+    if hd3.setup_stats["sharded_levels"] != 2:
+        raise AssertionError(f"config #3 in 4 parts sharded {hd3.setup_stats} levels, want 2")
+
+    # -- kernel B8: halo_stencil -----------------------------------------------------
+    def random_parts(A_s, gen):
+        """A_s with every weight scaled by a factor in [0.5, 2)."""
+        return ShardedStencil([W * (0.5 + 1.5 * torch.rand(W.shape, generator=gen,
+                                                           device=dev))
+                               for W in A_s.weights], A_s.offsets, A_s.dims, A_s.mesh)
+
+    def halo_bytes(A_s):
+        """W + x + y of every part and the 2h halo planes each part receives."""
+        plane = int(np.prod(A_s.dims[1:]))
+        S = A_s.mesh.size
+        halos = 2 * (S - 1) * A_s.halo * plane
+        return 4 * ((A_s.n_points + 2) * A_s.n + halos)
+
+    def global_csr(A_s):
+        return flat_csr(FlatDIA.from_stencil(
+            Stencil(A_s.global_weights(), A_s.offsets, A_s.dims)))
+
+    reach2 = poisson_stencil(dims3)
+    reach2 = reach2.matmul(reach2)
+    b8_cases = {
+        "config3_level0_4parts": random_parts(hd3.levels[0].A, g),
+        "config3_level1_4parts": hd3.levels[1].A,
+        "reach2_128^3_4parts": ShardedStencil.from_stencil(reach2, mesh4),
+        "m0_le_h_4parts": ShardedStencil.from_stencil(
+            poisson_stencil((8, 24)).matmul(poisson_stencil((8, 24))), mesh4),
+    }
+    del reach2
+    results["halo_stencil"] = {"max_abs_err": 0.0}
+    for name, A_s in b8_cases.items():
+        A_k = A_s.with_halo_mode("pallas_async")
+        A_p = A_s.with_halo_mode("xla")
+        A_abs = ShardedStencil([W.abs() for W in A_s.weights], A_s.offsets, A_s.dims,
+                               A_s.mesh)
+        x = PGrid.from_global(torch.randn(A_s.dims, generator=g, device=dev), A_s.mesh)
+        reset_counts()
+        y = A_k.matvec(x)
+        launched = halo_counts()
+        ref = A_p.matvec(x)
+        bound = ATOL + RTOL * A_abs.matvec(PGrid([p.abs() for p in x.parts], x.mesh))
+        want_launch = A_s.m0 > A_s.halo
+        if (min(launched.values()) > 0) != want_launch:
+            raise AssertionError(f"halo_stencil {name}: launches {launched} with "
+                                 f"m0 {A_s.m0}, h {A_s.halo}")
+        y_g, ref_g = y.to_global(), ref.to_global()
+        n_bytes = halo_bytes(A_s)
+        b_ms, b_by = bound_ms(n_bytes, 2 * A_s.n_points * A_s.n)
+        csr = global_csr(A_s)
+        lib_ms, lib_err = library_ms(csr, x.to_global().reshape(-1))
+        del csr
+        ms = device_ms(lambda: A_k.matvec(x))
+        plain_ms = device_ms(lambda: A_p.matvec(x), reps=2, samples=5)
+        repeats = [A_k.matvec(x).to_global() for _ in range(20)]
+        bit_equal_20 = all(torch.equal(r.view(torch.int32), y_g.view(torch.int32))
+                           for r in repeats)
+        err = check_kernel("halo_stencil", name, torch.float32, y_g, ref_g,
+                           bound.to_global(), dict(
+                               padded_dims=list(A_s.dims), parts=A_s.mesh.size,
+                               m0=A_s.m0, halo=A_s.halo, points=A_s.n_points,
+                               launches=launched,
+                               bit_equal_to_plain=bool(torch.equal(y_g, ref_g)),
+                               bit_equal_20_calls=bit_equal_20, ms=ms,
+                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                               copy_bound_ms=copy_bound_ms(n_bytes),
+                               library_csr_ms=lib_ms, library_error=lib_err,
+                               gb_s=n_bytes / ms / 1e6))
+        if not bit_equal_20:
+            raise AssertionError(f"halo_stencil {name}: 20 calls are not bit-equal")
+        r = results["halo_stencil"]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if name == "config3_level0_4parts":
+            # the device's share of one matvec: its kernels' and copies'
+            # device time beside the CUDA-event window above
+            prof_b8 = profile_cycles(lambda: A_k.matvec(x), n=20)
+            emit("kernel_b8_profile", case=name, event_window_ms=ms, **prof_b8)
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     copy_bound_ms=copy_bound_ms(n_bytes), library_ms=lib_ms,
+                     main_case=f"{name} f32",
+                     device_ms_per_matvec=prof_b8["device_ms_per_call"])
+        del A_k, A_p, A_abs, x, y, ref, bound, repeats
+    del b8_cases
+
+    # -- slice_dist3d: config #3 in 4 parts, V-cycle and AMG-PCG ----------------------
+    b3d = ptt.distribute_grid(b3_np, dims3, hd3, mesh4)
+    zero3d = b3d.zeros_like()
+    vt_d3, v_d3 = wall_ms(lambda: ptt.vcycle(hd3, zero3d, b3d))
+    if not all(bool(torch.isfinite(p).all()) for p in v_d3.parts):
+        raise AssertionError("config #3 4-part vcycle output not finite")
+    reset_counts()
+    ptt.vcycle(hd3, zero3d, b3d)
+    torch.cuda.synchronize()
+    per_cycle_d3 = halo_counts()
+    if min(per_cycle_d3.values()) <= 0:
+        raise AssertionError(f"the 4-part V-cycle launched no B8: {per_cycle_d3}")
+    dist3 = {}
+    for mode in ("pallas_async", "xla"):
+        hm = Hierarchy(apply_halo_mode(hd3.levels, mode), hd3.coarse_inv, hd3.config)
+        vt_m, _ = wall_ms(lambda: ptt.vcycle(hm, zero3d, b3d))
+        reset_counts()
+        t0 = time.perf_counter()
+        rd = ptt.amg_pcg(None, hm, b3d, tol=1e-6, maxiter=100)
+        torch.cuda.synchronize()
+        s_d = time.perf_counter() - t0
+        counts_d = halo_counts()
+        true_d = true_rel_residual(A3_sp, b3_np, ptt.collect_grid(rd.x, dims3))
+        dist3[mode] = dict(iters=rd.iters, launches=counts_d)
+        emit("slice_dist3d", problem=info_d3["problem"], halo_mode=mode,
+             vcycle_ms_median=statistics.median(vt_m), vcycle_ms=vt_m,
+             b8_launches_per_vcycle=per_cycle_d3 if mode == "pallas_async" else None,
+             pcg_iters=rd.iters, converged=rd.converged, solve_s=s_d,
+             residual_history=rd.residual_history[:rd.iters + 1].cpu().tolist(),
+             true_rel_residual=true_d, launches=counts_d,
+             single_device_iters=slice3["mixed"]["iters"],
+             jax_package_iters=CONFIG3_ITERS)
+        if not rd.converged:
+            raise AssertionError(f"config #3 in 4 parts ({mode}) did not converge")
+        if abs(rd.iters - slice3["mixed"]["iters"]) > 2:
+            raise AssertionError(f"config #3 in 4 parts ({mode}) took {rd.iters} "
+                                 f"iterations, one device {slice3['mixed']['iters']}")
+        if not true_d <= 1e-5:
+            raise AssertionError(f"config #3 in 4 parts true residual {true_d} > 1e-5")
+        if (min(counts_d.values()) > 0) != (mode == "pallas_async"):
+            raise AssertionError(f"config #3 in 4 parts ({mode}): B8 launches {counts_d}")
+        del hm
+    if dist3["xla"]["iters"] != dist3["pallas_async"]["iters"]:
+        raise AssertionError(f"halo modes disagree: {dist3}")
+
     # -- setup_rs: config #2 set up on the card (Ruge–Stüben, device) ----------
     cfg_rs = dataclasses.replace(cfg, on_device_setup=True)
 
@@ -727,6 +934,84 @@ def main():
                                  f"with its plain version (|dv| {err5}, {err4})")
         del cc, cv, pc, pv, full, ref5, comp, ref4, bound4, bound5
     del spgemm_cases, RA0
+
+    # -- kernel B9's route: pallas_spgemm on B3 + B5 + B4 -----------------------------
+    def row_sets(C):
+        """Per row, the (column, value) pairs in column order: columns past
+        row_nnz become SENT and sort last."""
+        live = torch.arange(C.width, device=dev)[None, :] < C.row_nnz[:, None]
+        cols = torch.where(live, C.cols, 2**31 - 1)
+        order = torch.argsort(cols, dim=1, stable=True)
+        return (torch.gather(cols, 1, order),
+                torch.gather(torch.where(live, C.vals, 0.0), 1, order))
+
+    A_l0 = h_rs.levels[0].A
+    b9_cases = {
+        "config2_L0_AA": (A_l0, A_l0),
+        "random_rect_200000x150000": (random_ell(200_000, 150_000, 8),
+                                      random_ell(150_000, 120_000, 6)),
+        "explicit_zeros": (random_ell(50_000, 3_000, 12, 0.3, 0.1),
+                           random_ell(3_000, 2_000, 9, 0.3, 0.1)),
+    }
+    results["pallas_spgemm"] = {"max_abs_err": 0.0}
+    for case, (A, B) in b9_cases.items():
+        plan = ptt.PallasSpgemmPlan.from_ell(A)
+        reset_counts()
+        C = ptt.pallas_spgemm(A, B, plan=plan)
+        torch.cuda.synchronize()
+        route_launches = spgemm_counts()
+        Cp = gspgemm.plain_spgemm(A, B)
+        A_abs = ELL(A.cols, A.vals.abs(), A.row_nnz, A.shape)
+        bound9 = gspgemm.plain_spgemm(A_abs, ELL(B.cols, B.vals.abs(), B.row_nnz,
+                                                 B.shape), out_width=C.width)
+        kc, kv = row_sets(C)
+        pc_, pv_ = row_sets(Cp)
+        _, bv_ = row_sets(bound9)
+        same_sets = (C.width == Cp.width and torch.equal(C.row_nnz, Cp.row_nnz)
+                     and torch.equal(kc, pc_))
+        err9 = float((kv - pv_).abs().max()) if kv.numel() else 0.0
+        ok9 = same_sets and bool(((kv - pv_).abs()
+                                  <= SPGEMM_ATOL + SPGEMM_RTOL * bv_).all())
+        w9 = C.width
+        R_, K_ = A.n_rows, A.width * B.width
+        ms9 = device_ms(lambda: ptt.pallas_spgemm(A, B, out_width=w9, plan=plan))
+        auto_ms9 = device_ms(lambda: ptt.pallas_spgemm(A, B, plan=plan), reps=3,
+                             samples=9)
+        plain_ms9 = device_ms(lambda: gspgemm.plain_spgemm(A, B, out_width=w9,
+                                                           strict=False), **slow)
+        n_live = float(A.row_nnz.sum())
+        b_ms9, b_by9 = bound_ms(
+            A.n_rows * (A.width * 8 + 4) + B.n_rows * (B.width * 8 + 4)
+            + C.n_rows * (w9 * 8 + 4),
+            float((B.row_nnz[A.cols.long()] * (torch.arange(A.width, device=dev)[None, :]
+                                              < A.row_nnz[:, None])).sum()))
+        a_csr, b_csr = ell_csr(A), ell_csr(B)
+        lib_ms9, lib_err9 = None, None
+        try:
+            lib_ms9 = device_ms(lambda: a_csr @ b_csr, **slow)
+        except RuntimeError as e:  # the yardstick only; never on the path
+            lib_err9 = f"{e}"[:200]
+        del a_csr, b_csr
+        emit("kernel", name="pallas_spgemm", case=case, rows=R_, K=K_,
+             a_live=n_live, out_width=w9, route_launches=route_launches,
+             ms=ms9, auto_width_ms=auto_ms9, plain_ms=plain_ms9, bound_ms=b_ms9,
+             bound_by=b_by9, library_csr_spgemm_ms=lib_ms9, library_error=lib_err9,
+             max_abs_err=err9, same_col_sets=same_sets, ok=ok9,
+             tolerance=f"(col) sets and row_nnz equal, |dv| <= {SPGEMM_ATOL} + "
+                       f"{SPGEMM_RTOL}*(|A||B|)")
+        if not ok9:
+            raise AssertionError(f"pallas_spgemm {case}: disagrees with its plain "
+                                 f"version (sets {same_sets}, |dv| {err9})")
+        if min(route_launches.values()) != 1 or max(route_launches.values()) != 1:
+            raise AssertionError(f"pallas_spgemm {case}: route launches {route_launches}")
+        r = results["pallas_spgemm"]
+        r["max_abs_err"] = max(r["max_abs_err"], err9)
+        if case == "config2_L0_AA":
+            r.update(ms=ms9, plain_ms=plain_ms9, bound_ms=b_ms9, bound_by=b_by9,
+                     copy_bound_ms=None, library_ms=lib_ms9, main_case=case,
+                     auto_width_ms=auto_ms9, route_launches=route_launches)
+        del C, Cp, bound9, kc, kv, pc_, pv_, bv_, plan
+    del b9_cases
 
     # -- convert and slice_rs: the device-built hierarchy solves config #2 ------
     torch.cuda.synchronize()
@@ -1059,11 +1344,12 @@ def main():
              torch.from_numpy(b3_np).to(dev).reshape(h3.grid_dims)),
             ("config3_pallas", ptt.with_spmv_backend(h3, "pallas"),
              torch.from_numpy(b3_np).to(dev).reshape(h3.grid_dims)),
-            ("config5_bsr", h5, b5)):
-        zz = torch.zeros_like(bb)
+            ("config5_bsr", h5, b5),
+            ("config3_dist_4parts", hd3, b3d)):
+        zz = bb.zeros_like() if isinstance(bb, PGrid) else torch.zeros_like(bb)
         reset_counts()
         ptt.vcycle(hh, zz, bb)
-        per_cycle = {**spmv_counts(), **vector_counts()}
+        per_cycle = {**spmv_counts(), **vector_counts(), **halo_counts()}
         emit("profile", cell=label, kernel_launches_per_vcycle=per_cycle,
              **profile_cycles(lambda: ptt.vcycle(hh, zz, bb)))
 
@@ -1141,8 +1427,83 @@ def main():
         raise AssertionError(f"the 324³×3 solve launched no B6: {launches_100m}")
     del L100, h100, A100
 
+    # -- slice_dist_100m: 468³ = 102,503,232 DOF in 8 parts ---------------------------
+    del hd3, b3d, zero3d, v_d3
+    torch.cuda.empty_cache()
+    n468 = 468
+    dims468 = (n468,) * 3
+    mesh8 = ptt.make_row_mesh(8)
+    hd468, info468 = dist_setup(dims468, mesh8, "setup_dist_100m")
+    rows468 = [lv["rows"] for lv in info468["levels"]]
+    if rows468 != DIST_100M_ROWS:
+        raise AssertionError(f"468³ in 8 parts: levels {rows468}, want {DIST_100M_ROWS}")
+    A468 = hd468.levels[0].A
+    x468 = PGrid.from_global(torch.randn(A468.dims, generator=g, device=dev), mesh8)
+    A468_k = A468.with_halo_mode("pallas_async")
+    A468_p = A468.with_halo_mode("xla")
+    y468 = A468_k.matvec(x468).to_global()
+    ref468 = A468_p.matvec(x468).to_global()
+    bound468 = (ATOL + RTOL * ShardedStencil([W.abs() for W in A468.weights], A468.offsets,
+                                             A468.dims, mesh8).matvec(
+        PGrid([p.abs() for p in x468.parts], mesh8))).to_global()
+    n_bytes468 = halo_bytes(A468)
+    b_ms468, b_by468 = bound_ms(n_bytes468, 2 * A468.n_points * A468.n)
+    ms468 = device_ms(lambda: A468_k.matvec(x468), reps=3, samples=9)
+    prof468 = profile_cycles(lambda: A468_k.matvec(x468), n=5)
+    emit("kernel_b8_profile", case="dist_468^3_level0_8parts", event_window_ms=ms468,
+         **prof468)
+    plain_ms468 = device_ms(lambda: A468_p.matvec(x468), reps=1, samples=3)
+    err468 = check_kernel("halo_stencil", "dist_468^3_level0_8parts", torch.float32, y468,
+                          ref468, bound468, dict(
+                              padded_dims=list(A468.dims), parts=8, m0=A468.m0,
+                              halo=A468.halo, points=A468.n_points, ms=ms468,
+                              plain_ms=plain_ms468, bound_ms=b_ms468,
+                              bound_by=b_by468, copy_bound_ms=copy_bound_ms(n_bytes468),
+                              gb_s=n_bytes468 / ms468 / 1e6))
+    results["halo_stencil"]["max_abs_err"] = max(results["halo_stencil"]["max_abs_err"],
+                                                 err468)
+    results["halo_stencil"].update(ms_468=ms468, bound_ms_468=b_ms468,
+                                   plain_ms_468=plain_ms468)
+    del x468, y468, ref468, bound468, A468_k, A468_p
+    b468_np = np.random.default_rng(0).normal(size=int(np.prod(dims468))).astype(np.float32)
+    b468 = ptt.distribute_grid(b468_np, dims468, hd468, mesh8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    r468 = ptt.amg_pcg(None, hd468, b468, tol=1e-6, maxiter=60)
+    torch.cuda.synchronize()
+    s468 = time.perf_counter() - t0
+    launches_468 = halo_counts()
+    peak_solve468 = torch.cuda.max_memory_allocated() / 1e9
+    # float64 true residual on the card: the 7-point operator's plain
+    # Stencil.matvec on float64 planes over the true grid
+    x468_true = r468.x.to_global()[:n468].double()
+    r468 = r468._replace(x=None)
+    del b468
+    A64 = poisson_stencil(dims468, dtype=torch.float64)
+    b64 = torch.from_numpy(b468_np).to(dev).double().reshape(dims468)
+    true468 = float(torch.linalg.norm(b64 - A64.matvec(x468_true)) / torch.linalg.norm(b64))
+    del A64, b64, x468_true
+    emit("slice_dist_100m", problem=info468["problem"], dof=int(np.prod(dims468)),
+         setup_s=info468["seconds"], peak_device_gb_setup=info468["peak_device_gb"],
+         rows=rows468, pcg_iters=r468.iters, converged=r468.converged, solve_s=s468,
+         residual_history=r468.residual_history[:r468.iters + 1].cpu().tolist(),
+         true_rel_residual=true468, launches=launches_468,
+         peak_device_gb_solve=peak_solve468, b8_ms_level0=ms468,
+         b8_bound_ms_level0=b_ms468)
+    if not r468.converged:
+        raise AssertionError("468³ in 8 parts did not converge to 1e-6 in 60 iterations")
+    if not true468 <= 1e-5:
+        raise AssertionError(f"468³ in 8 parts true residual {true468} > 1e-5")
+    if min(launches_468.values()) <= 0:
+        raise AssertionError(f"the 468³ solve launched no B8: {launches_468}")
+    del hd468, A468
+
     launches = {"twell_spmv": launches2["twell_spmv"],
                 "flatdia_spmv": slice3["mixed"]["launches"]["flatdia_spmv"],
+                "halo_stencil": sum(dist3["pallas_async"]["launches"].values()),
+                "pallas_spgemm": results["pallas_spgemm"]["route_launches"]["spgemm_expand"],
                 **launches_rs, **launches_vec}
     by_path = {"config2_pcg": launches2,
                "config3_mixed_pcg": slice3["mixed"]["launches"],
@@ -1150,19 +1511,32 @@ def main():
                "config2_device_rs_setup": launches_rs,
                "config2_device_rs_pcg": launches_rs_pcg,
                **{f"config5_{k}_pcg": v for k, v in launches_by_format.items()},
-               "config5_324^3_bsr_pcg": launches_100m}
+               "config5_324^3_bsr_pcg": launches_100m,
+               "config3_dist_4parts_pcg": dist3["pallas_async"]["launches"],
+               "dist_468^3_8parts_pcg": launches_468}
+
+    def path_launches(name, counts):
+        if name == "halo_stencil":
+            return sum(v for k, v in counts.items() if k.startswith("halo_stencil"))
+        return counts.get(name, 0)
     line = []
     for name, meta in KERNELS.items():
         r = results[name]
         extra = {k: r[k] for k in ("product_ms", "product_library_ms", "library_kind",
-                                   "ms_324", "bound_ms_324") if k in r}
+                                   "ms_324", "bound_ms_324", "ms_468", "bound_ms_468",
+                                   "plain_ms_468", "auto_width_ms",
+                                   "device_ms_per_matvec") if k in r}
+        if name == "pallas_spgemm":
+            extra["routed_to"] = ["spgemm_expand", "spgemm_dedup", "spgemm_dedup_compact"]
+            extra["launches_by_path"] = {"pallas_spgemm_config2_L0_AA": r["route_launches"]}
         line.append({"name": name, "route": "cuda", "source": meta["source"],
                      "replaces": meta["replaces"], "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "copy_bound_ms": r["copy_bound_ms"], "main_case": r["main_case"],
-                     "launches_by_path": {k: v.get(name, 0) for k, v in by_path.items()},
+                     "launches_by_path": {k: path_launches(name, v)
+                                          for k, v in by_path.items()},
                      **extra})
     print(json.dumps({"kernels": line}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -15,13 +15,19 @@ transpose and SpGEMM) with ``with_best_formats``; the vector (BSR) setup
 ``problems.coupled_laplacian``); the DIA, TWELL, ELL, Stencil, FlatDIA, BSR,
 BTWELL and BlockStencil formats with ``with_spmv_backend``; block and vector
 block transfers; Jacobi and Chebyshev smoothing, V/W-cycles, standalone
-``solve`` and ``amg_pcg``.  Seven kernels are hand-written CUDA: TWELL's
+``solve`` and ``amg_pcg``; the distributed structured path (``parallel/``:
+a row mesh of parts, PGrid, ShardedStencil, the host-oracle
+``structured_distributed_setup`` and the on-device
+``sharded_device_setup``).  Eight kernels are hand-written CUDA: TWELL's
 SpMV (``csrc/twell_spmv.cu``), FlatDIA's SpMV, which DIA shares
 (``csrc/flatdia_spmv.cu``), the setup SpGEMM's expand, merge and
 merge-and-compact steps (``csrc/spgemm.cu``), the block SpMV of BSR and
 BTWELL (``csrc/bsr_spmv.cu``) and the multi-RHS flattened-diagonal product
-behind ``Stencil.matmat`` (``csrc/flatdia_spmm.cu``).  Entry points that make
-tensors run on the CUDA card unless the caller passes ``device="cpu"``.
+behind ``Stencil.matmat`` (``csrc/flatdia_spmm.cu``) and the overlapped halo
+stencil matvec of ``ShardedStencil`` (``csrc/halo_stencil.cu``);
+``pallas_spgemm`` runs on the SpGEMM's three.  Entry points that make
+tensors run on the CUDA card unless the caller passes ``device="cpu"``
+(``make_row_mesh(n, device="cpu")`` for the distributed path).
 """
 
 __version__ = "0.1.0"
@@ -38,6 +44,20 @@ from parallel_amg_tpu_torch.amg.hierarchy import (
     with_spmv_backend,
 )
 from parallel_amg_tpu_torch.solver import amg_pcg
+from parallel_amg_tpu_torch.ops.pspgemm import PallasSpgemmPlan, pallas_spgemm
+from parallel_amg_tpu_torch.parallel.mesh import make_row_mesh
+from parallel_amg_tpu_torch.parallel.pgrid import PGrid
+from parallel_amg_tpu_torch.parallel.pstencil import ShardedStencil
+from parallel_amg_tpu_torch.parallel.pstructured import (
+    collect_grid,
+    distribute_grid,
+    structured_distributed_setup,
+)
+from parallel_amg_tpu_torch.parallel.pdevice_setup import (
+    anisotropic_stencil_sharded,
+    poisson_stencil_sharded,
+    sharded_device_setup,
+)
 
 __all__ = [
     "AMGConfig",
@@ -54,4 +74,15 @@ __all__ = [
     "setup_vector_kron",
     "with_best_formats",
     "with_spmv_backend",
+    "PallasSpgemmPlan",
+    "pallas_spgemm",
+    "make_row_mesh",
+    "PGrid",
+    "ShardedStencil",
+    "structured_distributed_setup",
+    "distribute_grid",
+    "collect_grid",
+    "poisson_stencil_sharded",
+    "anisotropic_stencil_sharded",
+    "sharded_device_setup",
 ]

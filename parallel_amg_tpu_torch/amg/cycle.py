@@ -3,7 +3,8 @@
 Counterpart of ``parallel_amg_tpu/amg/cycle.py``.  The V/W-cycle is a Python
 recursion over the hierarchy's levels; each operator application launches its
 own kernels (no tracing), and ``solve`` reads one residual norm back to the
-host per cycle for its stopping test.
+host per cycle for its stopping test.  Iterates may be PGrids (the
+distributed structured path, ``parallel/pgrid.py``).
 """
 
 from __future__ import annotations
@@ -11,11 +12,17 @@ from __future__ import annotations
 import torch
 
 from parallel_amg_tpu_torch.amg import smoothers
+from parallel_amg_tpu_torch.parallel import pgrid
 
 
 def coarse_solve(hierarchy, b):
-    """Dense coarse solve: one matmul with the precomputed M⁻¹."""
+    """Dense coarse solve: one matmul with the precomputed M⁻¹.  A PGrid
+    right-hand side is gathered on M⁻¹'s device and the solution split
+    back over its mesh."""
     Minv = hierarchy.coarse_inv
+    if isinstance(b, pgrid.PGrid):
+        return pgrid.PGrid.from_global(
+            coarse_solve(hierarchy, b.to_global(Minv.device)), b.mesh)
     x = Minv @ b.reshape(-1).to(Minv.dtype)
     return x.to(b.dtype).reshape(b.shape)
 
@@ -54,7 +61,7 @@ def vcycle(hierarchy, x, b):
     """One multigrid cycle (V or W per config) starting from iterate x."""
     gamma = 1 if hierarchy.config.cycle == "V" else 2
     out = _cycle(hierarchy, 0, hierarchy.to_grid(x), hierarchy.to_grid(b), gamma)
-    return out.reshape(x.shape)
+    return pgrid.reshape(out, x.shape)
 
 
 def solve(hierarchy, b, tol: float = 1e-8, maxiter: int = 100):
@@ -63,17 +70,17 @@ def solve(hierarchy, b, tol: float = 1e-8, maxiter: int = 100):
     Returns (x, residual_history, n_cycles) with the history padded to
     ``maxiter`` (inf past the end).
     """
-    target = tol * torch.linalg.norm(b)
+    target = tol * pgrid.norm(b)
     bg = hierarchy.to_grid(b)
     gamma = 1 if hierarchy.config.cycle == "V" else 2
     hist = torch.full((maxiter,), float("inf"), dtype=b.dtype, device=b.device)
-    x = torch.zeros_like(bg)
+    x = pgrid.zeros_like(bg)
     k = 0
     while k < maxiter:
         x = _cycle(hierarchy, 0, x, bg, gamma)
-        r_norm = torch.linalg.norm(bg - hierarchy.levels[0].A.matvec(x))
+        r_norm = pgrid.norm(bg - hierarchy.levels[0].A.matvec(x))
         hist[k] = r_norm
         k += 1
         if r_norm <= target:  # one device→host read per cycle
             break
-    return x.reshape(b.shape), hist, k
+    return pgrid.reshape(x, b.shape), hist, k

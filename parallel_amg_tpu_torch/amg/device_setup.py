@@ -17,8 +17,9 @@ the whole setup reduces to stencil algebra on device tensors:
   small host read per level).
 
 The host decides shapes only; every O(n) operation runs on the tensors'
-device.  The slab path takes no ``mask`` of sharded-grid padding rows: that
-argument serves the JAX package's distributed setup, which is not ported.
+device.  The slab kernel ``_slab_coarse_operator`` also serves the
+distributed setup (``parallel/pdevice_setup.py``), one part's slab at a
+time, with a ``mask`` of the sharded grid's padding rows.
 """
 
 from __future__ import annotations
@@ -149,7 +150,8 @@ def galerkin_block(M: Stencil, cdims, block: int, scale,
 
 
 def _slab_coarse_operator(W_ext, d_ext, scale_ext, coef, ca, *, offsets,
-                          dims_slab, cdims_slab, block, halo, rc, it):
+                          dims_slab, cdims_slab, block, halo, rc, it,
+                          mask=None):
     """One axis-0 slab of the Galerkin triple product.
 
     W_ext/d_ext are the fine operator and its diagonal inverse padded by
@@ -158,6 +160,13 @@ def _slab_coarse_operator(W_ext, d_ext, scale_ext, coef, ca, *, offsets,
     ends.  Returns the slab's coarse planes, exact because every shift that
     could reach a slab edge stays inside the halo (halo = 2·reach of
     sym(Sᵀ A S)).
+
+    ``mask`` (optional, in slab coordinates, broadcastable to
+    ``dims_slab``) zeroes the rows of M = sym(Sᵀ A S) that belong to axis-0
+    padding of a sharded grid before the pooled reduction, so the tentative
+    prolongator aggregates true fine cells only.  Padding rows carry an
+    identity diagonal and do not couple to true rows, so masking rows alone
+    gives the masked Tᵀ·M·T exactly.
     """
     b = block
     fa = ca * b  # the slab's first fine row in padded coordinates
@@ -170,6 +179,8 @@ def _slab_coarse_operator(W_ext, d_ext, scale_ext, coef, ca, *, offsets,
     del S
     M = symmetrize_stencil(sparsify_stencil(St.matmul(AS), it))
     del St, AS
+    if mask is not None:  # in place: M's planes are this call's own
+        M.weights.mul_(mask[None])
     # crop the halo: the reduction reads only fine rows [halo, halo + cc·b),
     # which are exact
     inner = (cdims_slab[0] * b,) + tuple(dims_slab[1:])

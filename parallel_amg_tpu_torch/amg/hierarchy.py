@@ -21,6 +21,7 @@ import torch
 from parallel_amg_tpu_torch.config import AMGConfig
 from parallel_amg_tpu_torch.device import resolve_device
 from parallel_amg_tpu_torch.ops.csr import CSR
+from parallel_amg_tpu_torch.parallel.pgrid import PGrid
 
 
 class Level:
@@ -29,14 +30,18 @@ class Level:
     ``P``/``R`` are ``None`` on the coarsest level.  ``lam_max`` is the
     λ_max(D⁻¹A) estimate used by Chebyshev smoothing (0.0 when unused), a
     Python float holding the float32 value of the setup's estimate.
+    ``true_n`` (optional) is the logical row count of a level whose operator
+    is padded (the sharded grids pad axis 0), so that complexities count
+    true rows.
     """
 
-    def __init__(self, A, P, R, d_inv, lam_max: float):
+    def __init__(self, A, P, R, d_inv, lam_max: float, true_n=None):
         self.A = A
         self.P = P
         self.R = R
         self.d_inv = d_inv
         self.lam_max = float(lam_max)
+        self.true_n = None if true_n is None else int(true_n)
 
     @classmethod
     def from_numpy(cls, A, P, R, d_inv, lam_max, dtype=torch.float32) -> "Level":
@@ -59,11 +64,12 @@ class Level:
         return Level(self.A.to(device),
                      None if self.P is None else self.P.to(device),
                      None if self.R is None else self.R.to(device),
-                     self.d_inv.to(device), self.lam_max)
+                     self.d_inv.to(device), self.lam_max, self.true_n)
 
     @property
     def n(self) -> int:
-        return self.A.n_rows
+        """Logical (unpadded) row count."""
+        return self.A.n_rows if self.true_n is None else self.true_n
 
 
 def coarse_inverse_np(dense, rel_tol: float = 1e-6):
@@ -102,9 +108,14 @@ class Hierarchy:
         return len(self.levels)
 
     def complexity(self):
-        """(grid_complexity, operator_complexity) — host-side diagnostics."""
+        """(grid_complexity, operator_complexity) — host-side diagnostics.
+
+        Counts true rows and nnz: a padded level's padding rows carry one
+        identity entry each, which the nnz count leaves out.
+        """
         rows = [l.n for l in self.levels]
-        nnz = [l.A.nnz for l in self.levels]
+        nnz = [l.A.nnz - (0 if l.true_n is None else l.A.n_rows - l.true_n)
+               for l in self.levels]
         return sum(rows) / rows[0], sum(nnz) / nnz[0]
 
     @property
@@ -114,15 +125,16 @@ class Hierarchy:
 
     def to_grid(self, v):
         """User-facing 1D vector → internal layout (identity unless the
-        level-0 operator carries grid dims)."""
+        level-0 operator carries grid dims; a PGrid passes unchanged)."""
         dims = self.grid_dims
-        if dims is not None and v.ndim == 1:
+        if dims is not None and v.ndim == 1 and not isinstance(v, PGrid):
             return v.reshape(dims)
         return v
 
     def from_grid(self, v):
-        """Internal layout → user-facing 1D vector."""
-        return v.reshape(-1) if v.ndim > 1 else v
+        """Internal layout → user-facing 1D vector (a PGrid passes
+        unchanged: ``collect_grid`` strips its padding)."""
+        return v.reshape(-1) if v.ndim > 1 and not isinstance(v, PGrid) else v
 
 
 def with_spmv_backend(h: "Hierarchy", backend: str = "mixed") -> "Hierarchy":
@@ -157,7 +169,7 @@ def with_spmv_backend(h: "Hierarchy", backend: str = "mixed") -> "Hierarchy":
             return A.to_stencil() or A
         return A
 
-    levels = [Level(convert(l.A), l.P, l.R, l.d_inv, l.lam_max)
+    levels = [Level(convert(l.A), l.P, l.R, l.d_inv, l.lam_max, l.true_n)
               for l in h.levels]
     return Hierarchy(levels, h.coarse_inv, h.config)
 
@@ -187,8 +199,8 @@ def with_best_formats(h: "Hierarchy", device: bool = False) -> "Hierarchy":
             return best_format(T.to_csr(), dtype=T.vals.dtype).to(
                 T.vals.device)
 
-    levels = [Level(conv(l.A), conv(l.P), conv(l.R), l.d_inv, l.lam_max)
-              for l in h.levels]
+    levels = [Level(conv(l.A), conv(l.P), conv(l.R), l.d_inv, l.lam_max,
+                    l.true_n) for l in h.levels]
     return Hierarchy(levels, h.coarse_inv, h.config)
 
 

@@ -25,7 +25,21 @@ matrix (``to_csr().to_scipy()`` of an algebraic level; it goes through
 - ``{"format": "VectorBlockProlongator" | "VectorBlockRestrictor", "L",
   "d_inv_L", "scale", "coef", "dims", "cdims", "block", "bs"}``, with ``L``
   a Stencil mapping and ``d_inv_L`` its diagonal inverse where the level is
-  BSR, or both None for a transfer linked to a BlockStencil level.
+  BSR, or both None for a transfer linked to a BlockStencil level;
+- ``{"format": "ShardedStencil", "weights": (D, d0p, *rest), "offsets",
+  "dims", "halo_mode"}``: one global array of weight planes over the padded
+  dims, split into the parts of ``mesh``;
+- ``{"format": "SBlockProlongator" | "SBlockRestrictor", "scale": (*cdims,),
+  "coef", "dims", "cdims", "block", "true_d0"}``, a linked sharded block
+  transfer over padded dims (``scale`` split over the mesh);
+- ``{"format": "SBoundaryProlongator" | "SBoundaryRestrictor", "inner": an
+  SBlock mapping, "true_cdims"}``, a transfer across the agglomeration
+  boundary.
+
+A level whose A is a ShardedStencil takes its ``d_inv`` over the padded
+dims and splits it over the mesh, and may carry ``true_n``.  The levels
+below a distributed hierarchy's agglomeration boundary, and the coarse
+inverse, go to part 0's device.
 """
 
 from __future__ import annotations
@@ -51,11 +65,26 @@ from parallel_amg_tpu_torch.ops.ell import ELL
 from parallel_amg_tpu_torch.ops.flatdia import FlatDIA
 from parallel_amg_tpu_torch.ops.select import best_format
 from parallel_amg_tpu_torch.ops.stencil import Stencil
+from parallel_amg_tpu_torch.parallel.pdevice_setup import (
+    SBoundaryProlongator,
+    SBoundaryRestrictor,
+)
+from parallel_amg_tpu_torch.parallel.pgrid import PGrid
+from parallel_amg_tpu_torch.parallel.pstencil import ShardedStencil
+from parallel_amg_tpu_torch.parallel.pstructured import (
+    SBlockProlongator,
+    SBlockRestrictor,
+)
 
 _TRANSFERS = {"BlockProlongator": BlockProlongator,
               "BlockRestrictor": BlockRestrictor}
 _VECTOR_TRANSFERS = {"VectorBlockProlongator": VectorBlockProlongator,
                      "VectorBlockRestrictor": VectorBlockRestrictor}
+_SBLOCK = {"SBlockProlongator": SBlockProlongator,
+           "SBlockRestrictor": SBlockRestrictor}
+_SBOUNDARY = {"SBoundaryProlongator": SBoundaryProlongator,
+              "SBoundaryRestrictor": SBoundaryRestrictor}
+_SHARDED = {"ShardedStencil", *_SBLOCK, *_SBOUNDARY}
 
 
 def _tensor(a, dtype):
@@ -111,24 +140,55 @@ def _operator(spec, dtype):
     raise ValueError(f"unknown operator format {fmt!r}")
 
 
+def _sharded(spec, dtype, mesh):
+    """A ShardedStencil, SBlock or SBoundary transfer on ``mesh``."""
+    fmt = spec["format"]
+    if mesh is None:
+        raise ValueError(f"a {fmt} level needs a mesh")
+    if fmt == "ShardedStencil":
+        return ShardedStencil.from_global(
+            _tensor(spec["weights"], dtype), spec["offsets"], spec["dims"],
+            mesh, spec.get("halo_mode", "xla"))
+    if fmt in _SBLOCK:
+        return _SBLOCK[fmt](None, None, PGrid.from_global(
+            _tensor(spec["scale"], dtype), mesh), _coef(spec, dtype),
+            spec["dims"], spec["cdims"], spec["block"], mesh,
+            spec.get("true_d0"))
+    return _SBOUNDARY[fmt](_sharded(spec["inner"], dtype, mesh),
+                           spec["true_cdims"])
+
+
+def _is_sharded(spec) -> bool:
+    return isinstance(spec, Mapping) and spec["format"] in _SHARDED
+
+
 def hierarchy_from_numpy(levels: Sequence[Mapping], coarse_inv,
                          config: AMGConfig, *, device=None,
-                         dtype=torch.float32) -> Hierarchy:
+                         dtype=torch.float32, mesh=None) -> Hierarchy:
     """Build a :class:`Hierarchy` on ``device`` (the CUDA card when None)
     from host arrays.
 
     Args:
       levels: one mapping per level with keys ``A``, ``P``, ``R`` (see the
         module docstring; ``P``/``R`` None on the coarsest level), ``d_inv``
-        and ``lam_max`` (numpy; ``d_inv`` N-D on a grid level).
+        and ``lam_max`` (numpy; ``d_inv`` N-D on a grid level), and
+        optionally ``true_n``.
       coarse_inv: (n_c, n_c) dense inverse of the coarsest operator.
+      mesh: the row mesh of a distributed hierarchy's sharded levels; its
+        part 0's device then holds the rest, and ``device`` is not read.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device(0)
     out = []
     for l in levels:
         lam = float(torch.as_tensor(np.asarray(l["lam_max"], np.float64)).to(dtype))
-        out.append(Level(_operator(l["A"], dtype), _operator(l["P"], dtype),
-                         _operator(l["R"], dtype), _tensor(l["d_inv"], dtype),
-                         lam))
-    inv = torch.from_numpy(np.array(coarse_inv)).to(torch.float32)
-    return Hierarchy(out, inv, config).to(dev)
+        if _is_sharded(l["A"]):
+            ops = [None if l[k] is None else _sharded(l[k], dtype, mesh)
+                   for k in ("A", "P", "R")]
+            d_inv = PGrid.from_global(_tensor(l["d_inv"], dtype), mesh)
+            out.append(Level(*ops, d_inv, lam, l.get("true_n")))
+        else:
+            out.append(Level(_operator(l["A"], dtype), _operator(l["P"], dtype),
+                             _operator(l["R"], dtype), _tensor(l["d_inv"], dtype),
+                             lam, l.get("true_n")).to(dev))
+    inv = torch.from_numpy(np.array(coarse_inv)).to(torch.float32).to(dev)
+    return Hierarchy(out, inv, config)

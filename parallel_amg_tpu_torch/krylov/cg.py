@@ -4,7 +4,8 @@ Counterpart of ``parallel_amg_tpu/krylov/cg.py``: the same recurrences and
 the same history layout (``maxiter + 1`` entries, inf-padded).  The stopping
 test reads the residual norm back to the host once per iteration.  Inner
 products flatten their operands, as ``jnp.vdot`` does, so b may be an N-D
-grid (the structured path).
+grid (the structured path) or a PGrid split over a row mesh (the distributed
+structured path), through the helpers of ``parallel/pgrid.py``.
 """
 
 from __future__ import annotations
@@ -13,9 +14,11 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from parallel_amg_tpu_torch.parallel import pgrid
+
 
 def _dot(a, b):
-    return torch.vdot(a.reshape(-1), b.reshape(-1))
+    return pgrid.vdot(a, b)
 
 
 class CGResult(NamedTuple):
@@ -36,10 +39,10 @@ def cg(A_matvec: Callable, b, M: Optional[Callable] = None, tol: float = 1e-8,
       tol, maxiter: stopping parameters.
     """
     precond = M if M is not None else (lambda r: r)
-    nb = torch.linalg.norm(b)
+    nb = pgrid.norm(b)
     target = tol * nb
 
-    x = torch.zeros_like(b)
+    x = pgrid.zeros_like(b)
     r = b
     z = precond(r)
     p = z
@@ -54,7 +57,7 @@ def cg(A_matvec: Callable, b, M: Optional[Callable] = None, tol: float = 1e-8,
         alpha = rz / _dot(p, q)
         x = x + alpha * p
         r = r - alpha * q
-        r_norm = torch.linalg.norm(r)
+        r_norm = pgrid.norm(r)
         hist[k + 1] = r_norm
         k += 1
         converged = bool(r_norm <= target)  # one device→host read

@@ -10,10 +10,13 @@ sizes its output width.
 ``dedup`` launches ``spgemm_dedup`` from ``csrc/spgemm.cu`` on a CUDA tensor
 (or raises) and runs the plain torch version ``_dedup_plain`` on a CPU tensor.
 ``launch`` calls the three C entries of ``csrc/spgemm.cu`` (B3, B5, B4) and
-counts each one's launches in ``LAUNCHES``, keyed by symbol.  The JAX
-module's first SpGEMM
-(``pallas_spgemm`` and its TWELL-piece gather, B9) is not ported: the
-rank-plane pipeline of ``ops/gspgemm.py`` computes the same product.
+counts each one's launches in ``LAUNCHES``, keyed by symbol.
+
+The JAX module's own product, ``pallas_spgemm`` (its TWELL-piece candidate
+gather ``_gather_rows_call`` is kernel B9), is routed to the same three
+kernels: B9 computes the candidate expand of C = A·B, which B3 computes on
+the card.  The TWELL piece tables exist for Mosaic's in-tile gather, so
+``PallasSpgemmPlan`` keeps A's ELL on its device instead.
 """
 
 from __future__ import annotations
@@ -147,3 +150,37 @@ def dedup(cand_cols, cand_vals, sent: int, counts_only: bool = False):
     if cand_cols.device.type == "cpu":
         return _dedup_plain(cand_cols, cand_vals, sent, counts_only)
     return _dedup_cuda(cand_cols, cand_vals, sent, counts_only)
+
+
+class PallasSpgemmPlan:
+    """The reusable left operand of ``pallas_spgemm``: A's ELL planes on
+    their device (the JAX plan's TWELL piece tables have no counterpart)."""
+
+    def __init__(self, A):
+        self.A = A
+
+    @classmethod
+    def from_ell(cls, A) -> "PallasSpgemmPlan":
+        return cls(A)
+
+
+def pallas_spgemm(A, B, out_width: int | None = None,
+                  plan: PallasSpgemmPlan | None = None):
+    """C = A @ B in ELL (kernel B9's product, routed to B3 + B5 + B4).
+
+    1. ``gspgemm.gather_candidates`` (B3) expands the candidates; products
+       equal to 0 drop, as in the JAX package.
+    2. Where ``out_width`` is None, B5 in count-only mode sizes it (one host
+       read, the JAX package's host sync).
+    3. ``gspgemm.dedup_compact`` (B4) merges and compacts; a row with more
+       distinct columns than an explicit ``out_width`` keeps its first
+       ``out_width`` (``row_nnz`` is clamped), as in the JAX package.
+
+    ``plan`` (from ``PallasSpgemmPlan.from_ell(A)``) stands in for A.
+    Columns come in candidate order, which may differ from the JAX package's
+    piece order: compare (column, value) sets.
+    """
+    from parallel_amg_tpu_torch.ops.gspgemm import gather_spgemm
+
+    left = A if plan is None else plan.A
+    return gather_spgemm(left, B, out_width=out_width, strict=False)
