@@ -34,10 +34,12 @@
     of B3, B4 and B5, peak memory, and bit-equality of the two runs.
 11. Kernels B3 (spgemm_expand), B5 (spgemm_dedup) and B4
     (spgemm_dedup_compact) against their plain versions on config #2's
-    level-0 R·A and (R·A)·P and level-1 to level-3 R·A (K above the
-    merge's 512-slot stage from level 2 on), a random rectangular product
-    and a case with explicit zeros, empty rows and rows over out_width:
-    kernel, plain and bound times, and cuSPARSE's time for the product.
+    level-0 R·A and (R·A)·P and level-1 to level-3 R·A (K above B5's
+    512-slot stage from level 2 on), a random rectangular product, a case
+    with explicit zeros, empty rows and rows over out_width, and a product
+    with K above B4's shared-memory table (its global scratch): kernel,
+    plain and bound times, cuSPARSE's time for the product, and B4 held
+    bit-equal to B5's in-place merge compacted in slot order.
 12. convert and slice_rs: with_best_formats(h, device=True), then the
     V-cycle and amg_pcg to 1e-6 on the device-built hierarchy, held to the
     float64 oracle's iterations and the slice's residual limit.
@@ -68,23 +70,32 @@
     (``poisson_stencil_sharded`` over ``make_row_mesh(4)``, then
     ``sharded_device_setup`` with halo_mode "pallas_async"): seconds, peak
     memory, true level rows (levels 0 and 1 sharded, the rest gathered).
-20. Kernel B8 (halo_stencil) against its plain version (the "xla"
-    formulation): config #3's level 0 (144×128×128 padded, random weights)
-    and level 1 (48×43×43, 27 points) in 4 parts, a reach-2 128³ stencil,
-    and a case with m0 ≤ h that must not launch; kernel, plain, bound and
-    library-CSR times, bit-equality over 20 calls, and the device time of
-    one matvec (torch.profiler) beside its CUDA-event window.
-21. slice_dist3d: the 4-part V-cycle (B8 launches per cycle) and amg_pcg to
-    1e-6 with the float64 true residual, held within 2 iterations of
-    slice3d's single-device count; the same solve under "xla".
+20. Kernel B8 against its plain version (the "xla" formulation), bit for
+    bit: config #3's level 0 (144×128×128 padded, random weights) and level
+    1 (48×43×43, 27 points) in 4 parts, a reach-2 128³ stencil, and a case
+    with m0 ≤ h that must not launch.  The one-launch path
+    (halo_stencil_matvec, parts on one card: one launch per matvec) with
+    kernel, plain, bound and library-CSR times and bit-equality over 20
+    calls; the several-card copy-stream path (halo_stencil_interior +
+    halo_stencil_boundary, run on one card) bit-equal too, with its
+    whole-matvec time and each entry's own; launches and device busy share
+    per matvec of both paths (torch.profiler).
+21. slice_dist3d: the 4-part V-cycle (18 B8 launches per cycle: 9 matvecs
+    on each of the 2 sharded levels) and amg_pcg to 1e-6 with the float64
+    true residual, held within 2 iterations of slice3d's single-device
+    count; the same solve under "xla" with the same residual history.
 22. Kernel B9's route: pallas_spgemm (B3 + B5 + B4) against its plain
     version at config #2's level-0 A·A (K = 25), a random rectangular
     product and a product with explicit zeros; the product's time beside
     its bound, the plain version's and cuSPARSE's (after phase 11).
 23. slice_dist_100m: 468³ = 102,503,232 DOF in 8 parts on the card: setup
-    seconds, peak memory, level rows, one B8 time at level 0, amg_pcg to
-    1e-6 within 60 iterations with the float64 true residual.  It runs
-    last, with the earlier hierarchies freed.
+    seconds, peak memory, level rows, B8 at level 0 (one launch, bit-equal,
+    and the copy-stream path's time beside it), amg_pcg to 1e-6 within 60
+    iterations with the float64 true residual.  It runs last, with the
+    earlier hierarchies freed.
+24. c1: each configuration's PCG iterations, level rows and complexities
+    beside the JAX package's, one line each (the random draws are the JAX
+    package's threefry uniform, ops/prng.py).
 
 Every phase prints JSON lines.  Any failure raises, so the script exits
 non-zero without its last line, which on success is
@@ -112,6 +123,8 @@ SPGEMM_RTOL, SPGEMM_ATOL = 1e-5, 1e-6
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 SPGEMM_SOURCE = "parallel_amg_tpu_torch/csrc/spgemm.cu"
+HALO_SOURCE = "parallel_amg_tpu_torch/csrc/halo_stencil.cu"
+HALO_REPLACES = "parallel_amg_tpu/parallel/phalo_async.py:173"
 KERNELS = {
     "twell_spmv": {"source": "parallel_amg_tpu_torch/csrc/twell_spmv.cu",
                    "replaces": "parallel_amg_tpu/ops/twell.py:234"},
@@ -127,8 +140,11 @@ KERNELS = {
                  "replaces": "parallel_amg_tpu/ops/btwell.py:288"},
     "flatdia_spmm": {"source": "parallel_amg_tpu_torch/csrc/flatdia_spmm.cu",
                      "replaces": "parallel_amg_tpu/ops/flatdia.py:212"},
-    "halo_stencil": {"source": "parallel_amg_tpu_torch/csrc/halo_stencil.cu",
-                     "replaces": "parallel_amg_tpu/parallel/phalo_async.py:173"},
+    # B8: one launch for the parts on one card; the interior and boundary
+    # pair of the several-card copy-stream path
+    "halo_stencil_matvec": {"source": HALO_SOURCE, "replaces": HALO_REPLACES},
+    "halo_stencil_interior": {"source": HALO_SOURCE, "replaces": HALO_REPLACES},
+    "halo_stencil_boundary": {"source": HALO_SOURCE, "replaces": HALO_REPLACES},
     # kernel B9's product, routed to spgemm_expand + spgemm_dedup +
     # spgemm_dedup_compact
     "pallas_spgemm": {"source": SPGEMM_SOURCE,
@@ -141,7 +157,8 @@ CONFIG3_ITERS = 12  # the JAX package's count (bench_details.json:40)
 # The JAX package's device-RS numbers: config #2 at 1024² (BENCH_r04.json,
 # stage amg_rs2d) and config #4 at 512² (BENCH_r05.json, stage anisotropic).
 CONFIG2_JAX = {"grid_complexity": 1.455, "operator_complexity": 2.397,
-               "pcg_iters": 7}
+               "pcg_iters": 7,
+               "rows": [1_048_576, 382_317, 79_114, 13_827, 2_019, 294, 42]}
 # The JAX package's config #5 numbers: 128³×3 with the BSR fine level
 # (bench_details.json:251-254) and the 324³×3 level rows
 # (artifacts/probe_100m_bsr.log:28).
@@ -243,9 +260,11 @@ def profile_cycles(fn, n=5):
     interior = [e.time_range for e in kernels if "interior_kernel" in e.name]
     overlap = sum(max(0.0, min(c.end, k.end) - max(c.start, k.start))
                   for c in copies for k in interior)
-    return {"kernels_per_call": len(kernels) / n, "device_ms_per_call": dev_us / 1e3,
+    # a window in which the profiler recorded no kernel has no device numbers
+    return {"kernels_per_call": len(kernels) / n,
+            "device_ms_per_call": dev_us / 1e3 if kernels else None,
             "wall_ms_per_call_profiled": wall,
-            "device_busy_share": (dev_us / 1e3) / wall if wall else None,
+            "device_busy_share": (dev_us / 1e3) / wall if kernels and wall else None,
             "copies_per_call": len(copies) / n,
             "copy_us_per_call": sum(c.end - c.start for c in copies) / n,
             "copy_overlap_with_b8_interior_us_per_call": overlap / n}
@@ -260,12 +279,18 @@ def main():
     import scipy.sparse as sp
 
     import parallel_amg_tpu_torch as ptt
-    from parallel_amg_tpu_torch.amg import device_setup
+    from parallel_amg_tpu_torch.amg import device_rs, device_setup
     from parallel_amg_tpu_torch.amg.hierarchy import Hierarchy
     from parallel_amg_tpu_torch.ops import _build, bsr, flatdia, gspgemm, pspgemm, twell
     from parallel_amg_tpu_torch.parallel import phalo_async
     from parallel_amg_tpu_torch.parallel.pgrid import PGrid
-    from parallel_amg_tpu_torch.parallel.pstencil import ShardedStencil, apply_halo_mode
+    from parallel_amg_tpu_torch.parallel.pstencil import (
+        ShardedStencil,
+        apply_halo_mode,
+        boundary_plain,
+        halo_planes,
+        interior_plain,
+    )
     from parallel_amg_tpu_torch.ops.csr import CSR
     from parallel_amg_tpu_torch.ops.dia import DIA
     from parallel_amg_tpu_torch.ops.ell import ELL
@@ -578,6 +603,16 @@ def main():
         raise AssertionError(f"the config #2 solve skipped a kernel: {launches2}")
     del oh, x_oracle
 
+    # C1: each configuration's counts beside the JAX package's, printed last
+    c1 = {}
+
+    def bf16_coarse_iters(hh, A0, b_):
+        """PCG iterations with the coarse solve's M⁻¹ @ b in bfloat16.  The
+        JAX package's counts were taken on a TPU, where an f32 matmul runs
+        one bfloat16 pass by default, and its coarse solve is one M⁻¹ @ b."""
+        hb = Hierarchy(hh.levels, hh.coarse_inv.bfloat16(), hh.config)
+        return ptt.amg_pcg(A0, hb, b_, tol=1e-6, maxiter=100).iters
+
     # -- slice3d: config #3 V-cycle and AMG-PCG at 128³ --------------------------
     A3_sp = poisson3d(n3).to_csr().to_scipy()
     b3_np = np.random.default_rng(0).normal(size=n3 ** 3).astype(np.float32)
@@ -613,6 +648,14 @@ def main():
             raise AssertionError(f"config #3 true relative residual {true3} > 1e-5")
         if launches3["flatdia_spmv"] <= 0:
             raise AssertionError(f"the config #3 ({backend}) solve launched no B2")
+    hm3 = ptt.with_spmv_backend(h3, "mixed")
+    c1["config3_128^3"] = dict(
+        pcg_iters=slice3["mixed"]["iters"], jax_package_iters=CONFIG3_ITERS,
+        rows=rows3, complexity=h3.complexity(),
+        pcg_iters_bf16_coarse_solve=bf16_coarse_iters(
+            hm3, hm3.levels[0].A,
+            torch.from_numpy(b3_np).to(dev).reshape(hm3.grid_dims)))
+    del hm3
 
     # -- setup_dist3d: config #3 split into 4 parts on the card -----------------
     cfg3_async = dataclasses.replace(cfg3, halo_mode="pallas_async")
@@ -655,15 +698,39 @@ def main():
                                for W in A_s.weights], A_s.offsets, A_s.dims, A_s.mesh)
 
     def halo_bytes(A_s):
-        """W + x + y of every part and the 2h halo planes each part receives."""
+        """W, x and y of every part, each read or written once (the halo
+        planes are planes of x)."""
+        return 4 * (A_s.n_points + 2) * A_s.n
+
+    def entry_bytes(A_s):
+        """(interior, boundary) entries' bytes over all parts: the interior
+        reads the weights of its in-slab terms, x and writes y; the boundary
+        reads its halo terms' weights, the 2h landing planes a part gets and
+        the boundary planes of y, and writes those planes."""
         plane = int(np.prod(A_s.dims[1:]))
-        S = A_s.mesh.size
-        halos = 2 * (S - 1) * A_s.halo * plane
-        return 4 * ((A_s.n_points + 2) * A_s.n + halos)
+        S, m0, h = A_s.mesh.size, A_s.m0, A_s.halo
+        reach = sum(abs(o[0]) for o in A_s.offsets)
+        interior = S * (A_s.n_points * m0 - reach + 2 * m0)
+        boundary = (S - 1) * (reach + 2 * h) + 2 * S * min(2 * h, m0)
+        return 4 * plane * interior, 4 * plane * boundary
 
     def global_csr(A_s):
         return flat_csr(FlatDIA.from_stencil(
             Stencil(A_s.global_weights(), A_s.offsets, A_s.dims)))
+
+    def bits_equal(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def b8_launches(fn):
+        """B8's launches by entry during one fn() call."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return halo_counts(), out
+
+    ONE_CARD = {"halo_stencil_matvec": 1, "halo_stencil_interior": 0,
+                "halo_stencil_boundary": 0}
+    NO_B8 = dict.fromkeys(ONE_CARD, 0)
 
     reach2 = poisson_stencil(dims3)
     reach2 = reach2.matmul(reach2)
@@ -675,23 +742,24 @@ def main():
             poisson_stencil((8, 24)).matmul(poisson_stencil((8, 24))), mesh4),
     }
     del reach2
-    results["halo_stencil"] = {"max_abs_err": 0.0}
+    for name in ONE_CARD:
+        results[name] = {"max_abs_err": 0.0}
     for name, A_s in b8_cases.items():
         A_k = A_s.with_halo_mode("pallas_async")
         A_p = A_s.with_halo_mode("xla")
         A_abs = ShardedStencil([W.abs() for W in A_s.weights], A_s.offsets, A_s.dims,
                                A_s.mesh)
         x = PGrid.from_global(torch.randn(A_s.dims, generator=g, device=dev), A_s.mesh)
-        reset_counts()
-        y = A_k.matvec(x)
-        launched = halo_counts()
+        S, hw = A_s.mesh.size, A_s.halo
+        launched, y = b8_launches(lambda: A_k.matvec(x))
         ref = A_p.matvec(x)
         bound = ATOL + RTOL * A_abs.matvec(PGrid([p.abs() for p in x.parts], x.mesh))
-        want_launch = A_s.m0 > A_s.halo
-        if (min(launched.values()) > 0) != want_launch:
+        want_launch = A_s.m0 > hw
+        if launched != (ONE_CARD if want_launch else NO_B8):
             raise AssertionError(f"halo_stencil {name}: launches {launched} with "
-                                 f"m0 {A_s.m0}, h {A_s.halo}")
+                                 f"m0 {A_s.m0}, h {hw}")
         y_g, ref_g = y.to_global(), ref.to_global()
+        bit_equal = bits_equal(y_g, ref_g)
         n_bytes = halo_bytes(A_s)
         b_ms, b_by = bound_ms(n_bytes, 2 * A_s.n_points * A_s.n)
         csr = global_csr(A_s)
@@ -699,34 +767,90 @@ def main():
         del csr
         ms = device_ms(lambda: A_k.matvec(x))
         plain_ms = device_ms(lambda: A_p.matvec(x), reps=2, samples=5)
-        repeats = [A_k.matvec(x).to_global() for _ in range(20)]
-        bit_equal_20 = all(torch.equal(r.view(torch.int32), y_g.view(torch.int32))
-                           for r in repeats)
-        err = check_kernel("halo_stencil", name, torch.float32, y_g, ref_g,
+        bit_equal_20 = all(bits_equal(A_k.matvec(x).to_global(), y_g) for _ in range(20))
+        copy_extra = {}
+        if want_launch:
+            # the several-card path, run on one card: the same sums
+            copy_launched, yc = b8_launches(
+                lambda: phalo_async.matvec_copy_streams(A_s, x))
+            copy_equal = bits_equal(yc.to_global(), ref_g)
+            copy_ms = device_ms(lambda: phalo_async.matvec_copy_streams(A_s, x))
+            copy_extra = dict(copy_path_launches=copy_launched,
+                              copy_path_bit_equal=copy_equal, copy_path_ms=copy_ms,
+                              copy_path_max_abs_err=float(
+                                  (yc.to_global() - ref_g).abs().max()))
+            if copy_launched != {"halo_stencil_matvec": 0, "halo_stencil_interior": S,
+                                 "halo_stencil_boundary": S} or not copy_equal:
+                raise AssertionError(f"halo_stencil {name}: the copy-stream path "
+                                     f"launched {copy_launched}, bit-equal {copy_equal}")
+            del yc
+        err = check_kernel("halo_stencil_matvec", name, torch.float32, y_g, ref_g,
                            bound.to_global(), dict(
-                               padded_dims=list(A_s.dims), parts=A_s.mesh.size,
-                               m0=A_s.m0, halo=A_s.halo, points=A_s.n_points,
-                               launches=launched,
-                               bit_equal_to_plain=bool(torch.equal(y_g, ref_g)),
+                               padded_dims=list(A_s.dims), parts=S, m0=A_s.m0,
+                               halo=hw, points=A_s.n_points, launches=launched,
+                               bit_equal_to_plain=bit_equal,
                                bit_equal_20_calls=bit_equal_20, ms=ms,
                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                               share_of_bound=b_ms / ms,
                                copy_bound_ms=copy_bound_ms(n_bytes),
                                library_csr_ms=lib_ms, library_error=lib_err,
-                               gb_s=n_bytes / ms / 1e6))
-        if not bit_equal_20:
-            raise AssertionError(f"halo_stencil {name}: 20 calls are not bit-equal")
-        r = results["halo_stencil"]
+                               gb_s=n_bytes / ms / 1e6, **copy_extra))
+        if not (bit_equal and bit_equal_20):
+            raise AssertionError(f"halo_stencil {name}: not bit-equal to the plain "
+                                 f"version ({bit_equal}) or over 20 calls "
+                                 f"({bit_equal_20})")
+        r = results["halo_stencil_matvec"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        if want_launch:
+            r[f"ms_{name}"] = ms
         if name == "config3_level0_4parts":
-            # the device's share of one matvec: its kernels' and copies'
-            # device time beside the CUDA-event window above
+            # launches and the device's share of one matvec on each path
             prof_b8 = profile_cycles(lambda: A_k.matvec(x), n=20)
-            emit("kernel_b8_profile", case=name, event_window_ms=ms, **prof_b8)
+            emit("kernel_b8_profile", case=name, path="one_launch",
+                 b8_launches_per_matvec=launched, event_window_ms=ms, **prof_b8)
+            prof_copy = profile_cycles(lambda: phalo_async.matvec_copy_streams(A_s, x),
+                                       n=20)
+            emit("kernel_b8_profile", case=name, path="copy_streams",
+                 b8_launches_per_matvec=copy_extra["copy_path_launches"],
+                 event_window_ms=copy_extra["copy_path_ms"], **prof_copy)
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                      copy_bound_ms=copy_bound_ms(n_bytes), library_ms=lib_ms,
                      main_case=f"{name} f32",
-                     device_ms_per_matvec=prof_b8["device_ms_per_call"])
-        del A_k, A_p, A_abs, x, y, ref, bound, repeats
+                     device_ms_per_matvec=prof_b8["device_ms_per_call"],
+                     copy_path_ms=copy_extra["copy_path_ms"])
+            # the several-card path's two entries, each over every part
+            offs = A_s.offsets
+            lands = [halo_planes(x.parts, p, hw) for p in range(S)]
+            ys0 = [phalo_async.stencil_interior(W, xl, offs, hw)
+                   for W, xl in zip(A_s.weights, x.parts)]
+            yb = [yy.clone() for yy in ys0]
+            entries = {
+                "halo_stencil_interior": (
+                    lambda: [phalo_async.stencil_interior(W, xl, offs, hw)
+                             for W, xl in zip(A_s.weights, x.parts)],
+                    lambda: [interior_plain(W, xl, offs, hw)
+                             for W, xl in zip(A_s.weights, x.parts)]),
+                "halo_stencil_boundary": (
+                    lambda: [phalo_async.stencil_boundary(yy, W, lf, rt, offs, hw)
+                             for yy, W, (lf, rt) in zip(yb, A_s.weights, lands)],
+                    lambda: [boundary_plain(yy, W, lf, rt, offs, hw)
+                             for yy, W, (lf, rt) in zip(yb, A_s.weights, lands)]),
+            }
+            for entry, nb in zip(entries, entry_bytes(A_s)):
+                fn, plain_fn = entries[entry]
+                e_ms = device_ms(fn)
+                e_plain = device_ms(plain_fn, reps=2, samples=5)
+                eb_ms, eb_by = bound_ms(nb, 0)
+                results[entry].update(
+                    ms=e_ms, plain_ms=e_plain, bound_ms=eb_ms, bound_by=eb_by,
+                    copy_bound_ms=copy_bound_ms(nb), library_ms=None,
+                    main_case=f"{name} f32, every part",
+                    max_abs_err=copy_extra["copy_path_max_abs_err"])
+                emit("kernel", name=entry, case=name, ms=e_ms, plain_ms=e_plain,
+                     bound_ms=eb_ms, bound_by=eb_by, bytes=nb,
+                     bit_equal_via_copy_path=copy_extra["copy_path_bit_equal"])
+            del lands, ys0, yb, entries
+        del A_k, A_p, A_abs, x, y, ref, bound
     del b8_cases
 
     # -- slice_dist3d: config #3 in 4 parts, V-cycle and AMG-PCG ----------------------
@@ -735,12 +859,11 @@ def main():
     vt_d3, v_d3 = wall_ms(lambda: ptt.vcycle(hd3, zero3d, b3d))
     if not all(bool(torch.isfinite(p).all()) for p in v_d3.parts):
         raise AssertionError("config #3 4-part vcycle output not finite")
-    reset_counts()
-    ptt.vcycle(hd3, zero3d, b3d)
-    torch.cuda.synchronize()
-    per_cycle_d3 = halo_counts()
-    if min(per_cycle_d3.values()) <= 0:
-        raise AssertionError(f"the 4-part V-cycle launched no B8: {per_cycle_d3}")
+    per_cycle_d3, _ = b8_launches(lambda: ptt.vcycle(hd3, zero3d, b3d))
+    # 9 matvecs on each of the 2 sharded levels, one launch each
+    if per_cycle_d3 != {**NO_B8, "halo_stencil_matvec": 18}:
+        raise AssertionError(f"the 4-part V-cycle's B8 launches {per_cycle_d3}, "
+                             "want 18 one-card launches")
     dist3 = {}
     for mode in ("pallas_async", "xla"):
         hm = Hierarchy(apply_halo_mode(hd3.levels, mode), hd3.coarse_inv, hd3.config)
@@ -752,7 +875,8 @@ def main():
         s_d = time.perf_counter() - t0
         counts_d = halo_counts()
         true_d = true_rel_residual(A3_sp, b3_np, ptt.collect_grid(rd.x, dims3))
-        dist3[mode] = dict(iters=rd.iters, launches=counts_d)
+        dist3[mode] = dict(iters=rd.iters, launches=counts_d,
+                           history=rd.residual_history[:rd.iters + 1].cpu().tolist())
         emit("slice_dist3d", problem=info_d3["problem"], halo_mode=mode,
              vcycle_ms_median=statistics.median(vt_m), vcycle_ms=vt_m,
              b8_launches_per_vcycle=per_cycle_d3 if mode == "pallas_async" else None,
@@ -768,10 +892,14 @@ def main():
                                  f"iterations, one device {slice3['mixed']['iters']}")
         if not true_d <= 1e-5:
             raise AssertionError(f"config #3 in 4 parts true residual {true_d} > 1e-5")
-        if (min(counts_d.values()) > 0) != (mode == "pallas_async"):
+        if (counts_d["halo_stencil_matvec"] > 0) != (mode == "pallas_async"):
             raise AssertionError(f"config #3 in 4 parts ({mode}): B8 launches {counts_d}")
         del hm
-    if dist3["xla"]["iters"] != dist3["pallas_async"]["iters"]:
+    c1["config3_128^3_4parts"] = dict(pcg_iters=dist3["pallas_async"]["iters"],
+                                      jax_package_iters=CONFIG3_ITERS, rows=rows_d3,
+                                      complexity=info_d3["complexity"])
+    # the same sums in both modes: the same residual history to the last digit
+    if dist3["xla"]["history"] != dist3["pallas_async"]["history"]:
         raise AssertionError(f"halo modes disagree: {dist3}")
 
     # -- setup_rs: config #2 set up on the card (Ruge–Stüben, device) ----------
@@ -800,6 +928,13 @@ def main():
         return hh, secs, counts, (gc, oc)
 
     h_rs, _, launches_rs, cx_rs = rs_setup(A_csr, "setup_rs")
+    # the level-0 host draws of that setup (ops/prng.py): the PMIS weights
+    # and the power iteration's start vector, copied to the card
+    t0 = time.perf_counter()
+    device_rs.pmis_weights(A_csr.n_rows, 0, dev)
+    device_setup.start_vector((A_csr.n_rows,), torch.float32, dev)
+    torch.cuda.synchronize()
+    emit("setup_rs_draws", rows=A_csr.n_rows, seconds=time.perf_counter() - t0)
     emit("setup_rs_vs_jax", grid_complexity=cx_rs[0],
          operator_complexity=cx_rs[1], jax_package=CONFIG2_JAX)
     for got, key in zip(cx_rs, ("grid_complexity", "operator_complexity")):
@@ -851,6 +986,8 @@ def main():
                                       random_ell(150_000, 120_000, 6), None),
         "zeros_empty_overflow": (random_ell(50_000, 3_000, 12, 0.2, 0.1),
                                  random_ell(3_000, 2_000, 9, 0.2, 0.1), 40),
+        # K 5120 above B4's shared-memory table: its global scratch
+        "wide_K5120": (random_ell(400, 3_000, 64), random_ell(3_000, 2_000, 80), None),
     }
     slow = dict(reps=1, samples=3, warmup=1)  # the plain versions
     for name in ("spgemm_expand", "spgemm_dedup", "spgemm_dedup_compact"):
@@ -872,6 +1009,10 @@ def main():
         bound5 = SPGEMM_ATOL + SPGEMM_RTOL * pspgemm._dedup_plain(cc, cv.abs(), sent)[1]
         w = cap or max(int(ref5[2].max()), 1)
         comp = gspgemm.dedup_compact(cc, cv, sent, w)
+        # B4 against B5's in-place merge compacted in slot order: bit for bit
+        b5c = gspgemm.compact_merged(full[0], full[1], sent, w)
+        b4_is_b5 = (torch.equal(comp[0], b5c[0]) and torch.equal(comp[2], b5c[2])
+                    and torch.equal(comp[1].view(torch.int32), b5c[1].view(torch.int32)))
         ref4 = gspgemm._dedup_compact_plain(cc, cv, sent, w)
         bound4 = SPGEMM_ATOL + SPGEMM_RTOL * gspgemm._dedup_compact_plain(
             cc, cv.abs(), sent, w)[1]
@@ -882,7 +1023,7 @@ def main():
               and torch.equal(full[2], ref5[2])
               and bool(((full[1] - ref5[1]).abs() <= bound5).all())
               and torch.equal(comp[0], ref4[0]) and torch.equal(comp[2], ref4[2])
-              and bool(((comp[1] - ref4[1]).abs() <= bound4).all()))
+              and bool(((comp[1] - ref4[1]).abs() <= bound4).all()) and b4_is_b5)
         over = int((ref5[2] > w).sum())
         timing = {
             "spgemm_expand": (
@@ -899,7 +1040,8 @@ def main():
                 device_ms(lambda: gspgemm.dedup_compact(cc, cv, sent, w)),
                 device_ms(lambda: gspgemm._dedup_compact_plain(cc, cv, sent, w),
                           **slow),
-                bound_ms(R_ * K_ * 8 + R_ * w * 8 + R_ * 4, compares), err4),
+                # one hash insert or add per live candidate
+                bound_ms(R_ * K_ * 8 + R_ * w * 8 + R_ * 4, float(n_valid.sum())), err4),
         }
         full_ms = device_ms(lambda: pspgemm.dedup(cc, cv, sent))
         product_ms = device_ms(lambda: gspgemm.gather_spgemm(A, B, out_width=w,
@@ -918,7 +1060,9 @@ def main():
                  bound_by=b_by, compares=compares, max_abs_err=err, ok=ok,
                  tolerance=f"cols and counts equal, |dv| <= {SPGEMM_ATOL} + "
                            f"{SPGEMM_RTOL}*sum|merged|",
-                 **({"full_mode_ms": full_ms} if name == "spgemm_dedup" else {}))
+                 **({"full_mode_ms": full_ms} if name == "spgemm_dedup" else {}),
+                 **({"bit_equal_to_b5_compacted": b4_is_b5}
+                    if name == "spgemm_dedup_compact" else {}))
             r = results[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if case == "config2_L0_RAP":
@@ -931,8 +1075,9 @@ def main():
              library_error=lib_err)
         if not ok:
             raise AssertionError(f"spgemm kernels {case}: a kernel disagrees "
-                                 f"with its plain version (|dv| {err5}, {err4})")
-        del cc, cv, pc, pv, full, ref5, comp, ref4, bound4, bound5
+                                 f"with its plain version (|dv| {err5}, {err4}) or "
+                                 f"B4 with B5 compacted ({b4_is_b5})")
+        del cc, cv, pc, pv, full, ref5, comp, ref4, bound4, bound5, b5c
     del spgemm_cases, RA0
 
     # -- kernel B9's route: pallas_spgemm on B3 + B5 + B4 -----------------------------
@@ -1049,6 +1194,12 @@ def main():
         raise AssertionError(f"device-RS true residual {true_rs} > {limit_rs}")
     if min(launches_rs_pcg.values()) <= 0:
         raise AssertionError(f"the device-RS solve skipped a kernel: {launches_rs_pcg}")
+    c1["config2_device_1024^2"] = dict(
+        pcg_iters=res_rs.iters, jax_package_iters=CONFIG2_JAX["pcg_iters"],
+        oracle_iters=int(oracle_iters), rows=[l.A.n_rows for l in h_rs.levels],
+        jax_package_rows=CONFIG2_JAX["rows"],
+        complexity=cx_rs, jax_package_complexity=[CONFIG2_JAX["grid_complexity"],
+                                                  CONFIG2_JAX["operator_complexity"]])
 
     # -- aniso: config #4, anisotropic ε=1e-3 at 512² ---------------------------
     na = 512
@@ -1082,6 +1233,12 @@ def main():
                              f"{oracle4_iters}")
     if not true4 <= limit4:
         raise AssertionError(f"config #4 true residual {true4} > {limit4}")
+    c1["config4_512^2"] = dict(pcg_iters=res4.iters,
+                               jax_package_iters=CONFIG4_JAX["pcg_iters"],
+                               oracle_iters=int(oracle4_iters), rows=rows4,
+                               jax_package_rows=CONFIG4_JAX["rows"], complexity=cx4,
+                               jax_package_complexity=[CONFIG4_JAX["grid_complexity"],
+                                                       CONFIG4_JAX["operator_complexity"]])
     del h4, h4_fast, oh4, x4_oracle
 
     # -- setup_vec: config #5 at 128³×3 on the card (BSR fine level) ------------
@@ -1322,6 +1479,14 @@ def main():
                              f"package {CONFIG5_JAX['pcg_iters']}")
     if launches_vec["bsr_spmv"] <= 0:
         raise AssertionError(f"the config #5 solve launched no B6: {launches_vec}")
+    c1["config5_128^3x3"] = dict(pcg_iters=res5.iters,
+                                 jax_package_iters=CONFIG5_JAX["pcg_iters"],
+                                 node_rows=rows5,
+                                 complexity=[info5["grid_complexity"],
+                                             info5["operator_complexity"]],
+                                 jax_package_complexity=CONFIG5_JAX["complexity"],
+                                 pcg_iters_bf16_coarse_solve=bf16_coarse_iters(
+                                     h5, None, b5))
     launches_by_format = {"bsr": launches_vec}
     for fine_format in ("btwell", "bstencil"):
         Lf, hf, infof = vector_setup((n5,) * 3, fine_format, "setup_vec")
@@ -1425,6 +1590,10 @@ def main():
         peak_device_gb_setup=info100["peak_device_gb_setup"])
     if launches_100m["bsr_spmv"] <= 0:
         raise AssertionError(f"the 324³×3 solve launched no B6: {launches_100m}")
+    c1["config5_324^3x3"] = dict(pcg_iters=res100.iters, jax_package_iters=None,
+                                 rows=rows100, jax_package_rows=CONFIG5_100M_ROWS,
+                                 complexity=[info100["grid_complexity"],
+                                             info100["operator_complexity"]])
     del L100, h100, A100
 
     # -- slice_dist_100m: 468³ = 102,503,232 DOF in 8 parts ---------------------------
@@ -1434,6 +1603,13 @@ def main():
     dims468 = (n468,) * 3
     mesh8 = ptt.make_row_mesh(8)
     hd468, info468 = dist_setup(dims468, mesh8, "setup_dist_100m")
+    # that setup's host draw (ops/prng.py): the start vector over the padded
+    # grid, copied to the card
+    t0 = time.perf_counter()
+    device_setup.start_vector(hd468.levels[0].A.dims, torch.float32, dev)
+    torch.cuda.synchronize()
+    emit("setup_dist_100m_draw", values=hd468.levels[0].A.n,
+         seconds=time.perf_counter() - t0)
     rows468 = [lv["rows"] for lv in info468["levels"]]
     if rows468 != DIST_100M_ROWS:
         raise AssertionError(f"468³ in 8 parts: levels {rows468}, want {DIST_100M_ROWS}")
@@ -1441,29 +1617,39 @@ def main():
     x468 = PGrid.from_global(torch.randn(A468.dims, generator=g, device=dev), mesh8)
     A468_k = A468.with_halo_mode("pallas_async")
     A468_p = A468.with_halo_mode("xla")
-    y468 = A468_k.matvec(x468).to_global()
+    launched468, y468 = b8_launches(lambda: A468_k.matvec(x468))
+    y468 = y468.to_global()
     ref468 = A468_p.matvec(x468).to_global()
+    bit_equal468 = bits_equal(y468, ref468)
     bound468 = (ATOL + RTOL * ShardedStencil([W.abs() for W in A468.weights], A468.offsets,
                                              A468.dims, mesh8).matvec(
         PGrid([p.abs() for p in x468.parts], mesh8))).to_global()
     n_bytes468 = halo_bytes(A468)
     b_ms468, b_by468 = bound_ms(n_bytes468, 2 * A468.n_points * A468.n)
     ms468 = device_ms(lambda: A468_k.matvec(x468), reps=3, samples=9)
+    copy_ms468 = device_ms(lambda: phalo_async.matvec_copy_streams(A468, x468), reps=3,
+                           samples=9)
     prof468 = profile_cycles(lambda: A468_k.matvec(x468), n=5)
-    emit("kernel_b8_profile", case="dist_468^3_level0_8parts", event_window_ms=ms468,
-         **prof468)
+    emit("kernel_b8_profile", case="dist_468^3_level0_8parts", path="one_launch",
+         b8_launches_per_matvec=launched468, event_window_ms=ms468, **prof468)
     plain_ms468 = device_ms(lambda: A468_p.matvec(x468), reps=1, samples=3)
-    err468 = check_kernel("halo_stencil", "dist_468^3_level0_8parts", torch.float32, y468,
-                          ref468, bound468, dict(
+    err468 = check_kernel("halo_stencil_matvec", "dist_468^3_level0_8parts", torch.float32,
+                          y468, ref468, bound468, dict(
                               padded_dims=list(A468.dims), parts=8, m0=A468.m0,
-                              halo=A468.halo, points=A468.n_points, ms=ms468,
+                              halo=A468.halo, points=A468.n_points, launches=launched468,
+                              bit_equal_to_plain=bit_equal468, ms=ms468,
+                              copy_path_ms=copy_ms468,
                               plain_ms=plain_ms468, bound_ms=b_ms468,
-                              bound_by=b_by468, copy_bound_ms=copy_bound_ms(n_bytes468),
+                              bound_by=b_by468, share_of_bound=b_ms468 / ms468,
+                              copy_bound_ms=copy_bound_ms(n_bytes468),
                               gb_s=n_bytes468 / ms468 / 1e6))
-    results["halo_stencil"]["max_abs_err"] = max(results["halo_stencil"]["max_abs_err"],
-                                                 err468)
-    results["halo_stencil"].update(ms_468=ms468, bound_ms_468=b_ms468,
-                                   plain_ms_468=plain_ms468)
+    if launched468 != ONE_CARD or not bit_equal468:
+        raise AssertionError(f"halo_stencil 468³: launches {launched468}, bit-equal "
+                             f"{bit_equal468}")
+    r = results["halo_stencil_matvec"]
+    r["max_abs_err"] = max(r["max_abs_err"], err468)
+    r.update(ms_468=ms468, bound_ms_468=b_ms468, plain_ms_468=plain_ms468,
+             copy_path_ms_468=copy_ms468)
     del x468, y468, ref468, bound468, A468_k, A468_p
     b468_np = np.random.default_rng(0).normal(size=int(np.prod(dims468))).astype(np.float32)
     b468 = ptt.distribute_grid(b468_np, dims468, hd468, mesh8)
@@ -1496,13 +1682,17 @@ def main():
         raise AssertionError("468³ in 8 parts did not converge to 1e-6 in 60 iterations")
     if not true468 <= 1e-5:
         raise AssertionError(f"468³ in 8 parts true residual {true468} > 1e-5")
-    if min(launches_468.values()) <= 0:
+    if launches_468["halo_stencil_matvec"] <= 0:
         raise AssertionError(f"the 468³ solve launched no B8: {launches_468}")
+    c1["config3_468^3_8parts"] = dict(pcg_iters=r468.iters, jax_package_iters=None,
+                                      rows=rows468, complexity=info468["complexity"])
     del hd468, A468
+    for config, counts in c1.items():
+        emit("c1", config=config, **counts)
 
     launches = {"twell_spmv": launches2["twell_spmv"],
                 "flatdia_spmv": slice3["mixed"]["launches"]["flatdia_spmv"],
-                "halo_stencil": sum(dist3["pallas_async"]["launches"].values()),
+                **dist3["pallas_async"]["launches"],
                 "pallas_spgemm": results["pallas_spgemm"]["route_launches"]["spgemm_expand"],
                 **launches_rs, **launches_vec}
     by_path = {"config2_pcg": launches2,
@@ -1515,17 +1705,16 @@ def main():
                "config3_dist_4parts_pcg": dist3["pallas_async"]["launches"],
                "dist_468^3_8parts_pcg": launches_468}
 
-    def path_launches(name, counts):
-        if name == "halo_stencil":
-            return sum(v for k, v in counts.items() if k.startswith("halo_stencil"))
-        return counts.get(name, 0)
     line = []
     for name, meta in KERNELS.items():
         r = results[name]
-        extra = {k: r[k] for k in ("product_ms", "product_library_ms", "library_kind",
-                                   "ms_324", "bound_ms_324", "ms_468", "bound_ms_468",
-                                   "plain_ms_468", "auto_width_ms",
-                                   "device_ms_per_matvec") if k in r}
+        extra = {k: v for k, v in r.items()
+                 if k.startswith(("ms_", "bound_ms_", "plain_ms_", "copy_path_ms"))
+                 or k in ("product_ms", "product_library_ms", "library_kind",
+                          "auto_width_ms", "device_ms_per_matvec")}
+        if name in ("halo_stencil_interior", "halo_stencil_boundary"):
+            extra["path"] = ("parts on several cards; held bit-equal on this card in "
+                             "the B8 kernel phase, not on the one-card main path")
         if name == "pallas_spgemm":
             extra["routed_to"] = ["spgemm_expand", "spgemm_dedup", "spgemm_dedup_compact"]
             extra["launches_by_path"] = {"pallas_spgemm_config2_L0_AA": r["route_launches"]}
@@ -1535,7 +1724,7 @@ def main():
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                      "copy_bound_ms": r["copy_bound_ms"], "main_case": r["main_case"],
-                     "launches_by_path": {k: path_launches(name, v)
+                     "launches_by_path": {k: v.get(name, 0)
                                           for k, v in by_path.items()},
                      **extra})
     print(json.dumps({"kernels": line}), flush=True)

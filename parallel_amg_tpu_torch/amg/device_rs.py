@@ -43,6 +43,7 @@ from parallel_amg_tpu_torch.amg.hierarchy import (
 )
 from parallel_amg_tpu_torch.config import AMGConfig
 from parallel_amg_tpu_torch.device import resolve_device
+from parallel_amg_tpu_torch.ops import prng
 from parallel_amg_tpu_torch.ops.ell import ELL
 from parallel_amg_tpu_torch.ops.ell_setup import (
     ell_prune,
@@ -79,10 +80,9 @@ def _truncate(w, cols, p_max: int):
 
 
 def pmis_weights(n: int, seed: int, device):
-    """PMIS tie-break weights: uniform in [0, 1) from a seeded CPU
-    generator, so the CPU and the card draw the same numbers."""
-    g = torch.Generator().manual_seed(seed)
-    return torch.rand(n, generator=g, dtype=torch.float32).to(device)
+    """PMIS tie-break weights: the JAX package's ``uniform`` draw in
+    [0, 1), made on the host and copied to ``device``."""
+    return prng.uniform((n,), seed, torch.float32).to(device)
 
 
 def classical_strength_mask(A: ELL, theta: float):

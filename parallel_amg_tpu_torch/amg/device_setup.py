@@ -41,14 +41,14 @@ from parallel_amg_tpu_torch.amg.transfers import (
     downsample_sum_nd,
 )
 from parallel_amg_tpu_torch.config import AMGConfig
+from parallel_amg_tpu_torch.ops import prng
 from parallel_amg_tpu_torch.ops.stencil import Stencil, bucket_add, shift_nd
 
 
 def start_vector(dims, dtype, device, seed: int = 0):
-    """Start of the power iteration: uniform in [−0.5, 0.5) from a seeded
-    CPU generator, so the CPU and the card start from the same vector."""
-    g = torch.Generator().manual_seed(seed)
-    return (torch.rand(dims, generator=g, dtype=dtype) - 0.5).to(device)
+    """Start of the power iteration: the JAX package's ``uniform`` draw
+    minus 0.5, in [−0.5, 0.5), made on the host and copied to ``device``."""
+    return (prng.uniform(dims, seed, dtype) - 0.5).to(device)
 
 
 def power_iteration_lambda_max(A: Stencil, d_inv, iters: int, seed: int = 0):

@@ -84,33 +84,37 @@ def gather_candidates(A: ELL, B: ELL):
     return _gather_candidates_cuda(A, B)
 
 
+def compact_merged(cols, vals, sent: int, out_width: int):
+    """B5's in-place merge (leaders in their slots, (SENT, 0) elsewhere)
+    compacted to B4's layout: leaders to slots 0.. in slot order up to
+    ``out_width``, zeros after them, and the uncapped counts."""
+    R = cols.shape[0]
+    dev = cols.device
+    leader = cols != sent
+    pos = leader.int().cumsum(1) - 1
+    slot = torch.where(leader & (pos < out_width), pos, out_width).long()
+    buf_c = torch.zeros((R, out_width + 1), dtype=torch.int32, device=dev)
+    buf_v = torch.zeros((R, out_width + 1), dtype=torch.float32, device=dev)
+    buf_c.scatter_(1, slot, torch.where(leader, cols, 0))  # a trash column
+    buf_v.scatter_(1, slot, torch.where(leader, vals, 0.0))  # takes the rest
+    return (buf_c[:, :out_width].contiguous(), buf_v[:, :out_width].contiguous(),
+            leader.sum(1, dtype=torch.int32))
+
+
 def _dedup_compact_plain(cand_cols, cand_vals, sent: int, out_width: int):
     """Plain torch B4: the equality-matrix merge, then leaders scattered to
-    their rank (a trash column takes the rest)."""
-    R, K = cand_cols.shape
-    dev = cand_cols.device
-    out_c = torch.empty((R, out_width), dtype=torch.int32, device=dev)
-    out_v = torch.empty((R, out_width), dtype=torch.float32, device=dev)
-    counts = torch.empty(R, dtype=torch.int32, device=dev)
-    for r0, r1 in pspgemm.plain_row_blocks(R, K):
-        cc = cand_cols[r0:r1]
-        leader, sums = pspgemm.merge_rows_plain(cc, cand_vals[r0:r1], sent)
-        pos = leader.int().cumsum(1) - 1
-        slot = torch.where(leader & (pos < out_width), pos, out_width).long()
-        buf_c = torch.zeros((r1 - r0, out_width + 1), dtype=torch.int32,
-                            device=dev)
-        buf_v = torch.zeros((r1 - r0, out_width + 1), dtype=torch.float32,
-                            device=dev)
-        buf_c.scatter_(1, slot, torch.where(leader, cc, 0))
-        buf_v.scatter_(1, slot, torch.where(leader, sums, 0.0))
-        out_c[r0:r1] = buf_c[:, :out_width]
-        out_v[r0:r1] = buf_v[:, :out_width]
-        counts[r0:r1] = leader.sum(1)
-    return out_c, out_v, counts
+    their rank."""
+    cols, vals, _ = pspgemm._dedup_plain(cand_cols, cand_vals, sent)
+    return compact_merged(cols, vals, sent, out_width)
+
+
+# B4's global scratch, where a row's hash table outgrows shared memory
+_SCRATCH_BYTES = 256 << 20
 
 
 def _dedup_compact_cuda(cand_cols, cand_vals, sent: int, out_width: int):
-    """Launch ``spgemm_dedup_compact`` (B4) on the current stream."""
+    """Launch ``spgemm_dedup_compact`` (B4) on the current stream, with
+    global scratch for the warps' tables where K needs it."""
     if not (cand_cols.is_contiguous() and cand_vals.is_contiguous()):
         raise ValueError("candidate planes must be contiguous")
     R, K = cand_cols.shape
@@ -118,9 +122,16 @@ def _dedup_compact_cuda(cand_cols, cand_vals, sent: int, out_width: int):
     out_c = torch.empty((R, out_width), dtype=torch.int32, device=dev)
     out_v = torch.empty((R, out_width), dtype=torch.float32, device=dev)
     counts = torch.empty(R, dtype=torch.int32, device=dev)
+    per_warp = pspgemm.kernel("spgemm_dedup_compact_scratch")(K)
+    scratch, warps = None, 0
+    if per_warp:
+        # whole blocks of 8 warps, at most one warp a row
+        warps = 8 * max(1, min(-(-R // 8), _SCRATCH_BYTES // (8 * per_warp)))
+        scratch = torch.empty(warps * per_warp, dtype=torch.uint8, device=dev)
     pspgemm.launch("spgemm_dedup_compact", dev, cand_cols.data_ptr(),
                    cand_vals.data_ptr(), out_c.data_ptr(), out_v.data_ptr(),
-                   counts.data_ptr(), R, K, out_width, sent)
+                   counts.data_ptr(), R, K, out_width, sent,
+                   None if scratch is None else scratch.data_ptr(), warps)
     return out_c, out_v, counts
 
 

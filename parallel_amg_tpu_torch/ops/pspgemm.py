@@ -43,8 +43,10 @@ _ARGTYPES = {
                                              ctypes.c_int, ctypes.c_void_p],
     "spgemm_dedup_compact": [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p],
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
+    "spgemm_dedup_compact_scratch": [ctypes.c_int],
 }
+_RESTYPES = {"spgemm_dedup_compact_scratch": ctypes.c_longlong}
 
 
 @functools.cache
@@ -54,7 +56,7 @@ def kernel(symbol: str):
     # pointers and the stream as c_void_p: without argtypes ctypes passes a
     # Python int as a 32-bit C int and cuts the pointer
     fn.argtypes = _ARGTYPES[symbol]
-    fn.restype = ctypes.c_int
+    fn.restype = _RESTYPES.get(symbol, ctypes.c_int)
     return fn
 
 

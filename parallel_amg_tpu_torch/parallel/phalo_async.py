@@ -1,34 +1,44 @@
-"""The overlapped halo stencil matvec: kernel B8 and its orchestration.
+"""The halo stencil matvec: kernel B8 and its orchestration.
 
 Counterpart of ``parallel_amg_tpu/parallel/phalo_async.py``, the engine of
 ``ShardedStencil.matvec`` under ``halo_mode="pallas_async"``.  The JAX
 kernel enforces comm/compute overlap inside one Pallas call per chip:
 barrier, start remote DMAs of the h boundary planes, interior stencil, wait
-on the semaphores, boundary corrections.  On CUDA the remote copies run
-outside the kernel, so ``async_halo_matvec`` keeps the same contract with
-streams and events:
+on the semaphores, boundary corrections.
 
-1. each device's copy stream waits on the compute (current) stream, so x is
-   ready;
-2. on the copy stream, each part's landing buffers take the neighbors' h
-   boundary planes (``copy_(…, non_blocking=True)``), and an event is
-   recorded per part;
-3. the compute stream launches every part's interior kernel
-   (``csrc/halo_stencil.cu``, ``halo_stencil_interior``);
-4. the compute stream waits on each part's event and launches its boundary
-   kernel (``halo_stencil_boundary``).
+Where the parts lie picks the CUDA path, not a flag:
 
-The landing buffers are allocated on the compute stream before step 1, so
-the copy stream waits for every earlier user of their memory, and
-``record_stream`` marks them and the source slabs as used by the copy
-stream.  The parts at the grid's two ends get the zero halo (a null
-pointer).  Every sum is taken in a fixed order, so the result does not
-depend on timing.
+- **All parts on one card** (``make_row_mesh(S)`` with one card): one launch
+  of ``halo_stencil_matvec`` (``csrc/halo_stencil.cu``) per matvec computes
+  every part.  A part table passed by value holds each part's W, x and y and
+  its neighbors' x slabs; the halo terms read the neighbor's boundary planes
+  in place, so there are no copies, streams or events.  The W pointers of
+  the table are built once and kept on the ShardedStencil; y is one buffer
+  viewed per part.
+- **Parts on several cards**: the copy-stream path (``matvec_copy_streams``)
+  keeps the JAX kernel's overlap with streams and events:
 
-On the CPU each part runs the kernel's plain version, the "xla" formulation
-of ``parallel/pstencil.py`` (``interior_plain``, ``boundary_plain``); a CUDA
-part launches the kernels or raises.  ``LAUNCHES`` counts the launches of
-the two entry points.
+  1. each device's copy stream waits on the compute (current) stream, so x
+     is ready;
+  2. on the copy stream, each part's landing buffers take the neighbors' h
+     boundary planes (``copy_(…, non_blocking=True)``), and an event is
+     recorded per part;
+  3. the compute stream launches every part's interior kernel
+     (``halo_stencil_interior``);
+  4. the compute stream waits on each part's event and launches its boundary
+     kernel (``halo_stencil_boundary``).
+
+  The landing buffers are allocated on the compute stream before step 1, so
+  the copy stream waits for every earlier user of their memory, and
+  ``record_stream`` marks them and the source slabs as used by the copy
+  stream.  The parts at the grid's two ends get the zero halo (a null
+  pointer).
+
+Every sum is taken in a fixed order, so the result does not depend on timing,
+and both paths equal the "xla" path bit for bit.  On the CPU each part runs
+the kernels' plain version, the "xla" formulation of ``parallel/pstencil.py``
+(``interior_plain``, ``boundary_plain``); a CUDA part launches the kernels or
+raises.  ``LAUNCHES`` counts the launches of the three entry points.
 """
 
 from __future__ import annotations
@@ -48,9 +58,11 @@ from parallel_amg_tpu_torch.parallel.pstencil import (
 )
 
 # kernel launches by entry point; callers may reset them
-LAUNCHES = {"halo_stencil_interior": 0, "halo_stencil_boundary": 0}
+LAUNCHES = {"halo_stencil_matvec": 0, "halo_stencil_interior": 0,
+            "halo_stencil_boundary": 0}
 
 MAX_POINTS = 192  # kMaxPoints of csrc/halo_stencil.cu
+MAX_PARTS = 16    # kMaxParts of csrc/halo_stencil.cu
 
 
 class _Offsets(ctypes.Structure):
@@ -60,7 +72,17 @@ class _Offsets(ctypes.Structure):
                 ("o2", ctypes.c_int * MAX_POINTS)]
 
 
+class _Parts(ctypes.Structure):
+    """``struct HaloParts`` of csrc/halo_stencil.cu, passed by value."""
+    _fields_ = [("count", ctypes.c_int)] + [
+        (f, ctypes.c_void_p * MAX_PARTS)
+        for f in ("W", "x", "y", "left", "right")]
+
+
 _ARGTYPES = {
+    "halo_stencil_matvec": [_Parts, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, _Offsets, ctypes.c_int,
+                            ctypes.c_void_p],
     "halo_stencil_interior": [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _Offsets,
         ctypes.c_void_p],
@@ -110,17 +132,26 @@ def _launch(symbol: str, device, *args) -> None:
     LAUNCHES[symbol] += 1
 
 
-def _check_part(W, xl, offsets):
-    if W.dtype != torch.float32 or xl.dtype != torch.float32:
-        raise TypeError(f"kernel B8 takes float32, got {W.dtype} and {xl.dtype}")
-    if tuple(W.shape) != (len(offsets),) + tuple(xl.shape):
+def _check_weights(W, slab, offsets, device):
+    """W as kernel B8 takes it for a slab of shape ``slab`` on ``device``."""
+    if W.dtype != torch.float32:
+        raise TypeError(f"kernel B8 takes float32 weights, got {W.dtype}")
+    if tuple(W.shape) != (len(offsets),) + tuple(slab):
         raise ValueError(f"weights {tuple(W.shape)} do not match the slab "
-                         f"{tuple(xl.shape)} and {len(offsets)} offsets")
-    if W.device != xl.device or W.device.type != "cuda":
-        raise ValueError(f"weights on {W.device} and slab on {xl.device}: "
+                         f"{tuple(slab)} and {len(offsets)} offsets")
+    if W.device != device or W.device.type != "cuda":
+        raise ValueError(f"weights on {W.device} and slab on {device}: "
                          "kernel B8 needs both on one CUDA device")
-    if not (W.is_contiguous() and xl.is_contiguous()):
-        raise ValueError("weights and slab must be contiguous")
+    if not W.is_contiguous():
+        raise ValueError("weights must be contiguous")
+
+
+def _check_part(W, xl, offsets):
+    if xl.dtype != torch.float32:
+        raise TypeError(f"kernel B8 takes float32, got {xl.dtype}")
+    _check_weights(W, xl.shape, offsets, xl.device)
+    if not xl.is_contiguous():
+        raise ValueError("the slab must be contiguous")
 
 
 def stencil_interior(W, xl, offsets, h: int):
@@ -163,8 +194,10 @@ def _copy_stream(index: int):
     return torch.cuda.Stream(device=index)
 
 
-def _matvec_cuda(A: ShardedStencil, x: PGrid) -> PGrid:
-    """Steps 1–4 of the module docstring over every part."""
+def matvec_copy_streams(A: ShardedStencil, x: PGrid) -> PGrid:
+    """The several-card path, steps 1–4 of the module docstring over every
+    part: two launches per part, the halo planes copied between them.  It
+    runs on one card too (the parts' copies are then device-local)."""
     h, offsets, parts = A.halo, A.offsets, x.parts
     S = len(parts)
     rest = tuple(parts[0].shape[1:])
@@ -201,8 +234,82 @@ def _matvec_cuda(A: ShardedStencil, x: PGrid) -> PGrid:
     return PGrid(ys, A.mesh)
 
 
+class _LaunchTable:
+    """What a one-card launch of A needs that does not change between
+    matvecs: the part tables (one per group of MAX_PARTS parts) with their W
+    pointers, the offsets, the (n1, n2) plane and whether W allows the
+    four-points-a-thread route.  Built once and kept on A."""
+
+    def __init__(self, A: ShardedStencil):
+        self.device = A.weights[0].device
+        (self.n1, self.n2), offs3 = grid3(A.dims[1:], A.offsets)
+        self.offsets = _offsets_struct(offs3)
+        self.slab = (A.m0,) + tuple(A.dims[1:])
+        for W in A.weights:
+            _check_weights(W, self.slab, A.offsets, self.device)
+        self.tables = part_tables(A.weights)
+        self.vec = self.n2 % 4 == 0 and all(W.data_ptr() % 16 == 0
+                                            for W in A.weights)
+
+
+def part_tables(weights):
+    """[(first part, part table)] for groups of MAX_PARTS parts, with the
+    parts' W pointers filled."""
+    tables = []
+    for c0 in range(0, len(weights), MAX_PARTS):
+        t = _Parts()
+        t.count = min(MAX_PARTS, len(weights) - c0)
+        t.W[:t.count] = [W.data_ptr() for W in weights[c0:c0 + t.count]]
+        tables.append((c0, t))
+    return tables
+
+
+def fill_tables(tables, xs, y_ptr: int, step: int):
+    """Fill the x, y and neighbor pointers of the part ``tables`` for the
+    slabs ``xs`` and the parts' y at ``y_ptr + p·step``: the left neighbor
+    of part p is part p − 1's slab, the right one part p + 1's, null at the
+    grid's ends.  Returns the slabs' pointers."""
+    S = len(xs)
+    ptrs = [xl.data_ptr() for xl in xs]
+    for c0, t in tables:
+        k = t.count
+        t.x[:k] = ptrs[c0:c0 + k]
+        t.y[:k] = [y_ptr + p * step for p in range(c0, c0 + k)]
+        t.left[:k] = [ptrs[p - 1] if p > 0 else None for p in range(c0, c0 + k)]
+        t.right[:k] = [ptrs[p + 1] if p < S - 1 else None
+                       for p in range(c0, c0 + k)]
+    return ptrs
+
+
+def matvec_one_card(A: ShardedStencil, x: PGrid) -> PGrid:
+    """Every part of A on one card, one ``halo_stencil_matvec`` launch per
+    MAX_PARTS parts (one for every mesh up to 16 parts)."""
+    lt = A.launch_table
+    if lt is None:
+        lt = A.launch_table = _LaunchTable(A)
+    dev, slab = lt.device, lt.slab
+    if len(x.parts) != len(A.weights):
+        raise ValueError(f"{len(x.parts)} slabs for {len(A.weights)} parts")
+    for xl in x.parts:
+        if (xl.dtype != torch.float32 or xl.device != dev
+                or xl.shape != slab or not xl.is_contiguous()):
+            raise ValueError(f"kernel B8 takes contiguous float32 {slab} slabs "
+                             f"on {dev}, got {xl.dtype} {tuple(xl.shape)} on "
+                             f"{xl.device}")
+    m0 = slab[0]
+    y = torch.empty((len(x.parts) * m0,) + slab[1:], device=dev)
+    step = 4 * m0 * lt.n1 * lt.n2
+    ptrs = fill_tables(lt.tables, x.parts, y.data_ptr(), step)
+    vec = int(lt.vec and all(p % 16 == 0 for p in ptrs))
+    for _, t in lt.tables:
+        _launch("halo_stencil_matvec", dev, t, m0, lt.n1, lt.n2, A.halo,
+                lt.offsets, vec)
+    return PGrid(list(y.split(m0)), A.mesh)
+
+
 def async_halo_matvec(A: ShardedStencil, x: PGrid) -> PGrid:
-    """y = A @ x with the halo copies overlapped with the interior kernel.
+    """y = A @ x by kernel B8: one launch for the parts on one card, the
+    copy-stream path for parts on several cards.
 
     The JAX package's rule stays: with no halo, one part, or a slab no
     thicker than the halo (m0 ≤ h: no interior to overlap with) the matvec
@@ -222,4 +329,6 @@ def async_halo_matvec(A: ShardedStencil, x: PGrid) -> PGrid:
         return PGrid(out, A.mesh)
     if kinds != {"cuda"}:
         raise ValueError(f"async_halo_matvec runs on cpu or cuda parts, not {kinds}")
-    return _matvec_cuda(A, x)
+    if len({W.device for W in A.weights}) == 1:
+        return matvec_one_card(A, x)
+    return matvec_copy_streams(A, x)

@@ -14,9 +14,10 @@ interior contribution reads the local slab alone (zero halo), and only the
 O(h·surface) boundary-row corrections read the halo planes.
 ``halo_mode="xla"`` runs it in plain torch (``interior_plain`` and
 ``boundary_plain``, shared with kernel B8's CPU path);
-``halo_mode="pallas_async"`` runs kernel B8 (``parallel/phalo_async.py``),
-which overlaps the halo copies with the interior kernel.  The mode names are
-the JAX package's, so configs carry over.
+``halo_mode="pallas_async"`` runs kernel B8 (``parallel/phalo_async.py``):
+one launch for every part on one card, reading the halo planes in place, or
+halo copies overlapped with the interior kernels for parts on several
+cards.  The mode names are the JAX package's, so configs carry over.
 
 Transfers stay part-local: the grid is padded so every part owns whole
 aggregation blocks (``parallel/pstructured.py``).
@@ -117,6 +118,9 @@ class ShardedStencil:
             raise ValueError(f"halo_mode must be one of {HALO_MODES}, got "
                              f"{halo_mode!r}")
         self.halo_mode = halo_mode
+        # kernel B8's one-card part table, built at its first launch
+        # (parallel/phalo_async.py)
+        self.launch_table = None
         if len(self.weights) != mesh.size or self.dims[0] % mesh.size:
             raise ValueError(f"{len(self.weights)} weight parts and dims "
                              f"{self.dims} do not fit a mesh of {mesh.size}")

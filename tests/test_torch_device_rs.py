@@ -2,9 +2,9 @@
 
 Both run on the CPU: the port's SpGEMM through its kernels' plain versions,
 the JAX package eagerly (``device_rs_setup`` with its ESC products).  The
-two random draws cannot be reproduced across frameworks, so the port's
-``device_rs.pmis_weights`` and ``device_setup.start_vector`` are patched to
-return JAX's numbers (``jax.random.uniform(PRNGKey(seed), ...)``).
+port's PMIS weights and power-iteration start vector are its own
+``ops/prng.uniform`` draws, bit-equal to ``jax.random.uniform``, so the two
+setups take the same C/F splits with no patch.
 
 Index algebra (strength, PMIS, transpose, prune, level sizes) must be equal
 exactly.  Values are float32 sums taken in another order: operators are held
@@ -13,7 +13,6 @@ to rtol 1e-5 and atol 1e-6·max|entry| with the same pattern, λ_max to rtol
 eager setup spends about a minute compiling), built once per module.
 """
 
-import contextlib
 import dataclasses
 import functools
 
@@ -34,7 +33,7 @@ from parallel_amg_tpu.problems import poisson2d as j_poisson2d
 
 import parallel_amg_tpu_torch as ptt
 from parallel_amg_tpu_torch import interop
-from parallel_amg_tpu_torch.amg import device_rs, device_setup
+from parallel_amg_tpu_torch.amg import device_rs
 from parallel_amg_tpu_torch.ops.csr import CSR
 from parallel_amg_tpu_torch.ops.dia import DIA
 from parallel_amg_tpu_torch.ops.ell import ELL
@@ -69,28 +68,6 @@ def _cfg(mod):
                          interpolation="extended_i", on_device_setup=True)
 
 
-def _jax_weights(n, seed, device):
-    """JAX's PMIS weights (amg/device_rs.py:77-78)."""
-    w = jax.random.uniform(jax.random.PRNGKey(seed), (n,))
-    return torch.from_numpy(np.array(w)).to(device)
-
-
-def _jax_start(dims, dtype, device, seed=0):
-    """JAX's power-iteration start vector (amg/device_rs.py:1003-1004)."""
-    x = jax.random.uniform(jax.random.PRNGKey(seed), dims, jnp.float32) - 0.5
-    return torch.from_numpy(np.array(x)).to(dtype).to(device)
-
-
-@contextlib.contextmanager
-def jax_draws():
-    saved = device_rs.pmis_weights, device_setup.start_vector
-    device_rs.pmis_weights, device_setup.start_vector = _jax_weights, _jax_start
-    try:
-        yield
-    finally:
-        device_rs.pmis_weights, device_setup.start_vector = saved
-
-
 @functools.cache
 def jax_hierarchy(name):
     return pat.setup(PROBLEMS[name][1]().to_csr(), _cfg(pat))
@@ -98,8 +75,7 @@ def jax_hierarchy(name):
 
 @functools.cache
 def port_hierarchy(name):
-    with jax_draws():
-        return ptt.setup(PROBLEMS[name][0]().to_csr(), _cfg(ptt), device="cpu")
+    return ptt.setup(PROBLEMS[name][0]().to_csr(), _cfg(ptt), device="cpu")
 
 
 def to_port(M) -> ELL:
@@ -260,8 +236,7 @@ def test_strength_and_pmis_match_jax(lvl):
     A, S, state = _level_inputs(lvl)
     mine = device_rs.classical_strength_mask(A, 0.25)
     assert torch.equal(mine, S)
-    with jax_draws():
-        got = device_rs.pmis_split_device(A, mine, seed=lvl)
+    got = device_rs.pmis_split_device(A, mine, seed=lvl)
     assert got.dtype == torch.int32 and torch.equal(got, state)
     assert set(got.unique().tolist()) <= {device_rs.FINE, device_rs.COARSE}
 

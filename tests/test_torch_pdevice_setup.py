@@ -1,10 +1,10 @@
 """The port's on-device distributed structured setup (parallel/pdevice_setup.py)
 against the JAX package's on its CPU mesh.
 
-Both packages get the same inputs.  The power iteration's start vector comes
-from ``jax.random`` in the JAX package, so the port's
-``device_setup.start_vector`` is patched to return JAX's vector (drawn over
-the padded global dims, as JAX draws it) wherever whole setups are compared.
+Both packages get the same inputs.  The power iteration's start vector is
+the port's own ``ops/prng.uniform`` draw over the padded global dims,
+bit-equal to the JAX package's ``jax.random.uniform``, so whole setups are
+compared with no patch.
 Tolerances:
 - problem planes, level plans and halo schedules: equal;
 - level operators: rtol 1e-4, atol 1e-5·max|W| (float32 sums taken in
@@ -58,21 +58,6 @@ def _cfg(mod):
                          on_device_setup=True)
 
 
-def _jax_start(dims, dtype, device, seed=0):
-    """JAX's power-iteration start vector (amg/device_setup.py:53-54)."""
-    x = jax.random.uniform(jax.random.PRNGKey(seed), dims, jnp.float32) - 0.5
-    return torch.from_numpy(np.array(x)).to(dtype).to(device)
-
-
-def _with_jax_start(fn, *args, **kw):
-    saved = ds.start_vector
-    ds.start_vector = _jax_start
-    try:
-        return fn(*args, **kw)
-    finally:
-        ds.start_vector = saved
-
-
 def _rhs(seed=0):
     return np.random.default_rng(seed).normal(size=int(np.prod(DIMS)))
 
@@ -83,7 +68,7 @@ def _setups():
     meshes) of the on-device distributed setup at DIMS."""
     mesh = ptt.make_row_mesh(4, device="cpu")
     A, td = ptt.poisson_stencil_sharded(DIMS, mesh, _cfg(ptt))
-    h = _with_jax_start(ptt.sharded_device_setup, A, _cfg(ptt), true_dims=td)
+    h = ptt.sharded_device_setup(A, _cfg(ptt), true_dims=td)
     jmesh = j_make_row_mesh(4)
     jA, jtd = jpd.poisson_stencil_sharded(DIMS, jmesh, _cfg(pat))
     jh = jpd.sharded_device_setup(jA, _cfg(pat), true_dims=jtd)

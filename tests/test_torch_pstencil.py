@@ -8,8 +8,10 @@ tests/test_phalo_async.py runs it.  Tolerances: rtol 1e-5 / atol 1e-6 for
 matvecs (float32 products summed in the same order; XLA may fuse a multiply
 and an add); within the port, B8's plain path and the "xla" path take the
 same sums and must be equal bit for bit.  The CUDA cases hold kernel B8
-against its plain version on the card: bit-equal (both take unfused float32
-products and sums in offset order), and bit-equal over 20 calls.
+against its plain version on the card: the one-launch path for parts on one
+card and the several-card copy-stream path, both bit-equal (all take unfused
+float32 products and sums in offset order), bit-equal over 20 calls, one
+launch per matvec on one card and none where m0 ≤ h.
 """
 
 import numpy as np
@@ -194,6 +196,27 @@ def test_kernel_layout_helpers():
         phalo_async._offsets_struct(tuple((0, 0, i) for i in range(200)))
 
 
+@pytest.mark.parametrize("S", [2, 5, 16, 20])
+def test_part_tables_link_neighbors(S):
+    """The one-card launch's part tables: W, x and y of each part, its left
+    neighbor part p − 1's slab and its right one part p + 1's, null at the
+    grid's two ends, across groups of MAX_PARTS parts."""
+    Ws = [torch.zeros(3, 2, 4) for _ in range(S)]
+    xs = [torch.zeros(2, 4) for _ in range(S)]
+    tables = phalo_async.part_tables(Ws)
+    assert [c0 for c0, _ in tables] == list(range(0, S, phalo_async.MAX_PARTS))
+    ptrs = phalo_async.fill_tables(tables, xs, 4096, 32)
+    assert ptrs == [x.data_ptr() for x in xs]
+    for c0, t in tables:
+        for i in range(t.count):
+            p = c0 + i
+            assert t.W[i] == Ws[p].data_ptr() and t.x[i] == ptrs[p]
+            assert t.y[i] == 4096 + 32 * p
+            assert t.left[i] == (ptrs[p - 1] if p > 0 else None)
+            assert t.right[i] == (ptrs[p + 1] if p < S - 1 else None)
+    assert sum(t.count for _, t in tables) == S
+
+
 # -- kernel B8 on the card ----------------------------------------------------
 
 def _cuda():
@@ -202,28 +225,73 @@ def _cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dims,S,reach2", [((20, 17, 13), 4, False),
-                                           ((40, 24), 4, True),
-                                           ((30, 11, 9), 3, True)])
-def test_halo_stencil_cuda_matches_plain(dims, S, reach2):
-    _cuda()
-    W, offsets = _stencil_arrays(dims, 16, reach2)
+def _cuda_case(dims, S, reach2, seed=16):
+    W, offsets = _stencil_arrays(dims, seed, reach2)
     mesh = ptt.make_row_mesh(S)
     A = ShardedStencil.from_stencil(
         ptt.Stencil(torch.from_numpy(W).cuda(), offsets, dims), mesh)
-    x = PGrid.from_global(torch.from_numpy(np.random.default_rng(17).standard_normal(
+    x = PGrid.from_global(torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
         A.dims).astype(np.float32)).cuda(), mesh)
+    return A, x
+
+
+def _launches_since(before):
+    return {k: phalo_async.LAUNCHES[k] - before[k] for k in before}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,S,reach2", [
+    ((20, 17, 13), 4, False),
+    ((40, 24), 4, True),
+    ((30, 11, 9), 3, True),
+    ((20, 17, 13), 2, False),   # 3-D, reach 1
+    ((8, 9, 12), 4, False),     # m0 2 = h + 1, four points a thread
+    ((40, 12, 16), 8, False),
+    ((10, 7), 2, False),        # 2-D, reach 1, one point a thread
+    ((12, 24), 4, True),        # 2-D, m0 3 = h + 1 < 2h: both halos per plane
+    ((80, 24), 8, True),
+    ((30, 11, 9), 2, True),     # 3-D, reach 2
+    ((24, 8, 8), 8, True),      # m0 3 < 2h
+])
+def test_halo_stencil_cuda_matches_plain(dims, S, reach2):
+    _cuda()
+    A, x = _cuda_case(dims, S, reach2)
+    assert A.m0 > A.halo
     before = dict(phalo_async.LAUNCHES)
     y = A.with_halo_mode("pallas_async").matvec(x)
     torch.cuda.synchronize()
-    assert all(phalo_async.LAUNCHES[k] == before[k] + S for k in before)
+    assert _launches_since(before) == {"halo_stencil_matvec": 1,
+                                       "halo_stencil_interior": 0,
+                                       "halo_stencil_boundary": 0}
     ref = A.matvec(x)
     for a, b in zip(y.parts, ref.parts):
-        assert torch.equal(a, b)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    A_k = A.with_halo_mode("pallas_async")
     for _ in range(20):
-        again = A.with_halo_mode("pallas_async").matvec(x)
+        again = A_k.matvec(x)
         assert all(torch.equal(a, b) for a, b in zip(again.parts, y.parts))
+    # the several-card path, run on one card, takes the same sums
+    before = dict(phalo_async.LAUNCHES)
+    copies = phalo_async.matvec_copy_streams(A, x)
+    torch.cuda.synchronize()
+    assert _launches_since(before) == {"halo_stencil_matvec": 0,
+                                       "halo_stencil_interior": S,
+                                       "halo_stencil_boundary": S}
+    for a, b in zip(copies.parts, ref.parts):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_halo_stencil_cuda_no_launch_when_m0_le_h():
+    _cuda()
+    A, x = _cuda_case((16, 12), 8, True)
+    assert A.m0 == A.halo == 2
+    before = dict(phalo_async.LAUNCHES)
+    y = A.with_halo_mode("pallas_async").matvec(x)
+    torch.cuda.synchronize()
+    assert not any(_launches_since(before).values())
+    for a, b in zip(y.parts, A.matvec(x).parts):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 import parallel_amg_tpu as pat
@@ -36,12 +35,6 @@ torch.set_num_threads(2)
 
 W_RTOL, W_ATOL = 1e-4, 1e-5
 SEVEN = ((-1, 0, 0), (0, -1, 0), (0, 0, -1), (0, 0, 0), (0, 0, 1), (0, 1, 0), (1, 0, 0))
-
-
-def _jax_start(dims, dtype, device, seed=0):
-    """JAX's power-iteration start vector (amg/device_setup.py:53-54)."""
-    x = jax.random.uniform(jax.random.PRNGKey(seed), dims, jnp.float32) - 0.5
-    return torch.from_numpy(np.array(x)).to(dtype).to(device)
 
 
 def _cfg(mod, **kw):
@@ -118,14 +111,9 @@ def test_chunked_coarse_operator_matches_jax_and_dense(budget_rows):
 def _slab_setups():
     dims = (12, 10, 9)
     kw = dict(setup_product_path="slab", setup_chunk_budget_mb=1)
-    saved = ds.start_vector
-    ds.start_vector = _jax_start
-    try:
-        h = ptt.setup(poisson_stencil(dims, device="cpu"), _cfg(ptt, **kw), device="cpu")
-        hd = ptt.setup(poisson_stencil(dims, device="cpu"),
-                       _cfg(ptt, setup_product_path="dense"), device="cpu")
-    finally:
-        ds.start_vector = saved
+    h = ptt.setup(poisson_stencil(dims, device="cpu"), _cfg(ptt, **kw), device="cpu")
+    hd = ptt.setup(poisson_stencil(dims, device="cpu"),
+                   _cfg(ptt, setup_product_path="dense"), device="cpu")
     jh = pat.setup(j_poisson_stencil(dims), _cfg(pat, **kw))
     return h, hd, jh
 

@@ -266,13 +266,15 @@ def test_cuda_kernels_match_plain(name):
 
 
 @pytest.mark.cuda
-def test_cuda_merge_wide_rows():
-    """K above the kernel's 512-slot shared-memory stage: chunked path, in
-    all three modes of the merge."""
+@pytest.mark.parametrize("K", [1100, 5000])
+def test_cuda_merge_wide_rows(K):
+    """K above B5's 512-slot shared-memory stage (its chunked path) and, at
+    5000, above B4's shared-memory table (its global scratch), in all three
+    modes of the merge."""
     dev = _cuda()
     rng = np.random.default_rng(4)
     sent = 300
-    cc = torch.from_numpy(rng.integers(0, sent + 1, size=(64, 1100)).astype(np.int32))
+    cc = torch.from_numpy(rng.integers(0, sent + 1, size=(64, K)).astype(np.int32))
     cv = torch.where(cc < sent, torch.from_numpy(
         rng.normal(size=cc.shape).astype(np.float32)), 0.0)
     cc, cv = cc.to(dev), cv.to(dev)
@@ -287,3 +289,48 @@ def test_cuda_merge_wide_rows():
     assert bool(((ov - qv).abs() <= bound).all())
     assert torch.equal(counts, qn) and torch.equal(fn, qn) and torch.equal(fc, rc)
     assert bool(((fv - rv).abs() <= ATOL + RTOL * _merge_bound(cc, cv, sent)).all())
+    _assert_b4_is_b5_compacted(cc, cv, sent, 290)
+
+
+def _assert_b4_is_b5_compacted(cc, cv, sent, w):
+    """B4's output equals B5's in-place merge compacted in slot order, bit
+    for bit: both sum each column's values in ascending slot order."""
+    oc, ov, on = gspgemm.dedup_compact(cc, cv, sent, w)
+    bc, bv, bn = gspgemm.compact_merged(*pspgemm.dedup(cc, cv, sent)[:2], sent, w)
+    torch.cuda.synchronize()
+    assert torch.equal(on, bn) and torch.equal(oc, bc)
+    assert torch.equal(ov.view(torch.int32), bv.view(torch.int32))
+
+
+def _b4_case(name, rng):
+    """(cand_cols, cand_vals, sent, out_width) of a B4 stress case."""
+    R, K, sent = 200, 100, 5000
+    cols = rng.integers(0, sent, size=(R, K))
+    if name == "one_column":          # every slot of a row on one column
+        cols[:] = rng.integers(0, sent, size=(R, 1))
+    elif name == "equal_mod_table":   # columns equal modulo the 256-slot table
+        cols = 7 + 256 * rng.integers(0, 19, size=(R, K))
+    elif name == "all_sent":          # every other row all SENT
+        cols[::2] = sent
+    cols[rng.random((R, K)) < 0.2] = sent
+    vals = np.where(cols < sent, rng.normal(size=(R, K)), 0.0)
+    w = 5 if name == "narrow_out" else K
+    return (torch.from_numpy(cols.astype(np.int32)),
+            torch.from_numpy(vals.astype(np.float32)), sent, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["one_column", "equal_mod_table", "all_sent",
+                                  "narrow_out", "random"])
+def test_cuda_b4_equals_b5_compacted(name):
+    dev = _cuda()
+    cc, cv, sent, w = _b4_case(name, np.random.default_rng(21))
+    cc, cv = cc.to(dev), cv.to(dev)
+    _assert_b4_is_b5_compacted(cc, cv, sent, w)
+    oc, ov, on = gspgemm.dedup_compact(cc, cv, sent, w)
+    qc, qv, qn = gspgemm._dedup_compact_plain(cc, cv, sent, w)
+    assert torch.equal(oc, qc) and torch.equal(on, qn)
+    if name == "narrow_out":
+        assert int(on.max()) > w
+    if name == "all_sent":
+        assert not bool(on[::2].any()) and not bool(oc[::2].any())

@@ -3,9 +3,9 @@ Laplacian L ⊗ C, BSR and BlockStencil operators, the vector block transfers,
 ``setup_vector_kron`` for the three fine formats, and interop.
 
 Both packages get the same numpy inputs, made from a seed.  The power
-iteration's start vector comes from ``jax.random`` in the JAX package, which
-torch cannot reproduce, so the port's ``device_setup.start_vector`` is
-patched to return JAX's vector wherever a whole setup is compared.  On the
+iteration's start vector is the port's own ``ops/prng.uniform`` draw,
+bit-equal to the JAX package's ``jax.random.uniform``, so whole setups are
+compared with no patch.  On the
 CPU the port runs kernels B6 and B7 as their plain versions; the JAX BTWELL
 runs its Pallas kernel in interpret mode.  Tolerances:
 - operator products: rtol 2e-5, atol 1e-5 (tests/test_vector_bsr.py:39);
@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 import parallel_amg_tpu as pat
@@ -67,12 +66,6 @@ def _cfg(mod):
     return mod.AMGConfig(coarsening="sa", aggregate="block", block_size=3,
                          smoother="chebyshev", n_coarse_max=48,
                          on_device_setup=True)
-
-
-def _jax_start(dims, dtype, device, seed=0):
-    """JAX's power-iteration start vector (amg/device_setup.py:53-54)."""
-    x = jax.random.uniform(jax.random.PRNGKey(seed), dims, jnp.float32) - 0.5
-    return torch.from_numpy(np.array(x)).to(dtype).to(device)
 
 
 def _x(shape, seed):
@@ -248,12 +241,7 @@ def test_vector_pcg_iterations_match_jax(case, fmt):
 
 def _port_setup(dims, fmt):
     L, C = coupled_laplacian(dims, 3, 0.3, device="cpu")
-    saved = ds.start_vector
-    ds.start_vector = _jax_start
-    try:
-        return ptt.setup_vector_kron(L, C, _cfg(ptt), fine_format=fmt)
-    finally:
-        ds.start_vector = saved
+    return ptt.setup_vector_kron(L, C, _cfg(ptt), fine_format=fmt)
 
 
 def test_btwell_15_matches_bsr():
