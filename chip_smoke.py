@@ -11,8 +11,11 @@
 3. Setup of acceptance config #2 at its full size (2D Poisson 1024²,
    Ruge–Stüben PMIS + extended+i, Chebyshev, n_coarse_max=256) on the card.
 4. Kernel B1 (twell_spmv) against its plain torch version on a random
-   rectangular matrix, a long-row matrix and config #2's level-1 A, P0 and
-   R0, in float32 and bfloat16: kernel, plain, bound and library-CSR times.
+   rectangular matrix, a long-row matrix, a matrix with rows past the
+   kernel's shared-memory capacity (its long-row path), config #2's
+   level-1 A, P0 and R0 and its coarse levels 2–4, in float32 and bfloat16:
+   kernel, plain, bound and library-CSR times, and y bit-equal over 20
+   calls.
 5. setup3d: acceptance config #3 at its full size (3D Poisson 128³,
    block SA b=3, Chebyshev, n_coarse_max=512) set up on the card.
 6. Kernel B2 (flatdia_spmv) against its plain version on a random 7-point
@@ -26,7 +29,8 @@
    1e-6 with B2's launch count and the true residual in float64; then the
    V-cycle and iterations again under "pallas" (every level on B2).
 9. Profile: device kernels, device time and busy share per V-cycle of
-   config #2 (host and device setup), config #3 and config #5
+   config #2 (host and device setup), config #3 and config #5, and each
+   kernel's own device time per V-cycle by name (B1's on config #2)
    (torch.profiler); it runs after phase 16.
 10. setup_rs: config #2 set up on the card (``on_device_setup=True``, the
     Ruge–Stüben setup of amg/device_rs.py), twice: seconds, levels, the K and
@@ -34,12 +38,14 @@
     of B3, B4 and B5, peak memory, and bit-equality of the two runs.
 11. Kernels B3 (spgemm_expand), B5 (spgemm_dedup) and B4
     (spgemm_dedup_compact) against their plain versions on config #2's
-    level-0 R·A and (R·A)·P and level-1 to level-3 R·A (K above B5's
-    512-slot stage from level 2 on), a random rectangular product, a case
-    with explicit zeros, empty rows and rows over out_width, and a product
-    with K above B4's shared-memory table (its global scratch): kernel,
-    plain and bound times, cuSPARSE's time for the product, and B4 held
-    bit-equal to B5's in-place merge compacted in slot order.
+    level-0 R·A and (R·A)·P and level-1 to level-3 R·A, a random
+    rectangular product, a case with explicit zeros, empty rows and rows
+    over out_width, and a product with K 5120 (the in-place and compact
+    tables in global scratch): kernel, plain and bound times of B5 in both
+    modes and of B3 and B4 (the merges' bound: bytes against one table
+    insert per live candidate, with an all-pairs merge's compares beside
+    it), cuSPARSE's time for the product, and B4 held bit-equal to B5's
+    in-place merge compacted in slot order.
 12. convert and slice_rs: with_best_formats(h, device=True), then the
     V-cycle and amg_pcg to 1e-6 on the device-built hierarchy, held to the
     float64 oracle's iterations and the slice's residual limit.
@@ -127,13 +133,15 @@ HALO_SOURCE = "parallel_amg_tpu_torch/csrc/halo_stencil.cu"
 HALO_REPLACES = "parallel_amg_tpu/parallel/phalo_async.py:173"
 KERNELS = {
     "twell_spmv": {"source": "parallel_amg_tpu_torch/csrc/twell_spmv.cu",
-                   "replaces": "parallel_amg_tpu/ops/twell.py:234"},
+                   "replaces": "parallel_amg_tpu/ops/twell.py:234",
+                   "design": "nnz-blocked CSR stream over a row-block plan"},
     "flatdia_spmv": {"source": "parallel_amg_tpu_torch/csrc/flatdia_spmv.cu",
                      "replaces": "parallel_amg_tpu/ops/flatdia.py:193"},
     "spgemm_expand": {"source": SPGEMM_SOURCE,
                       "replaces": "parallel_amg_tpu/ops/gspgemm.py:305"},
     "spgemm_dedup": {"source": SPGEMM_SOURCE,
-                     "replaces": "parallel_amg_tpu/ops/pspgemm.py:150"},
+                     "replaces": "parallel_amg_tpu/ops/pspgemm.py:150",
+                     "design": "B4's per-warp hash merge; keys only when counting"},
     "spgemm_dedup_compact": {"source": SPGEMM_SOURCE,
                              "replaces": "parallel_amg_tpu/ops/gspgemm.py:414"},
     "bsr_spmv": {"source": "parallel_amg_tpu_torch/csrc/bsr_spmv.cu",
@@ -150,6 +158,11 @@ KERNELS = {
     "pallas_spgemm": {"source": SPGEMM_SOURCE,
                       "replaces": "parallel_amg_tpu/ops/pspgemm.py:72"},
 }
+# the __global__ functions of csrc/, as the profiler names them
+PORT_KERNEL_NAMES = ("twell_stream_kernel", "flatdia_spmv_kernel",
+                     "flatdia_spmm_kernel", "bsr_spmv_kernel", "expand_kernel",
+                     "merge_kernel", "matvec_kernel", "interior_kernel",
+                     "boundary_kernel")
 LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm", "bsr_spmv",
              "flatdia_spmm", "halo_stencil")  # csrc/<name>.cu
 CONFIG3_ROWS = [2_097_152, 79_507, 3_375, 125]
@@ -260,8 +273,15 @@ def profile_cycles(fn, n=5):
     interior = [e.time_range for e in kernels if "interior_kernel" in e.name]
     overlap = sum(max(0.0, min(c.end, k.end) - max(c.start, k.start))
                   for c in copies for k in interior)
+    # each of the port's kernels' device time per call, by its CUDA name
+    by_kernel = {}
+    for e in kernels:
+        for name in PORT_KERNEL_NAMES:
+            if name in e.name:
+                by_kernel[name] = by_kernel.get(name, 0.0) + e.device_time_total / 1e3 / n
     # a window in which the profiler recorded no kernel has no device numbers
     return {"kernels_per_call": len(kernels) / n,
+            "port_kernel_device_ms_per_call": by_kernel,
             "device_ms_per_call": dev_us / 1e3 if kernels else None,
             "wall_ms_per_call_profiled": wall,
             "device_busy_share": (dev_us / 1e3) / wall if kernels and wall else None,
@@ -416,8 +436,13 @@ def main():
         return CSR.from_scipy(sp.csr_matrix((vals, (rows, cols)),
                                             shape=(n_rows, n_cols)))
 
-    def long_rows(n_rows, n_cols):
-        lengths = rng.integers(64, 513, size=n_rows)
+    def long_rows(n_rows, n_cols, lengths=(64, 513), n_over=0):
+        """Rows of lengths[0] to lengths[1] − 1 entries; with n_over, that
+        many rows of 5,000–20,000 entries (past the kernel's shared-memory
+        capacity: its long-row path) at random places."""
+        lengths = rng.integers(*lengths, size=n_rows)
+        lengths[rng.choice(n_rows, size=n_over, replace=False)] = rng.integers(
+            5_000, 20_001, size=n_over)
         rows = np.repeat(np.arange(n_rows), lengths)
         cols = rng.integers(0, n_cols, size=rows.size)
         vals = rng.normal(size=rows.size).astype(np.float32)
@@ -427,15 +452,18 @@ def main():
     cases = {
         "random_rect_200000x150000": random_rect(200_000, 150_000, 9),
         "long_rows_65536": long_rows(65_536, 65_536),
+        "rows_over_cap_100000": long_rows(100_000, 200_000, (5, 21), 2_000),
         "level1_A": h.levels[1].A.to_csr(),
         "P0": h.levels[0].P.to_csr(),
         "R0": h.levels[0].R.to_csr(),
+        # the coarse levels, where launch latency rules
+        **{f"level{i}_A": h.levels[i].A.to_csr() for i in (2, 3, 4)},
     }
     results = {k: {"max_abs_err": 0.0} for k in KERNELS}
     for name, csr in cases.items():
         for dtype in (torch.float32, torch.bfloat16):
             A = TWELL.from_csr(csr, dtype=dtype).to(dev)
-            A_abs = TWELL(A.indptr, A.indices, A.vals.abs(), A.shape, A.group)
+            A_abs = TWELL(A.indptr, A.indices, A.vals.abs(), A.shape, A.blocks)
             x = torch.from_numpy(
                 rng.normal(size=A.n_cols).astype(np.float32)).to(dev)
             y = A.matvec(x)
@@ -452,17 +480,25 @@ def main():
                 del lib
             ms = device_ms(lambda: A.matvec(x))
             plain_ms = device_ms(lambda: _matvec_plain(A, x))
+            # bit-equal from call to call: no atomics, a fixed order
+            repeat_equal = all(torch.equal(A.matvec(x).view(torch.int32),
+                                           y.view(torch.int32)) for _ in range(20))
             err = check_kernel("twell_spmv", name, dtype, y, ref, bound, dict(
-                shape=list(A.shape), nnz=A.nnz, group=A.group, ms=ms,
+                shape=list(A.shape), nnz=A.nnz, row_blocks=A.n_blocks,
+                long_rows=int((A.indptr.diff() > twell.LONG_ROW).sum()), ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                copy_bound_ms=copy_bound_ms(n_bytes), library_csr_ms=lib_ms,
-                library_error=lib_err, gnnz_s=A.nnz / ms / 1e6))
+                share_of_bound=b_ms / ms, copy_bound_ms=copy_bound_ms(n_bytes),
+                library_csr_ms=lib_ms, library_error=lib_err,
+                vs_library=None if lib_ms is None else ms / lib_ms,
+                bit_equal_20_calls=repeat_equal, gnnz_s=A.nnz / ms / 1e6))
+            if not repeat_equal:
+                raise AssertionError(f"twell_spmv {name} {dtype}: y changed between calls")
             r = results["twell_spmv"]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if name == "level1_A" and dtype == torch.float32:
                 r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          copy_bound_ms=copy_bound_ms(n_bytes), library_ms=lib_ms,
-                         main_case=f"{name} f32")
+                         main_case=f"{name} f32", bit_equal_20_calls=repeat_equal)
             del A, A_abs
 
     # -- setup3d: config #3 at 128³ on the card ---------------------------------
@@ -979,14 +1015,14 @@ def main():
         "config2_L0_RA": (R0, A0, None),
         "config2_L0_RAP": (RA0, P0, None),
         "config2_L1_RA": (h_rs.levels[1].R, h_rs.levels[1].A, None),
-        # K above the merge's 512-slot stage: its chunked branch
         "config2_L2_RA": (h_rs.levels[2].R, h_rs.levels[2].A, None),
         "config2_L3_RA": (h_rs.levels[3].R, h_rs.levels[3].A, None),
         "random_rect_200000x150000": (random_ell(200_000, 150_000, 8),
                                       random_ell(150_000, 120_000, 6), None),
         "zeros_empty_overflow": (random_ell(50_000, 3_000, 12, 0.2, 0.1),
                                  random_ell(3_000, 2_000, 9, 0.2, 0.1), 40),
-        # K 5120 above B4's shared-memory table: its global scratch
+        # K 5120: B4's and B5's in-place tables in global scratch, B5's
+        # count-only table in shared memory
         "wide_K5120": (random_ell(400, 3_000, 64), random_ell(3_000, 2_000, 80), None),
     }
     slow = dict(reps=1, samples=3, warmup=1)  # the plain versions
@@ -1002,6 +1038,9 @@ def main():
             raise AssertionError(f"spgemm_expand {case}: kernel disagrees with "
                                  "the plain version")
         n_valid = (cc != sent).sum(1).double()
+        live = float(n_valid.sum())
+        # the all-pairs merge's work, beside the hashed merge's yardstick of
+        # one insert per live candidate
         compares = float((n_valid * (n_valid - 1) / 2).sum())
         counts = pspgemm.dedup(cc, cv, sent, counts_only=True)
         full = pspgemm.dedup(cc, cv, sent)
@@ -1034,16 +1073,18 @@ def main():
             "spgemm_dedup": (
                 device_ms(lambda: pspgemm.dedup(cc, cv, sent, counts_only=True)),
                 device_ms(lambda: pspgemm._dedup_plain(cc, cv, sent, True), **slow),
-                # count-only: reads the columns, writes the counts
-                bound_ms(R_ * K_ * 4 + R_ * 4, compares), err5),
+                # count-only: reads the columns, writes the counts, one
+                # insert per live candidate
+                bound_ms(R_ * K_ * 4 + R_ * 4, live), err5),
             "spgemm_dedup_compact": (
                 device_ms(lambda: gspgemm.dedup_compact(cc, cv, sent, w)),
                 device_ms(lambda: gspgemm._dedup_compact_plain(cc, cv, sent, w),
                           **slow),
                 # one hash insert or add per live candidate
-                bound_ms(R_ * K_ * 8 + R_ * w * 8 + R_ * 4, float(n_valid.sum())), err4),
+                bound_ms(R_ * K_ * 8 + R_ * w * 8 + R_ * 4, live), err4),
         }
         full_ms = device_ms(lambda: pspgemm.dedup(cc, cv, sent))
+        full_bound_ms = bound_ms(2 * R_ * K_ * 8 + R_ * 4, live)[0]
         product_ms = device_ms(lambda: gspgemm.gather_spgemm(A, B, out_width=w,
                                                              strict=False))
         lib_ms, lib_err = None, None
@@ -1057,10 +1098,12 @@ def main():
         for name, (ms, p_ms, (b_ms, b_by), err) in timing.items():
             emit("kernel", name=name, case=case, rows=R_, K=K_, out_width=w,
                  rows_over_width=over, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
-                 bound_by=b_by, compares=compares, max_abs_err=err, ok=ok,
+                 bound_by=b_by, share_of_bound=b_ms / ms, live_candidates=live,
+                 compares=compares, max_abs_err=err, ok=ok,
                  tolerance=f"cols and counts equal, |dv| <= {SPGEMM_ATOL} + "
                            f"{SPGEMM_RTOL}*sum|merged|",
-                 **({"full_mode_ms": full_ms} if name == "spgemm_dedup" else {}),
+                 **({"full_mode_ms": full_ms, "full_mode_bound_ms": full_bound_ms}
+                    if name == "spgemm_dedup" else {}),
                  **({"bit_equal_to_b5_compacted": b4_is_b5}
                     if name == "spgemm_dedup_compact" else {}))
             r = results[name]
@@ -1069,7 +1112,8 @@ def main():
                 r.update(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          copy_bound_ms=None, library_ms=None,
                          product_ms=product_ms, product_library_ms=lib_ms,
-                         main_case=case)
+                         main_case=case,
+                         **({"full_mode_ms": full_ms} if name == "spgemm_dedup" else {}))
         emit("spgemm_product", case=case, rows=R_, K=K_, out_width=w,
              gather_spgemm_ms=product_ms, library_csr_spgemm_ms=lib_ms,
              library_error=lib_err)
@@ -1515,8 +1559,11 @@ def main():
         reset_counts()
         ptt.vcycle(hh, zz, bb)
         per_cycle = {**spmv_counts(), **vector_counts(), **halo_counts()}
-        emit("profile", cell=label, kernel_launches_per_vcycle=per_cycle,
-             **profile_cycles(lambda: ptt.vcycle(hh, zz, bb)))
+        prof = profile_cycles(lambda: ptt.vcycle(hh, zz, bb))
+        emit("profile", cell=label, kernel_launches_per_vcycle=per_cycle, **prof)
+        if label == "config2":
+            results["twell_spmv"]["device_ms_per_vcycle_config2"] = \
+                prof["port_kernel_device_ms_per_call"].get("twell_stream_kernel")
 
     # -- config #1: 64², V(1,1) weighted Jacobi, standalone solve ---------------
     A1 = poisson2d(64).to_csr()
@@ -1711,7 +1758,11 @@ def main():
         extra = {k: v for k, v in r.items()
                  if k.startswith(("ms_", "bound_ms_", "plain_ms_", "copy_path_ms"))
                  or k in ("product_ms", "product_library_ms", "library_kind",
-                          "auto_width_ms", "device_ms_per_matvec")}
+                          "auto_width_ms", "device_ms_per_matvec",
+                          "device_ms_per_vcycle_config2", "bit_equal_20_calls",
+                          "full_mode_ms")}
+        if "design" in meta:
+            extra["design"] = meta["design"]
         if name in ("halo_stencil_interior", "halo_stencil_boundary"):
             extra["path"] = ("parts on several cards; held bit-equal on this card in "
                              "the B8 kernel phase, not on the one-card main path")

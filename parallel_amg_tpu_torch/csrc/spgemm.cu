@@ -11,13 +11,12 @@
 //   kernel reads A's ELL planes and B's rows directly: no plan, no windows.
 // - spgemm_dedup (B5): parallel_amg_tpu/ops/pspgemm.py::_dedup_call.
 // - spgemm_dedup_compact (B4): parallel_amg_tpu/ops/gspgemm.py::
-//   _dedup_compact_call.  The TPU kernel compares every pair of slots and
-//   ranks leaders with a lower-triangular matmul (Mosaic has no lane
-//   cumsum).  Here a warp owns a row and a hash table of its columns:
-//   __match_any_sync groups the lanes of a 32-slot chunk that hold one
-//   column, the group's lowest lane finds or inserts the column and adds the
-//   group's values in lane order, and a ballot and a popcount give each
-//   leader its output slot.
+//   _dedup_compact_call.  The TPU kernels compare every pair of slots and
+//   rank leaders with a lower-triangular matmul (Mosaic has no lane
+//   cumsum).  Here B4 and both modes of B5 are one per-row routine,
+//   merge_kernel, with three output modes (count, in place, compact): a
+//   warp owns a row and an open-addressing hash table of its columns, and
+//   a lane finds or inserts a column with an atomicCAS on the key.
 //
 // Candidates: row r of the product has K = Wa·Wb candidate slots.  Slot
 // m·Wa + k holds A[r, k]·B[A.cols[r, k], m] and its column (m-major, the
@@ -26,24 +25,38 @@
 //
 // Merge: within a row, the first slot of each column is its leader; the
 // leader carries the sum of the values of every slot with that column, taken
-// in ascending slot order, so results are bit-reproducible.  No atomics.
+// in ascending slot order, so results are bit-reproducible.  Every mode
+// writes each row's count of distinct columns.
 //
 // What bounds each kernel on this card:
 // - expand: device-memory bytes.  It reads A's planes once, B's rows (which
 //   stay in the 50 MB L2 at the setup's shapes) and writes R·K·8 bytes of
 //   candidates; one thread per candidate, consecutive threads write
 //   consecutive words.
-// - merge (B5): the larger of R·K·8 bytes in (R·K·4 in count-only mode,
-//   which reads no values) and R·K(K−1)/2 column compares.  One warp per row
-//   stages the row's candidates in shared memory (in chunks of kStage when K
-//   is larger) and each lane tests its slots against every staged slot: a
-//   broadcast read, no bank conflicts.
-// - merge and compact (B4): R·K·8 bytes in and R·out_width·8 out; its
-//   instructions are O(K/32 + duplicates) per row, not B5's O(K·K/32): one
-//   pass inserts each chunk's columns in the warp's table (a power of two
-//   ≥ 2K slots, open addressing), a second ranks the leaders.  The table
-//   lives in shared memory while it fits (K ≤ kMaxSharedK), else in global
-//   scratch that the caller passes.
+// - merge, every mode: R·K·4 bytes of columns in (R·K·8 with the values
+//   outside count mode) and one table insert or lookup per live candidate:
+//   O(K/32 + duplicates) warp instructions per row, not the O(K·K/32)
+//   compares of an all-pairs merge.  The table is a power of two ≥ 2K
+//   slots (open addressing), in shared memory while it fits
+//   (kMaxSharedTable bytes a warp), else in global scratch that the caller
+//   passes.
+//   - count (B5 as the setup runs it): keys only, 4 bytes a slot, nothing
+//     staged and no value read.  Every live lane inserts its own column;
+//     of the lanes that hold one column exactly one atomicCAS wins, and the
+//     winners, summed by ballot and popcount, are the count, whatever the
+//     order of the inserts.  (Grouping equal columns first with
+//     __match_any_sync, as the other modes must, was slower on config #2's
+//     products.)
+//   - in place (B5) and compact (B4): the row's live candidates are staged
+//     in slot order, then pass 1 walks them in 32-slot chunks in order;
+//     __match_any_sync groups the lanes of a chunk that hold one column and
+//     the group's lowest lane finds or inserts the column and adds the
+//     group's values, in lane order, to its running sum, so every sum runs
+//     in ascending slot order.
+//     Pass 2 writes each leader's sum at its own slot and (SENT, 0)
+//     elsewhere (in place) or ranks the leaders by ballot and popcount and
+//     writes them to the front (compact).  Both read one pass 1, so B4
+//     equals B5's in-place merge compacted, bit for bit, by construction.
 
 #include <cuda_runtime.h>
 
@@ -51,7 +64,6 @@ namespace {
 
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
-constexpr int kStage = 512;  // candidates one warp stages in shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kBlock)
@@ -91,100 +103,14 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-// B5, one warp per row: leaders keep their slot and every other slot becomes
-// (SENT, 0).  Without kVals (count-only mode) the kernel reads only the
-// columns, scans only the slots before each lane's own, and writes only the
-// counts.  Both write each row's count of distinct columns.
-template <bool kVals>
-__global__ void __launch_bounds__(kBlock)
-    merge_kernel(const int* __restrict__ cand_cols,
-                 const float* __restrict__ cand_vals, int* __restrict__ out_cols,
-                 float* __restrict__ out_vals, int* __restrict__ counts,
-                 long long n_rows, int K, int sent) {
-  __shared__ int s_cols[kWarps][kStage];
-  __shared__ float s_vals[kWarps][kVals ? kStage : 1];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (row >= n_rows) {
-    return;  // the whole warp leaves together
-  }
-  const int* rc = cand_cols + row * K;
-  const float* rv = cand_vals + row * K;
-  int* sc = s_cols[warp];
-  float* sv = s_vals[warp];
-  const bool resident = K <= kStage;
-  if (resident) {
-    for (int i = lane; i < K; i += 32) {
-      sc[i] = rc[i];
-      if (kVals) {
-        sv[i] = rv[i];
-      }
-    }
-    __syncwarp();
-  }
-  int count = 0;
-  for (int j0 = 0; j0 < K; j0 += 32) {
-    const int j = j0 + lane;
-    const int cj = j < K ? (resident ? sc[j] : rc[j]) : sent;
-    bool dup = false;
-    float sum = 0.f;
-    // a leader's sum needs every slot; the duplicate test only earlier ones
-    const int k_end = kVals ? K : min(K, j0 + 32);
-    for (int k0 = 0; k0 < k_end; k0 += kStage) {
-      const int n = min(kStage, k_end - k0);
-      if (!resident) {
-        __syncwarp();
-        for (int i = lane; i < n; i += 32) {
-          sc[i] = rc[k0 + i];
-          if (kVals) {
-            sv[i] = rv[k0 + i];
-          }
-        }
-        __syncwarp();
-      }
-      if (cj != sent && !dup) {
-        const int i_end = kVals ? n : min(n, j - k0);
-        for (int i = 0; i < i_end; ++i) {
-          if (sc[i] == cj) {
-            if (k0 + i < j) {
-              dup = true;  // an earlier slot leads this column
-              break;
-            }
-            if (kVals) {
-              sum += sv[i];  // ascending slot order, from the leader on
-            }
-          }
-        }
-      }
-    }
-    const bool leader = cj != sent && !dup;
-    const unsigned ballot = __ballot_sync(kFull, leader);
-    if (kVals && j < K) {
-      out_cols[row * K + j] = leader ? cj : sent;
-      out_vals[row * K + j] = leader ? sum : 0.f;
-    }
-    count += __popc(ballot);
-  }
-  if (lane == 0) {
-    counts[row] = count;
-  }
-}
-
-// B4's per-warp table: keys (SENT marks an empty slot: SENT slots are never
-// inserted) and each key's running sum, the row's K candidates staged, and
-// one bit per slot that marks the leaders.
-struct WarpTable {
-  int* keys;
-  float* sums;
-  int* cols;
-  float* vals;
-  unsigned* leaders;
-};
+// The merge's output modes.
+enum Mode : int { kCount = 0, kInPlace = 1, kCompact = 2 };
 
 constexpr int kMinTable = 64;
-constexpr int kPrefetch = 4;  // B4's candidate chunks loaded together
-constexpr int kMaxSharedK = 4096;  // 2K ≤ 8192 slots: 97 KB a warp
+constexpr int kPrefetch = 4;  // candidate chunks loaded together
+// a warp's table in shared memory up to this size: K ≤ 8192 in count mode,
+// K ≤ 4096 in the others (97 KB a warp)
+constexpr long long kMaxSharedTable = 100 * 1024;
 // a block's shared tables: blocks of a few warps keep more warps on an SM
 // than one large block when the tables are large
 constexpr long long kSharedBudget = 48 * 1024;
@@ -198,20 +124,13 @@ __host__ __device__ inline int table_size(int K) {
   return t;
 }
 
-__host__ __device__ inline long long warp_table_bytes(int K) {
+// A warp's table: keys (SENT marks an empty slot: SENT slots are never
+// inserted); outside count mode also each key's running sum, the row's live
+// candidates staged in slot order and one bit per staged slot that marks
+// the leaders.
+__host__ __device__ inline long long warp_table_bytes(int mode, int K) {
   const long long t = table_size(K);
-  return 8 * t + 8LL * K + 4 * ((K + 31) / 32);
-}
-
-__device__ inline WarpTable carve_table(char* base, int K) {
-  const int t = table_size(K);
-  WarpTable w;
-  w.keys = reinterpret_cast<int*>(base);
-  w.sums = reinterpret_cast<float*>(w.keys + t);
-  w.cols = reinterpret_cast<int*>(w.sums + t);
-  w.vals = reinterpret_cast<float*>(w.cols + K);
-  w.leaders = reinterpret_cast<unsigned*>(w.vals + K);
-  return w;
+  return mode == kCount ? 4 * t : 8 * t + 8LL * K + 4 * ((K + 31) / 32);
 }
 
 // Fibonacci hashing: the top log2(T) bits of col·2^32/φ, which depend on
@@ -220,130 +139,178 @@ __device__ inline int hash_slot(int col, int shift) {
   return static_cast<int>((static_cast<unsigned>(col) * 0x9E3779B1u) >> shift);
 }
 
-// One warp per row (grid-stride over rows).  The row's live (non-SENT)
-// candidates are staged first, compacted in slot order, so the passes walk
-// only chunks of live slots.  Pass 1 walks those 32-slot chunks in order:
-// the lanes of each column group (__match_any_sync) elect their lowest lane,
-// which finds or inserts the column (atomicCAS on the key; the inserting
-// lane's slot is the leader, marked in a bit) and adds the group's values
-// to the running sum in lane order.  Chunks run in order and a
-// column's entry is touched by one lane per chunk, so every sum is taken in
-// ascending slot order from 0, as B5 takes it: the output equals B5's
-// in-place merge compacted in slot order, bit for bit.  Pass 2 ranks the
-// leaders in slot order (ballot + popcount) and writes them, zeros after.
-// kShared: the tables are dynamic shared memory (the compiler then emits
-// shared loads, stores and atomics); else `scratch` (global) holds one table
-// per warp of the grid, for K too large for shared memory.
-template <bool kShared>
+// The slot of col in the table, inserted if absent; `inserted` tells
+// whether this call's atomicCAS placed it.  A stale read of an empty key is
+// harmless: the atomicCAS then returns the key that is there.
+__device__ inline int find_or_insert(int* keys, int col, int shift, int tmask,
+                                     int sent, bool& inserted) {
+  int slot = hash_slot(col, shift);
+  while (true) {
+    const int key = keys[slot];
+    if (key == col) {
+      return slot;
+    }
+    if (key == sent) {
+      const int old = atomicCAS(keys + slot, sent, col);
+      if (old == sent) {
+        inserted = true;
+        return slot;
+      }
+      if (old == col) {
+        return slot;
+      }
+    }
+    slot = (slot + 1) & tmask;
+  }
+}
+
+__device__ inline int find(const int* keys, int col, int shift, int tmask) {
+  int slot = hash_slot(col, shift);
+  while (keys[slot] != col) {
+    slot = (slot + 1) & tmask;
+  }
+  return slot;
+}
+
+// One warp per row (grid-stride over rows), in mode M.  kShared: the tables
+// are dynamic shared memory (the compiler then emits shared loads, stores
+// and atomics); else `scratch` (global) holds one table per warp of the
+// grid.  out_cols/out_vals are (n_rows, K) in place, (n_rows, out_width)
+// compacted, unused in count mode.
+template <int M, bool kShared>
 __global__ void __launch_bounds__(kBlock)
-    dedup_compact_kernel(const int* __restrict__ cand_cols,
-                         const float* __restrict__ cand_vals,
-                         int* __restrict__ out_cols,
-                         float* __restrict__ out_vals, int* __restrict__ counts,
-                         long long n_rows, int K, int out_width, int sent,
-                         char* scratch) {
+    merge_kernel(const int* __restrict__ cand_cols,
+                 const float* __restrict__ cand_vals, int* __restrict__ out_cols,
+                 float* __restrict__ out_vals, int* __restrict__ counts,
+                 long long n_rows, int K, int out_width, int sent,
+                 char* scratch) {
   extern __shared__ __align__(16) char smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long tbytes = warp_table_bytes(K);
+  const long long tbytes = warp_table_bytes(M, K);
   char* base = kShared ? smem + warp * tbytes
                        : scratch + (static_cast<long long>(blockIdx.x) * warps + warp) * tbytes;
-  const WarpTable tab = carve_table(base, K);
-  const int tmask = table_size(K) - 1;
-  const int shift = 32 - (__ffs(tmask + 1) - 1);
+  const int tsize = table_size(K);
+  const int tmask = tsize - 1;
+  const int shift = 32 - (__ffs(tsize) - 1);
+  int* keys = reinterpret_cast<int*>(base);
+  float* sums = reinterpret_cast<float*>(keys + tsize);
+  int* live_cols = reinterpret_cast<int*>(sums + tsize);
+  float* live_vals = reinterpret_cast<float*>(live_cols + K);
+  unsigned* leaders = reinterpret_cast<unsigned*>(live_vals + K);
   const int n_chunks = (K + 31) / 32;
   const unsigned below = (1u << lane) - 1u;
   for (long long row = static_cast<long long>(blockIdx.x) * warps + warp;
        row < n_rows; row += static_cast<long long>(gridDim.x) * warps) {
     const int* rc = cand_cols + row * K;
     const float* rv = cand_vals + row * K;
-    for (int i = lane; i <= tmask; i += 32) {
-      tab.keys[i] = sent;
-    }
-    // stage the live candidates, compacted in slot order; kPrefetch chunks'
-    // loads are in flight together
-    int live = 0;
-    for (int c0 = 0; c0 < n_chunks; c0 += kPrefetch) {
-      int cols[kPrefetch];
-      float vals[kPrefetch];
-#pragma unroll
-      for (int u = 0; u < kPrefetch; ++u) {
-        const int j = (c0 + u) * 32 + lane;
-        cols[u] = j < K ? __ldg(rc + j) : sent;
-        vals[u] = j < K ? __ldg(rv + j) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kPrefetch; ++u) {
-        const unsigned bits = __ballot_sync(kFull, cols[u] != sent);
-        if (cols[u] != sent) {
-          const int at = live + __popc(bits & below);
-          tab.cols[at] = cols[u];
-          tab.vals[at] = vals[u];
-        }
-        live += __popc(bits);
-      }
+    for (int i = lane; i < tsize; i += 32) {
+      keys[i] = sent;
     }
     __syncwarp();
-    const int n_live = (live + 31) / 32;
     int count = 0;
-    for (int c = 0; c < n_live; ++c) {
-      const int j = c * 32 + lane;
-      const int cj = j < live ? tab.cols[j] : sent;
-      const unsigned peers = __match_any_sync(kFull, cj);
-      bool inserted = false;
-      if (cj != sent && lane == __ffs(peers) - 1) {
-        int slot = hash_slot(cj, shift);
-        while (true) {
-          const int key = tab.keys[slot];
-          if (key == cj) {
-            break;
-          }
-          if (key == sent) {
-            const int old = atomicCAS(tab.keys + slot, sent, cj);
-            if (old == sent) {
-              tab.sums[slot] = 0.f;
-              inserted = true;
-              break;
-            }
-            if (old == cj) {
-              break;
-            }
-          }
-          slot = (slot + 1) & tmask;
+    if constexpr (M == kCount) {
+      for (int c0 = 0; c0 < n_chunks; c0 += kPrefetch) {
+        int cols[kPrefetch];
+#pragma unroll
+        for (int u = 0; u < kPrefetch; ++u) {
+          const int j = (c0 + u) * 32 + lane;
+          cols[u] = j < K ? __ldg(rc + j) : sent;
         }
-        float sum = tab.sums[slot];
-        for (unsigned m = peers; m != 0u; m &= m - 1u) {
-          sum = __fadd_rn(sum, tab.vals[c * 32 + __ffs(m) - 1]);  // lane order
+        // every live lane inserts its own column: of the lanes that hold
+        // one column, exactly one atomicCAS wins
+#pragma unroll
+        for (int u = 0; u < kPrefetch; ++u) {
+          bool inserted = false;
+          if (cols[u] != sent) {
+            find_or_insert(keys, cols[u], shift, tmask, sent, inserted);
+          }
+          count += __popc(__ballot_sync(kFull, inserted));
         }
-        tab.sums[slot] = sum;
       }
-      const unsigned lead_bits = __ballot_sync(kFull, inserted);
-      if (lane == 0) {
-        tab.leaders[c] = lead_bits;
+    } else {
+      // stage the live candidates, compacted in slot order; kPrefetch
+      // chunks' loads are in flight together
+      int live = 0;
+      for (int c0 = 0; c0 < n_chunks; c0 += kPrefetch) {
+        int cols[kPrefetch];
+        float vals[kPrefetch];
+#pragma unroll
+        for (int u = 0; u < kPrefetch; ++u) {
+          const int j = (c0 + u) * 32 + lane;
+          cols[u] = j < K ? __ldg(rc + j) : sent;
+          vals[u] = j < K ? __ldg(rv + j) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kPrefetch; ++u) {
+          const unsigned bits = __ballot_sync(kFull, cols[u] != sent);
+          if (cols[u] != sent) {
+            const int at = live + __popc(bits & below);
+            live_cols[at] = cols[u];
+            live_vals[at] = vals[u];
+          }
+          live += __popc(bits);
+        }
       }
-      count += __popc(lead_bits);
       __syncwarp();
-    }
-    int rank = 0;
-    for (int c = 0; c < n_live && rank < out_width; ++c) {
-      const unsigned lead_bits = tab.leaders[c];
-      const int j = c * 32 + lane;
-      const int at = rank + __popc(lead_bits & below);
-      if (((lead_bits >> lane) & 1u) != 0u && at < out_width) {
-        const int cj = tab.cols[j];
-        int slot = hash_slot(cj, shift);
-        while (tab.keys[slot] != cj) {
-          slot = (slot + 1) & tmask;
+      // pass 1: chunks in order, one lane per column and chunk, so each
+      // sum runs in ascending slot order
+      const int n_live = (live + 31) / 32;
+      for (int c = 0; c < n_live; ++c) {
+        const int j = c * 32 + lane;
+        const int cj = j < live ? live_cols[j] : sent;
+        const unsigned peers = __match_any_sync(kFull, cj);
+        bool inserted = false;
+        if (cj != sent && lane == __ffs(peers) - 1) {
+          const int slot = find_or_insert(keys, cj, shift, tmask, sent, inserted);
+          float sum = inserted ? 0.f : sums[slot];
+          for (unsigned m = peers; m != 0u; m &= m - 1u) {
+            sum = __fadd_rn(sum, live_vals[c * 32 + __ffs(m) - 1]);  // lane order
+          }
+          sums[slot] = sum;
         }
-        out_cols[row * out_width + at] = cj;
-        out_vals[row * out_width + at] = tab.sums[slot];
+        const unsigned lead_bits = __ballot_sync(kFull, inserted);
+        if (lane == 0) {
+          leaders[c] = lead_bits;
+        }
+        count += __popc(lead_bits);
+        __syncwarp();
       }
-      rank += __popc(lead_bits);
-    }
-    for (int i = min(count, out_width) + lane; i < out_width; i += 32) {
-      out_cols[row * out_width + i] = 0;
-      out_vals[row * out_width + i] = 0.f;
+      if constexpr (M == kInPlace) {
+        // pass 2: walk the slots again; a live slot's rank among the live
+        // ones finds its leader bit
+        int rank = 0;
+        for (int c = 0; c < n_chunks; ++c) {
+          const int j = c * 32 + lane;
+          const int cj = j < K ? __ldg(rc + j) : sent;
+          const unsigned bits = __ballot_sync(kFull, cj != sent);
+          const int at = rank + __popc(bits & below);
+          const bool lead = cj != sent && ((leaders[at >> 5] >> (at & 31)) & 1u) != 0u;
+          if (j < K) {
+            out_cols[row * K + j] = lead ? cj : sent;
+            out_vals[row * K + j] = lead ? sums[find(keys, cj, shift, tmask)] : 0.f;
+          }
+          rank += __popc(bits);
+        }
+      } else {
+        // pass 2: rank the leaders in slot order, write them, zeros after
+        int rank = 0;
+        for (int c = 0; c < n_live && rank < out_width; ++c) {
+          const unsigned lead_bits = leaders[c];
+          const int at = rank + __popc(lead_bits & below);
+          if (((lead_bits >> lane) & 1u) != 0u && at < out_width) {
+            const int cj = live_cols[c * 32 + lane];
+            out_cols[row * out_width + at] = cj;
+            out_vals[row * out_width + at] = sums[find(keys, cj, shift, tmask)];
+          }
+          rank += __popc(lead_bits);
+        }
+        for (int i = min(count, out_width) + lane; i < out_width; i += 32) {
+          out_cols[row * out_width + i] = 0;
+          out_vals[row * out_width + i] = 0.f;
+        }
+      }
     }
     if (lane == 0) {
       counts[row] = count;
@@ -352,8 +319,59 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-unsigned merge_blocks(long long n_rows) {
-  return static_cast<unsigned>((n_rows + kWarps - 1) / kWarps);
+// Per-warp global scratch of a merge in `mode`: 0 where its table fits in
+// shared memory.
+long long scratch_bytes(int mode, int k) {
+  const long long t = warp_table_bytes(mode, k);
+  return t > kMaxSharedTable ? t : 0;
+}
+
+template <int M>
+int launch_merge(const void* cand_cols, const void* cand_vals, void* out_cols,
+                 void* out_vals, void* counts, long long n_rows, int k,
+                 int out_width, int sent, void* scratch,
+                 long long scratch_warps, void* stream) {
+  if (n_rows <= 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  const bool shared = scratch_bytes(M, k) == 0;
+  if (k < 0 || k > kMaxK || (M == kCompact && out_width <= 0) ||
+      (!shared && (scratch == nullptr || scratch_warps < kWarps))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto cs = static_cast<cudaStream_t>(stream);
+  const long long tbytes = warp_table_bytes(M, k);
+  // shared tables: as many warps a block as fit in kSharedBudget (1 to 8)
+  const long long fit = kSharedBudget / tbytes;
+  const int warps = !shared || fit >= kWarps ? kWarps
+                    : fit < 1                ? 1
+                                             : static_cast<int>(fit);
+  const long long want = (n_rows + warps - 1) / warps;
+  const long long cap = shared ? (1LL << 30) : scratch_warps / kWarps;
+  const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
+  const size_t smem = shared ? static_cast<size_t>(tbytes) * warps : 0;
+  const auto* cc = static_cast<const int*>(cand_cols);
+  const auto* cv = static_cast<const float*>(cand_vals);
+  auto* oc = static_cast<int*>(out_cols);
+  auto* ov = static_cast<float*>(out_vals);
+  auto* cnt = static_cast<int*>(counts);
+  if (!shared) {
+    merge_kernel<M, false><<<blocks, warps * 32, 0, cs>>>(
+        cc, cv, oc, ov, cnt, n_rows, k, out_width, sent,
+        static_cast<char*>(scratch));
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        merge_kernel<M, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      return static_cast<int>(e);
+    }
+  }
+  merge_kernel<M, true><<<blocks, warps * 32, smem, cs>>>(
+      cc, cv, oc, ov, cnt, n_rows, k, out_width, sent, nullptr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -385,82 +403,38 @@ extern "C" int spgemm_expand(const void* a_cols, const void* a_vals,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Per-warp global scratch in bytes of a merge: mode 0 counts only, 1 in
+// place (B5), 2 compact (B4); 0 where the warp's table fits in shared
+// memory.
+extern "C" long long spgemm_merge_scratch(int k, int mode) {
+  return scratch_bytes(mode, k);
+}
+
 // B5: merge in place of slot; out_cols/out_vals may both be null (counts
-// only).
+// only).  Where spgemm_merge_scratch(k, mode) is not 0 the caller passes
+// scratch_warps tables of that many bytes in `scratch`.
 extern "C" int spgemm_dedup(const void* cand_cols, const void* cand_vals,
                             void* out_cols, void* out_vals, void* counts,
-                            long long n_rows, int k, int sent, void* stream) {
-  if (n_rows <= 0) {
-    return static_cast<int>(cudaSuccess);
-  }
-  const auto cs = static_cast<cudaStream_t>(stream);
-  const auto* cc = static_cast<const int*>(cand_cols);
-  const auto* cv = static_cast<const float*>(cand_vals);
+                            long long n_rows, int k, int sent, void* scratch,
+                            long long scratch_warps, void* stream) {
   if (out_cols == nullptr) {
-    merge_kernel<false><<<merge_blocks(n_rows), kBlock, 0, cs>>>(
-        cc, cv, nullptr, nullptr, static_cast<int*>(counts), n_rows, k, sent);
-  } else {
-    merge_kernel<true><<<merge_blocks(n_rows), kBlock, 0, cs>>>(
-        cc, cv, static_cast<int*>(out_cols), static_cast<float*>(out_vals),
-        static_cast<int*>(counts), n_rows, k, sent);
+    return launch_merge<kCount>(cand_cols, cand_vals, nullptr, nullptr, counts,
+                                n_rows, k, 0, sent, scratch, scratch_warps,
+                                stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge<kInPlace>(cand_cols, cand_vals, out_cols, out_vals,
+                                counts, n_rows, k, 0, sent, scratch,
+                                scratch_warps, stream);
 }
 
-// B4's global scratch in bytes for each warp of the grid: 0 where its table
-// fits in shared memory (K ≤ kMaxSharedK).
-extern "C" long long spgemm_dedup_compact_scratch(int k) {
-  return k > kMaxSharedK ? warp_table_bytes(k) : 0;
-}
-
-// B4: merge and compact to (n_rows, out_width).  With K above kMaxSharedK
-// the caller passes scratch_warps tables of spgemm_dedup_compact_scratch(k)
-// bytes each in `scratch`.
+// B4: merge and compact to (n_rows, out_width), with scratch as B5's.
 extern "C" int spgemm_dedup_compact(const void* cand_cols,
                                     const void* cand_vals, void* out_cols,
                                     void* out_vals, void* counts,
                                     long long n_rows, int k, int out_width,
                                     int sent, void* scratch,
                                     long long scratch_warps, void* stream) {
-  if (n_rows <= 0) {
-    return static_cast<int>(cudaSuccess);
-  }
-  if (k < 0 || k > kMaxK || out_width <= 0 ||
-      (k > kMaxSharedK && (scratch == nullptr || scratch_warps < kWarps))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto cs = static_cast<cudaStream_t>(stream);
-  const long long tbytes = warp_table_bytes(k);
-  const bool shared = k <= kMaxSharedK;
-  // shared tables: as many warps a block as fit in kSharedBudget (1 to 8)
-  const long long fit = kSharedBudget / tbytes;
-  const int warps = !shared || fit >= kWarps ? kWarps
-                    : fit < 1                ? 1
-                                             : static_cast<int>(fit);
-  const long long want = (n_rows + warps - 1) / warps;
-  const long long cap = shared ? (1LL << 30) : scratch_warps / kWarps;
-  const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
-  const size_t smem = shared ? static_cast<size_t>(tbytes) * warps : 0;
-  const auto* cc = static_cast<const int*>(cand_cols);
-  const auto* cv = static_cast<const float*>(cand_vals);
-  auto* oc = static_cast<int*>(out_cols);
-  auto* ov = static_cast<float*>(out_vals);
-  auto* cnt = static_cast<int*>(counts);
-  if (!shared) {
-    dedup_compact_kernel<false><<<blocks, warps * 32, 0, cs>>>(
-        cc, cv, oc, ov, cnt, n_rows, k, out_width, sent,
-        static_cast<char*>(scratch));
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dedup_compact_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      return static_cast<int>(e);
-    }
-  }
-  dedup_compact_kernel<true><<<blocks, warps * 32, smem, cs>>>(
-      cc, cv, oc, ov, cnt, n_rows, k, out_width, sent, nullptr);
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge<kCompact>(cand_cols, cand_vals, out_cols, out_vals,
+                                counts, n_rows, k, out_width, sent, scratch,
+                                scratch_warps, stream);
 }

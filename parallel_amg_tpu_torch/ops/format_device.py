@@ -3,15 +3,16 @@
 Counterpart of ``parallel_amg_tpu/ops/format_device.py``.  The on-device
 setup leaves every level operator as ELL planes; these functions turn them
 into the solve formats without moving the planes to the host (only the
-diagonal count, the ≤ 192 offsets and the entry count are read back).
+diagonal count, the ≤ 192 offsets, the entry count and the TWELL plan's
+block count are read back).
 
 - :func:`dia_from_ell`: banded square operators → (D, n) diagonals.
   Entries of one (row, column) sum, as in CSR.
 - :func:`twell_from_ell`: any operator → TWELL, whose port is int32 CSR
   (``ops/twell.py``): ``indptr = cumsum(row_nnz)`` and each row's columns
   sorted.  The JAX package's piece-table cost model (``_TUNE_SPACE``) shapes
-  the TPU layout and has no counterpart; the kernel's thread-group size
-  comes from ``twell.group_size``.
+  the TPU layout and has no counterpart; the TWELL constructor builds the
+  kernel's row-block plan (``twell.row_blocks``) on the device.
 - :func:`best_format_from_ell`: the policy of ``ops/select.py``.
 """
 
@@ -22,7 +23,7 @@ import torch
 from parallel_amg_tpu_torch.ops.dia import DIA
 from parallel_amg_tpu_torch.ops.ell import ELL
 from parallel_amg_tpu_torch.ops.select import DIA_MAX_DIAGS, prefer_dia
-from parallel_amg_tpu_torch.ops.twell import TWELL, group_size
+from parallel_amg_tpu_torch.ops.twell import TWELL
 
 
 def dia_from_ell(ell: ELL, max_diags: int = DIA_MAX_DIAGS):
@@ -64,8 +65,7 @@ def twell_from_ell(ell: ELL, dtype=None) -> TWELL:
     vals = vals_s[keep]
     if dtype is not None:
         vals = vals.to(dtype)
-    return TWELL(indptr, cols_s[keep].to(torch.int32), vals, ell.shape,
-                 group_size(float(ell.row_nnz.sum()) / max(ell.n_rows, 1)))
+    return TWELL(indptr, cols_s[keep].to(torch.int32), vals, ell.shape)
 
 
 def best_format_from_ell(T):

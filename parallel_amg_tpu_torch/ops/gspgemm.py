@@ -108,10 +108,6 @@ def _dedup_compact_plain(cand_cols, cand_vals, sent: int, out_width: int):
     return compact_merged(cols, vals, sent, out_width)
 
 
-# B4's global scratch, where a row's hash table outgrows shared memory
-_SCRATCH_BYTES = 256 << 20
-
-
 def _dedup_compact_cuda(cand_cols, cand_vals, sent: int, out_width: int):
     """Launch ``spgemm_dedup_compact`` (B4) on the current stream, with
     global scratch for the warps' tables where K needs it."""
@@ -122,12 +118,7 @@ def _dedup_compact_cuda(cand_cols, cand_vals, sent: int, out_width: int):
     out_c = torch.empty((R, out_width), dtype=torch.int32, device=dev)
     out_v = torch.empty((R, out_width), dtype=torch.float32, device=dev)
     counts = torch.empty(R, dtype=torch.int32, device=dev)
-    per_warp = pspgemm.kernel("spgemm_dedup_compact_scratch")(K)
-    scratch, warps = None, 0
-    if per_warp:
-        # whole blocks of 8 warps, at most one warp a row
-        warps = 8 * max(1, min(-(-R // 8), _SCRATCH_BYTES // (8 * per_warp)))
-        scratch = torch.empty(warps * per_warp, dtype=torch.uint8, device=dev)
+    scratch, warps = pspgemm.merge_scratch(R, K, pspgemm.COMPACT, dev)
     pspgemm.launch("spgemm_dedup_compact", dev, cand_cols.data_ptr(),
                    cand_vals.data_ptr(), out_c.data_ptr(), out_v.data_ptr(),
                    counts.data_ptr(), R, K, out_width, sent,

@@ -39,14 +39,21 @@ _ARGTYPES = {
     "spgemm_expand": [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_int,
                                               ctypes.c_void_p],
-    "spgemm_dedup": [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                             ctypes.c_int, ctypes.c_void_p],
+    "spgemm_dedup": [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p],
     "spgemm_dedup_compact": [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
-    "spgemm_dedup_compact_scratch": [ctypes.c_int],
+    "spgemm_merge_scratch": [ctypes.c_int, ctypes.c_int],
 }
-_RESTYPES = {"spgemm_dedup_compact_scratch": ctypes.c_longlong}
+_RESTYPES = {"spgemm_merge_scratch": ctypes.c_longlong}
+
+# The merge's output modes (csrc/spgemm.cu): B5 counting only, B5 in place,
+# B4 compacted.
+COUNT, IN_PLACE, COMPACT = 0, 1, 2
+# The merge's global scratch, where a row's hash table outgrows shared memory
+_SCRATCH_BYTES = 256 << 20
 
 
 @functools.cache
@@ -69,6 +76,17 @@ def launch(symbol: str, device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
     LAUNCHES[symbol] += 1
+
+
+def merge_scratch(R: int, K: int, mode: int, device):
+    """(scratch, warps) for a merge of R rows of K slots in ``mode``:
+    (None, 0) where the warps' tables fit in shared memory, else whole
+    blocks of 8 warps of tables (at most one warp a row) in one buffer."""
+    per_warp = kernel("spgemm_merge_scratch")(K, mode)
+    if not per_warp:
+        return None, 0
+    warps = 8 * max(1, min(-(-R // 8), _SCRATCH_BYTES // (8 * per_warp)))
+    return torch.empty(warps * per_warp, dtype=torch.uint8, device=device), warps
 
 
 def check_candidates(cand_cols, cand_vals, sent: int) -> None:
@@ -123,19 +141,22 @@ def _dedup_plain(cand_cols, cand_vals, sent: int, counts_only: bool = False):
 
 
 def _dedup_cuda(cand_cols, cand_vals, sent: int, counts_only: bool = False):
-    """Launch ``spgemm_dedup`` (B5) on the current stream."""
+    """Launch ``spgemm_dedup`` (B5) on the current stream, with global
+    scratch for the warps' tables where K needs it."""
     if not (cand_cols.is_contiguous() and cand_vals.is_contiguous()):
         raise ValueError("candidate planes must be contiguous")
     R, K = cand_cols.shape
-    counts = torch.empty(R, dtype=torch.int32, device=cand_cols.device)
+    dev = cand_cols.device
+    counts = torch.empty(R, dtype=torch.int32, device=dev)
     out_c = out_v = None
     if not counts_only:
         out_c = torch.empty_like(cand_cols)
         out_v = torch.empty_like(cand_vals)
-    launch("spgemm_dedup", cand_cols.device, cand_cols.data_ptr(),
-           cand_vals.data_ptr(), None if counts_only else out_c.data_ptr(),
+    scratch, warps = merge_scratch(R, K, COUNT if counts_only else IN_PLACE, dev)
+    launch("spgemm_dedup", dev, cand_cols.data_ptr(), cand_vals.data_ptr(),
+           None if counts_only else out_c.data_ptr(),
            None if counts_only else out_v.data_ptr(), counts.data_ptr(), R, K,
-           sent)
+           sent, None if scratch is None else scratch.data_ptr(), warps)
     return counts if counts_only else (out_c, out_v, counts)
 
 

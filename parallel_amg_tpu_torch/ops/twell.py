@@ -6,7 +6,8 @@ class name and module path.  The JAX TWELL is a tile-windowed ELL shaped for
 Mosaic's in-tile gather (128-lane windows, sublane-replicated x, scalar
 prefetched piece tables).  A Hopper thread can load any address, so here the
 layout is plain CSR: int32 ``indptr``, int32 ``indices`` and f32 or bf16
-``vals``, plus the thread-group size G that the kernel gives each row.
+``vals``, plus the kernel's row-block plan (``row_blocks``), built once per
+matrix on its device and kept on the object.
 
 ``TWELL.matvec`` launches the hand-written CUDA kernel ``csrc/twell_spmv.cu``
 on a CUDA tensor (or raises) and runs the plain torch version
@@ -28,14 +29,35 @@ LAUNCHES = 0  # kernel launches made by TWELL.matvec; callers may reset it
 _SYMBOLS = {torch.float32: "twell_spmv_f32", torch.bfloat16: "twell_spmv_bf16"}
 _INT32_LIMIT = 2**31
 
+# The row-block plan.  Rows whose first entries fall in one window of
+# BLOCK_WINDOW entries share a block, at most BLOCK_ROWS of them, and a row
+# of more than LONG_ROW entries is a block of its own.  A block of short rows
+# then holds at most BLOCK_WINDOW − 1 + LONG_ROW ≤ STREAM_CAP entries, the
+# products one thread block of csrc/twell_spmv.cu keeps in shared memory
+# (kCap there); a longer single row takes the kernel's long-row path.
+# BLOCK_WINDOW sits just below 2048, so that a typical block is one round of
+# two 4-entry loads for each of the kernel's 256 threads; BLOCK_ROWS is high
+# enough that on config #2's operators the windows, not the row cap, cut the
+# blocks, so that few blocks are part-filled.
+STREAM_CAP = 4096
+BLOCK_WINDOW = 2016
+LONG_ROW = 2048
+BLOCK_ROWS = 4096
 
-def group_size(mean_row_nnz: float) -> int:
-    """Threads per row: the power of two ≥ the mean row length, at most a
-    warp (32)."""
-    g = 1
-    while g < mean_row_nnz and g < 32:
-        g *= 2
-    return g
+
+def row_blocks(indptr):
+    """(n_blocks + 1,) int32 first row of each block of the kernel's plan,
+    then the row count; torch ops on indptr's device and one host read (the
+    block count, which ``nonzero`` syncs for)."""
+    n_rows = indptr.numel() - 1
+    ptr = indptr.long()
+    start, length = ptr[:-1], ptr[1:] - ptr[:-1]
+    window = torch.div(start, BLOCK_WINDOW, rounding_mode="floor")
+    long_row = length > LONG_ROW
+    first = (torch.arange(n_rows, device=ptr.device) % BLOCK_ROWS == 0) | long_row
+    first[1:] |= (window[1:] != window[:-1]) | long_row[:-1]
+    end = torch.full((1,), n_rows, dtype=torch.long, device=ptr.device)
+    return torch.cat([first.nonzero().flatten(), end]).to(torch.int32)
 
 
 @functools.cache
@@ -43,8 +65,7 @@ def _kernel(symbol: str):
     fn = getattr(_build.load("twell_spmv"), symbol)
     # every pointer and the stream as c_void_p: without argtypes ctypes
     # passes a Python int as a 32-bit C int and cuts the pointer
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -57,20 +78,21 @@ class TWELL:
       indices: (nnz,) int32 column indices, sorted within each row.
       vals: (nnz,) float32 or bfloat16 values.
       shape: (n_rows, n_cols).
-      group: threads per row in the kernel (power of two ≤ 32).
+      blocks: (n_blocks + 1,) int32 row-block plan of the kernel
+        (``row_blocks(indptr)``, built here unless given).
     """
 
-    def __init__(self, indptr, indices, vals, shape, group: int):
+    def __init__(self, indptr, indices, vals, shape, blocks=None):
         self.indptr = indptr
         self.indices = indices
         self.vals = vals
         self.shape = tuple(int(s) for s in shape)
-        self.group = int(group)
+        self.blocks = row_blocks(indptr) if blocks is None else blocks
         self._rows = None  # int64 row id per entry, built on first use
 
     def to(self, device) -> "TWELL":
         return TWELL(self.indptr.to(device), self.indices.to(device),
-                     self.vals.to(device), self.shape, self.group)
+                     self.vals.to(device), self.shape, self.blocks.to(device))
 
     # -- properties -------------------------------------------------------
     @property
@@ -84,6 +106,10 @@ class TWELL:
     @property
     def nnz(self) -> int:
         return int(self.indices.numel())
+
+    @property
+    def n_blocks(self) -> int:
+        return self.blocks.numel() - 1
 
     # -- construction -----------------------------------------------------
     @classmethod
@@ -101,7 +127,6 @@ class TWELL:
             indices=torch.from_numpy(csr.indices.astype(np.int32)),
             vals=torch.from_numpy(np.asarray(csr.data, np.float64)).to(dtype),
             shape=(n_rows, n_cols),
-            group=group_size(csr.nnz / max(n_rows, 1)),
         )
 
     def to_csr(self):
@@ -169,11 +194,13 @@ def _matvec_cuda(A: TWELL, x):
     if A.indptr.dtype != torch.int32 or A.indices.dtype != torch.int32:
         raise TypeError("the kernel takes int32 indptr and indices")
     for name, t in (("indptr", A.indptr), ("indices", A.indices),
-                    ("vals", A.vals), ("x", x)):
+                    ("vals", A.vals), ("blocks", A.blocks), ("x", x)):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
     if A.indptr.numel() != A.n_rows + 1 or A.vals.numel() != A.nnz:
         raise ValueError("indptr/indices/vals do not match the shape")
+    if A.blocks.dtype != torch.int32:
+        raise TypeError("the row-block plan must be int32")
     if A.nnz >= _INT32_LIMIT:
         raise ValueError(f"nnz {A.nnz} does not fit the kernel's int32 indices")
     y = torch.empty(A.n_rows, dtype=torch.float32, device=x.device)
@@ -183,7 +210,7 @@ def _matvec_cuda(A: TWELL, x):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel(_SYMBOLS[A.vals.dtype])(
             A.indptr.data_ptr(), A.indices.data_ptr(), A.vals.data_ptr(),
-            x.data_ptr(), y.data_ptr(), A.n_rows, A.group, stream)
+            x.data_ptr(), y.data_ptr(), A.blocks.data_ptr(), A.n_blocks, stream)
     if err != 0:
         raise RuntimeError(f"twell_spmv launch failed: cudaError {err}")
     LAUNCHES += 1

@@ -266,11 +266,12 @@ def test_cuda_kernels_match_plain(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [1100, 5000])
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 100, 1100, 5000, 9000])
 def test_cuda_merge_wide_rows(K):
-    """K above B5's 512-slot shared-memory stage (its chunked path) and, at
-    5000, above B4's shared-memory table (its global scratch), in all three
-    modes of the merge."""
+    """All three modes of the merge (B5 counting, B5 in place, B4) against
+    their plain versions: around one 32-slot chunk, at config #2's K 100,
+    past 4096 (the in-place and compact tables in global scratch) and past
+    8192 (the count-only table in global scratch too)."""
     dev = _cuda()
     rng = np.random.default_rng(4)
     sent = 300

@@ -54,6 +54,30 @@ def _rs_levels():
     return oracle_setup(A, cfg).levels
 
 
+def _mixed_long_rows():
+    """300 rows of 0–20 entries with three rows longer than the kernel's
+    shared-memory capacity (the long-row path) and one just under it."""
+    rng = np.random.default_rng(5)
+    lengths = rng.integers(0, 21, size=300)
+    lengths[[7, 150, 299]] = [5000, 9000, twell.STREAM_CAP + 1]
+    lengths[200] = twell.LONG_ROW
+    rows = np.repeat(np.arange(300), lengths)
+    cols = np.concatenate([rng.choice(12000, size=n, replace=False) for n in lengths])
+    vals = rng.normal(size=rows.size).astype(np.float32)
+    return sp.csr_matrix((vals, (rows, cols)), shape=(300, 12000))
+
+
+# shapes the plan must cut right besides CASES
+EDGE_CASES = {
+    "zero_rows": lambda: sp.csr_matrix((0, 4)),
+    "one_row": lambda: sp.csr_matrix(([1.0, 2.0, 3.0], ([0, 0, 0], [1, 4, 8])),
+                                     shape=(1, 10)),
+    "empty_rows": lambda: sp.csr_matrix(([1.0, 2.0], ([0, 3], [1, 4])), shape=(5, 6)),
+    "all_empty_5000": lambda: sp.csr_matrix((5000, 3)),
+    "one_entry_rows_5000": lambda: sp.identity(5000, format="csr"),
+    "long_rows_mixed": _mixed_long_rows,
+}
+
 CASES = {
     "random_square": lambda: _random(500, 500, 0.02, 6, diag=True),
     "random_rect": lambda: _random(330, 97, 0.05, 8),
@@ -128,8 +152,37 @@ def test_twell_edge_shapes_and_checks():
         tw.matvec(torch.zeros(6, dtype=torch.float64))
     with pytest.raises(TypeError):
         TWELL.from_csr(CSR.from_scipy(empty_rows), dtype=torch.float64)
-    assert [twell.group_size(m) for m in (0.5, 1, 3, 4, 13, 28, 39)] == \
-        [1, 1, 4, 4, 16, 32, 32]
+    # the plan rides along: from_csr builds it, .to carries it
+    assert tw.blocks.tolist() == [0, 5] and tw.to("cpu").blocks is tw.blocks
+    assert none.blocks.tolist() == [0] and none.n_blocks == 0
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(EDGE_CASES))
+def test_row_blocks_plan(name):
+    m = {**CASES, **EDGE_CASES}[name]().tocsr()
+    tw = TWELL.from_csr(CSR.from_scipy(m))
+    blocks = twell.row_blocks(tw.indptr)
+    assert torch.equal(blocks, tw.blocks) and blocks.dtype == torch.int32
+    first = blocks.long()
+    # every row in exactly one block: block starts rise from 0 to n_rows
+    assert int(first[0]) == 0 and int(first[-1]) == m.shape[0]
+    assert bool((first.diff() > 0).all())
+    ptr = torch.from_numpy(m.indptr.astype(np.int64))
+    nnz, rows = ptr[first[1:]] - ptr[first[:-1]], first.diff()
+    # a block of several rows fits the kernel's shared memory; only a row
+    # longer than LONG_ROW is a block alone, and it may pass the capacity
+    assert bool((nnz[rows > 1] <= twell.STREAM_CAP).all())
+    assert bool((rows <= twell.BLOCK_ROWS).all())
+    lengths = ptr.diff()
+    long_rows = torch.nonzero(lengths > twell.LONG_ROW).flatten()
+    starts = set(first[:-1].tolist())
+    assert all(int(r) in starts and int(r) + 1 in set(first.tolist())
+               for r in long_rows)
+    if name == "long_rows_mixed":
+        assert bool((nnz > twell.STREAM_CAP).any())
+        np.testing.assert_allclose(
+            tw.matvec(torch.ones(m.shape[1])).numpy(), m @ np.ones(m.shape[1]),
+            rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -150,5 +203,27 @@ def test_twell_cuda_kernel_matches_plain(name, dtype):
     assert twell.LAUNCHES == before + 1
     ref = _matvec_plain(tw, x)
     bound = 1e-6 + 1e-5 * _matvec_plain(
-        TWELL(tw.indptr, tw.indices, tw.vals.abs(), tw.shape, tw.group), x.abs())
+        TWELL(tw.indptr, tw.indices, tw.vals.abs(), tw.shape, tw.blocks), x.abs())
     assert bool(((y - ref).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_twell_cuda_long_rows_bit_equal_calls(dtype):
+    """Rows past the kernel's shared-memory capacity (its long-row path)
+    among short ones, against plain; y bit-equal over 20 calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("the TWELL kernel is CUDA C++ and needs a CUDA card")
+    m = _mixed_long_rows()
+    tw = TWELL.from_csr(CSR.from_scipy(m), dtype=dtype).to("cuda")
+    x = torch.from_numpy(
+        np.random.default_rng(6).normal(size=m.shape[1]).astype(np.float32)).cuda()
+    y = tw.matvec(x)
+    ref = _matvec_plain(tw, x)
+    bound = 1e-6 + 1e-5 * _matvec_plain(
+        TWELL(tw.indptr, tw.indices, tw.vals.abs(), tw.shape, tw.blocks), x.abs())
+    torch.cuda.synchronize()
+    assert bool(((y - ref).abs() <= bound).all())
+    for _ in range(20):
+        assert torch.equal(tw.matvec(x).view(torch.int32), y.view(torch.int32))
