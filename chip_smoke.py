@@ -41,8 +41,10 @@
     level-0 R·A and (R·A)·P and level-1 to level-3 R·A, a random
     rectangular product, a case with explicit zeros, empty rows and rows
     over out_width, and a product with K 5120 (the in-place and compact
-    tables in global scratch): kernel, plain and bound times of B5 in both
-    modes and of B3 and B4 (the merges' bound: bytes against one table
+    tables in global scratch; B3 splits its rows into m ranges): B3's
+    tiling per case (rows, m and k a tile, staging bytes, store path), B3
+    torch.equal to its plain version, kernel, plain and bound times of B5
+    in both modes and of B3 and B4 (the merges' bound: bytes against one table
     insert per live candidate, with an all-pairs merge's compares beside
     it), cuSPARSE's time for the product, and B4 held bit-equal to B5's
     in-place merge compacted in slot order.
@@ -138,7 +140,10 @@ KERNELS = {
     "flatdia_spmv": {"source": "parallel_amg_tpu_torch/csrc/flatdia_spmv.cu",
                      "replaces": "parallel_amg_tpu/ops/flatdia.py:193"},
     "spgemm_expand": {"source": SPGEMM_SOURCE,
-                      "replaces": "parallel_amg_tpu/ops/gspgemm.py:305"},
+                      "replaces": "parallel_amg_tpu/ops/gspgemm.py:305",
+                      "design": "row tiles staged in shared memory in slot "
+                                "order, one contiguous run of 16-byte streaming "
+                                "stores per tile and plane"},
     "spgemm_dedup": {"source": SPGEMM_SOURCE,
                      "replaces": "parallel_amg_tpu/ops/pspgemm.py:150",
                      "design": "B4's per-warp hash merge; keys only when counting"},
@@ -1031,6 +1036,9 @@ def main():
     for case, (A, B, cap) in spgemm_cases.items():
         sent = B.n_cols
         R_, K_, Rb = A.n_rows, A.width * B.width, B.n_rows
+        # B3's tile: rows, m and k a tile, m a work item, B's load width,
+        # staging bytes a buffer, and its one store path
+        plan3 = {**gspgemm.expand_plan(A.width, B.width), "store": "st.global.cs"}
         cc, cv = gspgemm.gather_candidates(A, B)
         pc, pv = gspgemm._gather_candidates_plain(A, B)
         torch.cuda.synchronize()
@@ -1068,6 +1076,9 @@ def main():
             "spgemm_expand": (
                 device_ms(lambda: gspgemm.gather_candidates(A, B)),
                 device_ms(lambda: gspgemm._gather_candidates_plain(A, B), **slow),
+                # A's planes read once, B's rows once (they stay in the
+                # 50 MB L2 however often A's entries point at them), the
+                # candidates written once
                 bound_ms(R_ * A.width * 8 + R_ * 4 + Rb * B.width * 8 + Rb * 4
                          + R_ * K_ * 8, R_ * K_), 0.0),
             "spgemm_dedup": (
@@ -1105,7 +1116,8 @@ def main():
                  **({"full_mode_ms": full_ms, "full_mode_bound_ms": full_bound_ms}
                     if name == "spgemm_dedup" else {}),
                  **({"bit_equal_to_b5_compacted": b4_is_b5}
-                    if name == "spgemm_dedup_compact" else {}))
+                    if name == "spgemm_dedup_compact" else {}),
+                 **({"plan": plan3} if name == "spgemm_expand" else {}))
             r = results[name]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if case == "config2_L0_RAP":

@@ -9,6 +9,10 @@
 //   slot planes are replicated over 8 sublanes, and the in-window lane
 //   shuffle does the gather.  A Hopper thread loads any address, so the
 //   kernel reads A's ELL planes and B's rows directly: no plan, no windows.
+//   Here a thread owns one A entry and makes all its products with B's
+//   row, read as one run; a block stages a tile of whole rows in shared
+//   memory in slot order and writes it out as one contiguous run per
+//   plane.
 // - spgemm_dedup (B5): parallel_amg_tpu/ops/pspgemm.py::_dedup_call.
 // - spgemm_dedup_compact (B4): parallel_amg_tpu/ops/gspgemm.py::
 //   _dedup_compact_call.  The TPU kernels compare every pair of slots and
@@ -31,8 +35,15 @@
 // What bounds each kernel on this card:
 // - expand: device-memory bytes.  It reads A's planes once, B's rows (which
 //   stay in the 50 MB L2 at the setup's shapes) and writes R·K·8 bytes of
-//   candidates; one thread per candidate, consecutive threads write
-//   consecutive words.
+//   candidates, 73 % of the bytes at config #2's level-0 (R·A)·P.  So
+//   everything in front of the writes is cut down: A's entry is loaded
+//   once for its Wb products (not once per candidate), B's row in 16-byte
+//   loads where Wb allows, no divide per candidate (one per work item),
+//   and no branch at the store: padding and zero products are staged as
+//   (SENT, 0).  The tile leaves shared memory as one contiguous run per
+//   plane in 16-byte streaming stores, and the block gathers its next tile
+//   into the other buffer (expand_plan and expand_kernel say how a tile is
+//   cut).
 // - merge, every mode: R·K·4 bytes of columns in (R·K·8 with the values
 //   outside count mode) and one table insert or lookup per live candidate:
 //   O(K/32 + duplicates) warp instructions per row, not the O(K·K/32)
@@ -60,12 +71,113 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+// B3 stages a tile's slots of each plane in shared memory: 2,048 slots
+// (16 KB of columns and values) a buffer, two buffers a block (32 KB).
+// kStageWords leaves room for the 0-3 words that shift a tile to its
+// global alignment.
+constexpr int kStageSlots = 2048;
+constexpr int kStageWords = kStageSlots + 4;
+constexpr size_t kStageBytes = 4 * kStageWords * sizeof(int);
+
+// Device ordinals whose resident block count launch_expand remembers.
+constexpr int kMaxDevices = 64;
+
+// B3's tiling, fixed by Wa and Wb.  A tile is a contiguous run of slots of
+// the (R, K) planes: `rows` whole rows (a multiple of 4 where at least 4
+// rows fit, so those tiles start 16-byte-aligned), or, where one row has
+// more than kStageSlots slots, a range of `m_span` values of m of one row
+// (all of A's entries), or, where Wa alone passes kStageSlots, `k_span`
+// entries of one m.  A work item is one A entry (r, k) and up to `m_group`
+// values of m: m_group is the tile's m range, cut into groups only where
+// the tile has fewer entries than the block has threads.  `vec` is the
+// width of B's row loads (4, 2 or 1 words; it divides Wb and m_span).
+struct ExpandPlan {
+  int rows;
+  int m_span;
+  int k_span;
+  int m_group;
+  int vec;
+};
+
+ExpandPlan expand_plan(int wa, int wb) {
+  ExpandPlan p{1, wb, wa, wb, wb % 4 == 0 ? 4 : wb % 2 == 0 ? 2 : 1};
+  const long long K = static_cast<long long>(wa) * wb;
+  if (K <= kStageSlots) {
+    p.rows = static_cast<int>(kStageSlots / K);
+    if (p.rows >= 4) {
+      p.rows -= p.rows % 4;
+    }
+  } else if (wa <= kStageSlots) {
+    p.m_span = kStageSlots / wa;
+    while (p.m_span < p.vec) {
+      p.vec /= 2;
+    }
+    p.m_span -= p.m_span % p.vec;
+  } else {
+    p.m_span = 1;
+    p.k_span = kStageSlots;
+    p.vec = 1;
+  }
+  const int entries = p.rows * p.k_span;
+  const int steps = p.m_span / p.vec;
+  int groups = entries >= kBlock ? 1 : kBlock / entries;
+  groups = groups < steps ? groups : steps;
+  p.m_group = (steps + groups - 1) / groups * p.vec;
+  return p;
+}
+
+// Copy the n words staged at s to g, where s and g agree modulo 16 bytes:
+// the 16-byte-aligned middle by 16-byte streaming stores (st.global.cs)
+// from every thread, the 0-3 words on either side by plain stores.
+__device__ inline void store_run(int* g, const int* s, int n) {
+  const int lead = static_cast<int>((reinterpret_cast<unsigned long long>(g) >> 2) & 3);
+  const int head = min(n, (4 - lead) & 3);
+  const int body = (n - head) & ~3;
+  const int t = threadIdx.x;
+  const auto* src = reinterpret_cast<const int4*>(s + head);
+  auto* dst = reinterpret_cast<int4*>(g + head);
+  for (int i = t; i < body / 4; i += kBlock) {
+    __stcs(dst + i, src[i]);
+  }
+  if (t < head) {
+    g[t] = s[t];
+  } else if (t < n - body) {  // the tail: words head + body + (t - head)
+    g[body + t] = s[body + t];
+  }
+}
+
+// B's row run of V words at b (16-, 8- or 4-byte-aligned), read-only.
+template <int V>
+__device__ inline void load_b(const int* bc, const float* bv, int* c, float* v) {
+  if constexpr (V == 4) {
+    const int4 c4 = __ldg(reinterpret_cast<const int4*>(bc));
+    const float4 v4 = __ldg(reinterpret_cast<const float4*>(bv));
+    c[0] = c4.x, c[1] = c4.y, c[2] = c4.z, c[3] = c4.w;
+    v[0] = v4.x, v[1] = v4.y, v[2] = v4.z, v[3] = v4.w;
+  } else if constexpr (V == 2) {
+    const int2 c2 = __ldg(reinterpret_cast<const int2*>(bc));
+    const float2 v2 = __ldg(reinterpret_cast<const float2*>(bv));
+    c[0] = c2.x, c[1] = c2.y;
+    v[0] = v2.x, v[1] = v2.y;
+  } else {
+    c[0] = __ldg(bc);
+    v[0] = __ldg(bv);
+  }
+}
+
+// Persistent blocks walk the tiles of plan p.  Per tile: every thread
+// gathers its work items into the tile's staging buffer in slot order,
+// then the tile leaves as one contiguous run per plane (store_run); two
+// buffers let one tile's store drain while the next is gathered.
+template <int V>
 __global__ void __launch_bounds__(kBlock)
     expand_kernel(const int* __restrict__ a_cols,
                   const float* __restrict__ a_vals,
@@ -74,33 +186,126 @@ __global__ void __launch_bounds__(kBlock)
                   const float* __restrict__ b_vals,
                   const int* __restrict__ b_nnz, int* __restrict__ out_cols,
                   float* __restrict__ out_vals, long long n_rows, int wa,
-                  int wb, int sent) {
+                  int wb, int sent, ExpandPlan p, long long n_tiles) {
+  extern __shared__ __align__(16) int stage[];  // [buffer][cols, vals][word]
   const long long K = static_cast<long long>(wa) * wb;
-  const long long total = n_rows * K;
-  const long long stride = static_cast<long long>(gridDim.x) * kBlock;
-  for (long long t = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-       t < total; t += stride) {
-    const long long r = t / K;
-    const int s = static_cast<int>(t - r * K);
-    const int m = s / wa;
-    const int k = s - m * wa;
-    int col = sent;
-    float val = 0.f;
-    if (k < a_nnz[r]) {
+  const int k_chunks = (wa + p.k_span - 1) / p.k_span;
+  const int chunks = (wb + p.m_span - 1) / p.m_span * k_chunks;
+  int buf = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    // the tile: rows [r0, r0 + nr), m [m0, m0 + mt), k [k0, k0 + kt)
+    const long long rt = tile / chunks;
+    const int c = static_cast<int>(tile - rt * chunks);
+    const long long r0 = rt * p.rows;
+    const int nr = static_cast<int>(n_rows - r0 < p.rows ? n_rows - r0 : p.rows);
+    const int m0 = c / k_chunks * p.m_span;
+    const int k0 = c % k_chunks * p.k_span;
+    const int mt = min(p.m_span, wb - m0);
+    const int kt = min(p.k_span, wa - k0);
+    const int n = nr * mt * kt;
+    const long long first = r0 * K + static_cast<long long>(m0) * wa + k0;
+    int* gc = out_cols + first;
+    float* gv = out_vals + first;
+    // staged word i sits at the global word's offset modulo 16 bytes
+    int* sc = stage + buf * 2 * kStageWords +
+              static_cast<int>((reinterpret_cast<unsigned long long>(gc) >> 2) & 3);
+    float* sv = reinterpret_cast<float*>(stage + (buf * 2 + 1) * kStageWords) +
+                static_cast<int>((reinterpret_cast<unsigned long long>(gv) >> 2) & 3);
+    const int groups = (mt + p.m_group - 1) / p.m_group;
+    const int items = nr * kt * groups;
+    for (int w = threadIdx.x; w < items; w += kBlock) {
+      const int q = w / kt;
+      const int kl = w - q * kt;
+      const int rl = q / groups;
+      const int ms = (q - rl * groups) * p.m_group;
+      const int me = min(ms + p.m_group, mt);
+      const long long r = r0 + rl;
+      const int k = k0 + kl;
+      // slot (rl, m, kl) of the tile at word m·kt; consecutive threads hold
+      // consecutive k, so they write consecutive words
+      int* dc = sc + rl * mt * kt + kl;
+      float* dv = sv + rl * mt * kt + kl;
+      // the entry and its row length in one round trip (a padding slot of
+      // A's planes is in bounds, and its column is not used)
       const long long ai = r * wa + k;
-      const int c = a_cols[ai];
-      if (m < b_nnz[c]) {
-        const long long bi = static_cast<long long>(c) * wb + m;
-        const float v = a_vals[ai] * b_vals[bi];
-        if (v != 0.f) {
-          col = b_cols[bi];
-          val = v;
+      const int col = __ldg(a_cols + ai);
+      const float av = __ldg(a_vals + ai);
+      if (k >= __ldg(a_nnz + r)) {
+        for (int m = ms; m < me; ++m) {
+          dc[m * kt] = sent;
+          dv[m * kt] = 0.f;
+        }
+        continue;
+      }
+      const int nb = __ldg(b_nnz + col) - m0;
+      const long long bi = static_cast<long long>(col) * wb + m0;
+      for (int m = ms; m < me; m += V) {
+        int bc[V];
+        float bv[V];
+        load_b<V>(b_cols + bi + m, b_vals + bi + m, bc, bv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float v = av * bv[j];
+          const bool ok = m + j < nb && v != 0.f;
+          dc[(m + j) * kt] = ok ? bc[j] : sent;
+          dv[(m + j) * kt] = ok ? v : 0.f;
         }
       }
     }
-    out_cols[t] = col;
-    out_vals[t] = val;
+    __syncthreads();
+    store_run(gc, sc, n);
+    store_run(reinterpret_cast<int*>(gv), reinterpret_cast<const int*>(sv), n);
   }
+}
+
+// Blocks of expand_kernel<V> resident on the current device at once (its
+// SMs times the blocks one SM holds), asked of the runtime on a device's
+// first launch and remembered per device.
+template <int V>
+cudaError_t expand_resident(long long* out) {
+  static std::atomic<long long> cache[kMaxDevices];  // 0: not asked yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) {
+    return e;
+  }
+  if (dev < kMaxDevices && (*out = cache[dev].load(std::memory_order_relaxed)) > 0) {
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, expand_kernel<V>,
+                                                      kBlock, kStageBytes);
+  }
+  if (e != cudaSuccess) {
+    return e;
+  }
+  *out = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (dev < kMaxDevices) {
+    cache[dev].store(*out, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
+template <int V>
+int launch_expand(const int* a_cols, const float* a_vals, const int* a_nnz,
+                  const int* b_cols, const float* b_vals, const int* b_nnz,
+                  int* out_cols, float* out_vals, long long n_rows, int wa,
+                  int wb, int sent, const ExpandPlan& p, cudaStream_t stream) {
+  const long long n_tiles = (n_rows + p.rows - 1) / p.rows *
+                            ((wb + p.m_span - 1) / p.m_span) *
+                            ((wa + p.k_span - 1) / p.k_span);
+  long long resident = 0;
+  const cudaError_t e = expand_resident<V>(&resident);
+  if (e != cudaSuccess) {
+    return static_cast<int>(e);
+  }
+  const auto blocks = static_cast<unsigned>(n_tiles < resident ? n_tiles : resident);
+  expand_kernel<V><<<blocks, kBlock, kStageBytes, stream>>>(
+      a_cols, a_vals, a_nnz, b_cols, b_vals, b_nnz, out_cols, out_vals, n_rows,
+      wa, wb, sent, p, n_tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The merge's output modes.
@@ -387,20 +592,44 @@ extern "C" int spgemm_expand(const void* a_cols, const void* a_vals,
                              const void* b_vals, const void* b_nnz,
                              void* out_cols, void* out_vals, long long n_rows,
                              int wa, int wb, int sent, void* stream) {
-  const long long total = n_rows * wa * wb;
-  if (total <= 0) {
+  if (n_rows <= 0 || wa <= 0 || wb <= 0) {
     return static_cast<int>(cudaSuccess);
   }
-  const long long want = (total + kBlock - 1) / kBlock;
-  const unsigned blocks =
-      static_cast<unsigned>(want < (1LL << 30) ? want : (1LL << 30));
-  expand_kernel<<<blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(a_cols), static_cast<const float*>(a_vals),
-      static_cast<const int*>(a_nnz), static_cast<const int*>(b_cols),
-      static_cast<const float*>(b_vals), static_cast<const int*>(b_nnz),
-      static_cast<int*>(out_cols), static_cast<float*>(out_vals), n_rows, wa,
-      wb, sent);
-  return static_cast<int>(cudaGetLastError());
+  ExpandPlan p = expand_plan(wa, wb);
+  // B's rows are read `vec` words at a time where its planes allow it
+  const auto align = reinterpret_cast<unsigned long long>(b_cols) |
+                     reinterpret_cast<unsigned long long>(b_vals);
+  while (p.vec > 1 && align % (4 * p.vec) != 0) {
+    p.vec /= 2;
+  }
+  const auto cs = static_cast<cudaStream_t>(stream);
+  const auto* ac = static_cast<const int*>(a_cols);
+  const auto* av = static_cast<const float*>(a_vals);
+  const auto* an = static_cast<const int*>(a_nnz);
+  const auto* bc = static_cast<const int*>(b_cols);
+  const auto* bv = static_cast<const float*>(b_vals);
+  const auto* bn = static_cast<const int*>(b_nnz);
+  auto* oc = static_cast<int*>(out_cols);
+  auto* ov = static_cast<float*>(out_vals);
+  if (p.vec == 4) {
+    return launch_expand<4>(ac, av, an, bc, bv, bn, oc, ov, n_rows, wa, wb, sent, p, cs);
+  }
+  if (p.vec == 2) {
+    return launch_expand<2>(ac, av, an, bc, bv, bn, oc, ov, n_rows, wa, wb, sent, p, cs);
+  }
+  return launch_expand<1>(ac, av, an, bc, bv, bn, oc, ov, n_rows, wa, wb, sent, p, cs);
+}
+
+// B3's tiling for Wa and Wb (B's planes 16-byte-aligned): out[0..5] =
+// rows a tile, m and k a tile, m a work item, B's load width in words,
+// staging bytes a buffer (columns and values).
+extern "C" void spgemm_expand_plan(int wa, int wb, long long* out) {
+  const ExpandPlan p = expand_plan(wa > 0 ? wa : 1, wb > 0 ? wb : 1);
+  const long long v[6] = {p.rows, p.m_span, p.k_span, p.m_group, p.vec,
+                          2LL * kStageSlots * 4};
+  for (int i = 0; i < 6; ++i) {
+    out[i] = v[i];
+  }
 }
 
 // Per-warp global scratch in bytes of a merge: mode 0 counts only, 1 in

@@ -15,6 +15,9 @@ three steps over a (R, K) candidate table, K = Wa·Wb:
 The JAX package's ``GatherSpgemmPlan`` and its piece tables re-bucket A by
 128-column window for Mosaic's in-tile gather; a Hopper thread loads any
 address, so the kernel reads A's ELL planes directly and there is no plan.
+Its tiling (``expand_plan``) follows from Wa and Wb alone: a block stages
+whole rows of the candidate planes in shared memory and stores them as one
+contiguous run per plane.
 
 Each wrapper launches its kernel from ``csrc/spgemm.cu`` on a CUDA tensor (or
 raises) and runs its plain torch version on a CPU tensor;
@@ -23,6 +26,8 @@ occurrence; explicit zeros drop.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -71,6 +76,20 @@ def _gather_candidates_cuda(A: ELL, B: ELL):
     pspgemm.launch("spgemm_expand", dev, *(t.data_ptr() for t in planes),
                    cols.data_ptr(), vals.data_ptr(), R, Wa, B.width, B.n_cols)
     return cols, vals
+
+
+_PLAN_KEYS = ("rows_per_tile", "m_per_tile", "k_per_tile", "m_per_item",
+              "b_load_words", "stage_bytes")
+
+
+def expand_plan(Wa: int, Wb: int) -> dict:
+    """B3's tiling for A's width Wa and B's width Wb, as ``spgemm_expand``
+    chooses it (``csrc/spgemm.cu::expand_plan``): rows, m and k a tile, m a
+    work item, B's load width and the staging bytes of a buffer.  Builds the
+    library with nvcc on first use."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    pspgemm.kernel("spgemm_expand_plan")(int(Wa), int(Wb), out)
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def gather_candidates(A: ELL, B: ELL):

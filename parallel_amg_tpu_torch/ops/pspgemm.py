@@ -46,8 +46,10 @@ _ARGTYPES = {
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
     "spgemm_merge_scratch": [ctypes.c_int, ctypes.c_int],
+    "spgemm_expand_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
-_RESTYPES = {"spgemm_merge_scratch": ctypes.c_longlong}
+_RESTYPES = {"spgemm_merge_scratch": ctypes.c_longlong,
+             "spgemm_expand_plan": None}
 
 # The merge's output modes (csrc/spgemm.cu): B5 counting only, B5 in place,
 # B4 compacted.

@@ -9,7 +9,11 @@ products in another order, so it is held to
 |Δ| ≤ 1e-6 + 1e-5·Σ|merged candidates|.  Whole
 products are held against scipy as (column, value) sets at 1e-5.  The CUDA
 cases hold each kernel against its plain version on the card with the same
-bounds.
+bounds.  ``TILING`` holds shapes at the edges of B3's tiling on the card
+(ragged row tiles, K not a multiple of 4, B's rows off 16-byte alignment,
+Wa > 32, tiles off alignment, rows split into m ranges, empty rows and
+zeros): on the CPU the plain version against JAX's kernel, on the card the
+kernel against the plain version, bit for bit.
 """
 
 import functools
@@ -69,6 +73,53 @@ CASES = {
 }
 
 
+def _widths(n_rows, n_cols, width, seed, empty=0.0, zeros=0.0):
+    """A random CSR whose widest row holds exactly ``width`` entries (its ELL
+    width), with a share of empty rows and of stored zeros."""
+    rng = np.random.default_rng(seed)
+    nnz = rng.integers(0, width + 1, size=n_rows)
+    nnz[rng.random(n_rows) < empty] = 0
+    nnz[0] = width
+    cols = [np.sort(rng.choice(n_cols, size=k, replace=False)) for k in nnz]
+    vals = rng.normal(size=int(nnz.sum())).astype(np.float32)
+    vals[rng.random(vals.size) < zeros] = 0.0
+    return sp.csr_matrix((vals, np.concatenate(cols).astype(np.int32),
+                          np.concatenate([[0], np.cumsum(nnz)])),
+                         shape=(n_rows, n_cols))
+
+
+def _tiling_pair(rows, wa, wb, inner=300, seed=0, **extra):
+    """A (rows × inner) of width wa times B (inner × 400) of width wb."""
+    return (_widths(rows, inner, wa, seed, **extra),
+            _widths(inner, 400, wb, seed + 1, **extra))
+
+
+# Shapes at the edges of B3's tiling on the card (csrc/spgemm.cu::
+# expand_plan, 2,048 slots a tile): K = Wa·Wb and the tile each one makes.
+TILING = {
+    # K 24: 84-row tiles, the last one ragged (203 rows, not a multiple of 4)
+    "ragged_rows_K24": lambda: _tiling_pair(203, 6, 4),
+    # K 21 (not a multiple of 4), Wb 3: B's rows not 16-byte-aligned, and
+    # the last tile ends in the middle of a 16-byte word
+    "K21_Wb3": lambda: _tiling_pair(250, 7, 3),
+    # Wb 5: B's rows 20 bytes, read a word at a time
+    "K45_Wb5": lambda: _tiling_pair(150, 9, 5),
+    # Wa 40 > 32: a tile's 480 entries pass the block's 256 threads
+    "Wa40": lambda: _tiling_pair(90, 40, 4),
+    # K 665: 3-row tiles that start off 16-byte alignment
+    "three_row_tiles_K665": lambda: _tiling_pair(31, 35, 19),
+    # K 2,310: one row splits into m ranges of 29 and 4
+    "split_m_K2310": lambda: _tiling_pair(9, 70, 33),
+    # empty rows of A and of B (rows of all SENT) and stored zeros in both
+    "empty_rows_zeros": lambda: _tiling_pair(120, 10, 6, empty=0.4, zeros=0.2),
+}
+# On the card only (its JAX run in interpret mode takes some 40 s on a
+# CPU): Wa 2,100 alone passes a tile, so k splits into ranges of 2,048 and
+# 52 of one m.
+TILING_CUDA = {**TILING,
+               "split_k_Wa2100": lambda: _tiling_pair(3, 2100, 2, inner=2500)}
+
+
 def _jax():
     jnp = pytest.importorskip("jax.numpy")
     from parallel_amg_tpu.ops.csr import CSR as JCSR
@@ -91,9 +142,16 @@ def _merge_bound(cand_c, cand_v, sent):
     return pspgemm._dedup_plain(cand_c, cand_v.abs(), sent)[1]
 
 
-@pytest.mark.parametrize("name", ["rect_AP", "explicit_zeros"])
+# test_expand_matches_jax_gather_candidates: two of CASES and the shapes at
+# the edges of the card's tiling, plain version against the JAX kernel in
+# interpret mode
+EXPAND_CASES = {"rect_AP": CASES["rect_AP"],
+                "explicit_zeros": CASES["explicit_zeros"], **TILING}
+
+
+@pytest.mark.parametrize("name", list(EXPAND_CASES))
 def test_expand_matches_jax_gather_candidates(name):
-    a, b = CASES[name]()
+    a, b = EXPAND_CASES[name]()
     cc, cv = gspgemm.gather_candidates(_ell(a), _ell(b))
     jc, jv = _jax_candidates(a, b)
     assert cc.shape == jc.shape and cc.dtype == torch.int32
@@ -263,6 +321,40 @@ def test_cuda_kernels_match_plain(name):
                                 "spgemm_dedup": before["spgemm_dedup"] + 2,
                                 "spgemm_dedup_compact": before["spgemm_dedup_compact"] + 1}
     _assert_same_sets(gspgemm.gather_spgemm(A, B).to("cpu"), a @ b)
+
+
+# B3's plan per tiling case: (rows, m, k) a tile, m a work item, B's load
+# width in words
+TILING_PLANS = {
+    "ragged_rows_K24": (84, 4, 6, 4, 4),
+    "K21_Wb3": (96, 3, 7, 3, 1),
+    "K45_Wb5": (44, 5, 9, 5, 1),
+    "Wa40": (12, 4, 40, 4, 4),
+    "three_row_tiles_K665": (3, 19, 35, 10, 1),
+    "split_m_K2310": (1, 29, 70, 10, 1),
+    "empty_rows_zeros": (32, 6, 10, 6, 2),
+    "split_k_Wa2100": (1, 1, 2048, 1, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILING_CUDA))
+def test_cuda_expand_tiling_matches_plain(name):
+    """B3 on the card against its plain version, bit for bit, at the edges
+    of its tiling; its plan as csrc/spgemm.cu::expand_plan states it."""
+    dev = _cuda()
+    A, B = (_ell(m).to(dev) for m in TILING_CUDA[name]())
+    plan = gspgemm.expand_plan(A.width, B.width)
+    assert (plan["rows_per_tile"], plan["m_per_tile"], plan["k_per_tile"],
+            plan["m_per_item"], plan["b_load_words"]) == TILING_PLANS[name]
+    before = pspgemm.LAUNCHES["spgemm_expand"]
+    cc, cv = gspgemm.gather_candidates(A, B)
+    pc, pv = gspgemm._gather_candidates_plain(A, B)
+    torch.cuda.synchronize()
+    assert pspgemm.LAUNCHES["spgemm_expand"] == before + 1
+    assert torch.equal(cc, pc) and torch.equal(cv, pv)
+    if name == "empty_rows_zeros":
+        assert bool((cc == B.n_cols).all(1).any())  # rows of all SENT
 
 
 @pytest.mark.cuda
