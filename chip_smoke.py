@@ -104,6 +104,37 @@
 24. c1: each configuration's PCG iterations, level rows and complexities
     beside the JAX package's, one line each (the random draws are the JAX
     package's threefry uniform, ops/prng.py).
+25. mp_rs (after slice): config #2 to a true 1e-8 with amg_pcg_mp (float64
+    CG over the float32 V-cycle, which stays on B1 and B2): iterations
+    against the JAX package's and the float64 oracle's 10, the float64 true
+    residual (≤ 2e-8), solve seconds, B1 and B2 launches, peak memory.
+26. mp_sa3d (after slice3d): config #3 ("mixed") to a true 1e-8, against the
+    JAX package's 16 iterations; its V-cycle launches B2.
+27. bf16 (after mp_sa3d): config #3's and config #2's hierarchies cast to
+    bfloat16 (utils/checkpoint.cast_hierarchy, coarse inverse float32)
+    preconditioning amg_pcg on the float32 fine operator to 1e-6: iterations
+    (config #3 against the JAX package's 13, config #2 within 2 of its
+    float32 count), V-cycle ms in bfloat16 and float32, the bfloat16
+    kernels' launches per cycle, the true residual.
+28. mp_aniso (inside aniso): config #4 to a true 1e-8 against the oracle's
+    iterations (JAX package 9), with the true residual against the exact
+    matrix and against its float32 rounding, which the solve applies.
+29. device_sa (after aniso): torch.argmax takes the first maximum on the
+    card; then algebraic SA set up on the card (``coarsening="sa",
+    aggregate="greedy", on_device_setup=True``) on 2D Poisson 1024² and 512²
+    and 3D Poisson 128³, twice each (bit-equal, the second under
+    torch.profiler for the device ms of B3, B5 and B4): seconds, rows,
+    complexities, the setup's B3/B5/B4 launches; then with_best_formats and
+    amg_pcg to 1e-6: 512² held within 1 of the JAX package's count, 3D to
+    30 iterations, the 2D runs beside the oracle's greedy SA on the same
+    matrix (reported: the reference's aggregation misses that band above
+    32²).
+30. fgmres: convection-diffusion 1024², Péclet 5 and 2.5, host RS setup
+    (Jacobi, extended+i): amg_pcg must not reach 1e-6 in 80 iterations,
+    amg_fgmres(30) must, within 2 restart cycles of scipy's GMRES(30) over
+    the oracle V-cycle, with the true residual below 5e-6.
+31. checkpoint: config #2's hierarchy saved, loaded onto the card and held
+    to a bit-equal V-cycle; file size and seconds.
 
 Every phase prints JSON lines.  Any failure raises, so the script exits
 non-zero without its last line, which on success is
@@ -115,9 +146,11 @@ limit.  It needs no JAX and exits non-zero where torch finds no CUDA card.
 import concurrent.futures
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # |y_kernel − y_plain| ≤ ATOL + RTOL·(|A|·|x|): the two sum the same float32
@@ -189,6 +222,18 @@ CONFIG4_JAX = {"rows": [262_144, 113_363, 49_202, 21_369, 9_301, 2_604, 590,
                         126],
                "grid_complexity": 1.75, "operator_complexity": 2.383,
                "pcg_iters": 7}
+# Iterations to a true 1e-8 (amg_pcg_mp) and with a bfloat16 preconditioner
+# in the JAX package's runs: config #2 (BENCH_r04.json, stage amg_rs2d, equal
+# to the oracle), config #3 to 1e-8 and with bf16 to 1e-6
+# (bench_details.json:43-44), config #4 (bench_details.json:266-268, equal to
+# the oracle).
+MP_ITERS = {"config2": 10, "config3": 16, "config4": 9}
+BF16_ITERS_CONFIG3 = 13
+# The JAX package's on-device algebraic SA at 2D Poisson 512² on the CPU,
+# chip_smoke.py's configuration and b
+# (JAX_PLATFORMS=cpu python3 tests/test_torch_device_sa.py 512).
+DEVICE_SA_512_JAX = {"rows": [262_144, 36_783, 2_217, 154, 11], "pcg_iters": 14,
+                     "oracle_greedy_iters": 8}
 
 
 def emit(phase, **fields):
@@ -302,6 +347,7 @@ def main():
         raise SystemExit("chip_smoke: torch finds no CUDA device")
     import numpy as np
     import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
 
     import parallel_amg_tpu_torch as ptt
     from parallel_amg_tpu_torch.amg import device_rs, device_setup
@@ -328,12 +374,21 @@ def main():
     from parallel_amg_tpu_torch.oracle import oracle_pcg, oracle_setup
     from parallel_amg_tpu_torch.problems import (
         anisotropic2d,
+        convection2d,
         coupled_laplacian,
         coupling_matrix,
         poisson2d,
         poisson3d,
         poisson_stencil,
     )
+    from parallel_amg_tpu_torch.oracle import oracle_vcycle
+    from parallel_amg_tpu_torch.utils import roofline
+    from parallel_amg_tpu_torch.utils.checkpoint import (
+        cast_hierarchy,
+        load_hierarchy,
+        save_hierarchy,
+    )
+    from parallel_amg_tpu_torch.utils.tree import tensors
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -474,8 +529,7 @@ def main():
             y = A.matvec(x)
             ref = _matvec_plain(A, x)
             bound = ATOL + RTOL * _matvec_plain(A_abs, x.abs())
-            n_bytes = ((A.n_rows + 1) * 4 + A.nnz * (4 + A.vals.element_size())
-                       + A.n_cols * 4 + A.n_rows * 4)
+            n_bytes = roofline.spmv_bytes(A)
             b_ms, b_by = bound_ms(n_bytes, 2 * A.nnz)
             lib_ms, lib_err = None, None
             if dtype == torch.float32:
@@ -570,7 +624,7 @@ def main():
             y = flatdia.dia_spmv(W, fd.offsets, x)
             ref = flatdia._matvec_plain(W, fd.offsets, x)
             bound = ATOL + RTOL * flatdia._matvec_plain(W.abs(), fd.offsets, x.abs())
-            n_bytes = fd.n_points * fd.n * W.element_size() + 2 * fd.n * 4
+            n_bytes = roofline.spmv_bytes(FlatDIA(W, fd.offsets, fd.n))
             b_ms, b_by = bound_ms(n_bytes, 2 * fd.n_points * fd.n)
             lib_ms, lib_err = None, None
             if dtype == torch.float32:
@@ -642,6 +696,48 @@ def main():
                              f"oracle {oracle_iters}")
     if min(launches2.values()) <= 0:
         raise AssertionError(f"the config #2 solve skipped a kernel: {launches2}")
+
+    # -- mp_rs: config #2 to a true 1e-8, float64 CG over the float32 cycle -----
+    def mp_solve(hh, b_host, A_exact, label, target, need, oracle=None,
+                 A_applied=None, **extra):
+        """amg_pcg_mp to 1e-8 with its preconditioner's kernel launches; held
+        to the target within 2 (and the oracle within 2), and to a float64
+        true residual ≤ 2e-8 against the matrix the solve applies (A_exact
+        unless A_applied, its float32 rounding, is given)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        reset_counts()
+        t0 = time.perf_counter()
+        r = ptt.amg_pcg_mp(None, hh, b_host, tol=1e-8, maxiter=100)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = spmv_counts()
+        x = r.x.cpu().numpy()
+        true = true_rel_residual(A_exact, b_host, x)
+        applied = true if A_applied is None else true_rel_residual(A_applied, b_host, x)
+        emit(label, pcg_iters=r.iters, converged=r.converged, target_iters=target,
+             oracle_iters=oracle, solve_s=secs, x_dtype=str(r.x.dtype),
+             residual_history=r.residual_history[:r.iters + 1].cpu().tolist(),
+             true_rel_residual=true, true_rel_residual_applied_matrix=applied,
+             launches=counts, fine_format=fmt(hh.levels[0].A),
+             held_before_gb=held_gb,
+             peak_device_gb_solve=torch.cuda.max_memory_allocated() / 1e9, **extra)
+        if not r.converged:
+            raise AssertionError(f"{label}: amg_pcg_mp did not reach 1e-8")
+        if abs(r.iters - target) > 2 or (oracle is not None and abs(r.iters - oracle) > 2):
+            raise AssertionError(f"{label}: {r.iters} iterations, target {target}, "
+                                 f"oracle {oracle}")
+        if not applied <= 2e-8:
+            raise AssertionError(f"{label}: true relative residual {applied} > 2e-8")
+        if min(counts[k] for k in need) <= 0:
+            raise AssertionError(f"{label}: the preconditioner skipped a kernel: {counts}")
+        return r, counts
+
+    _, oracle8_iters, _ = oracle_pcg(A_sp, b_np.astype(np.float64), oh, tol=1e-8)
+    _, launches_mp2 = mp_solve(h, b_np, A_sp, "mp_rs", MP_ITERS["config2"],
+                               ("twell_spmv", "flatdia_spmv"), oracle=int(oracle8_iters),
+                               problem=f"poisson2d({nx})")
     del oh, x_oracle
 
     # C1: each configuration's counts beside the JAX package's, printed last
@@ -697,6 +793,65 @@ def main():
             hm3, hm3.levels[0].A,
             torch.from_numpy(b3_np).to(dev).reshape(hm3.grid_dims)))
     del hm3
+
+    # -- mp_sa3d: config #3 to a true 1e-8 ("mixed") -------------------------------
+    hm3 = ptt.with_spmv_backend(h3, "mixed")
+    _, launches_mp3 = mp_solve(hm3, b3_np, A3_sp, "mp_sa3d", MP_ITERS["config3"],
+                               ("flatdia_spmv",), problem=f"poisson_stencil(({n3},)*3)",
+                               backend="mixed")
+
+    # -- bf16: the float32 fine operator with a bfloat16 hierarchy ---------------
+    def bf16_solve(h32, b_dev, b_host, A_exact, label, target, limit):
+        """amg_pcg to 1e-6 on h32's float32 fine operator, preconditioned by
+        h32 cast to bfloat16; the V-cycle in both precisions."""
+        h16 = cast_hierarchy(h32, torch.bfloat16)
+        value_dtypes = sorted({str(t.dtype) for l in h16.levels
+                               for t in tensors([l.A, l.P, l.R, l.d_inv])
+                               if t.is_floating_point()})
+        zero_ = torch.zeros_like(b_dev)
+        vt16, v16 = wall_ms(lambda: ptt.vcycle(h16, zero_, b_dev))
+        vt32, _ = wall_ms(lambda: ptt.vcycle(h32, zero_, b_dev))
+        reset_counts()
+        ptt.vcycle(h16, zero_, b_dev)
+        torch.cuda.synchronize()
+        per_cycle = spmv_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        r = ptt.amg_pcg(h32.levels[0].A, h16, b_dev, tol=1e-6, maxiter=100)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = spmv_counts()
+        true = true_rel_residual(A_exact, b_host, r.x.cpu().numpy())
+        emit("bf16", problem=label, pcg_iters=r.iters, converged=r.converged,
+             target_iters=target, solve_s=secs, true_rel_residual=true,
+             true_rel_residual_limit=limit, vcycle_ms_bf16_median=statistics.median(vt16),
+             vcycle_ms_f32_median=statistics.median(vt32), vcycle_ms_bf16=vt16,
+             vcycle_ms_f32=vt32, bf16_launches_per_vcycle=per_cycle,
+             launches=counts, level_value_dtypes=value_dtypes,
+             vcycle_dtype=str(v16.dtype), coarse_inv_dtype=str(h16.coarse_inv.dtype))
+        if not r.converged or abs(r.iters - target) > 2:
+            raise AssertionError(f"bf16 {label}: {r.iters} iterations (converged "
+                                 f"{r.converged}), target {target}")
+        if not true <= limit:
+            raise AssertionError(f"bf16 {label}: true residual {true} > {limit}")
+        if (value_dtypes != ["torch.bfloat16"] or v16.dtype != torch.float32
+                or h16.coarse_inv.dtype != torch.float32):
+            raise AssertionError(f"bf16 {label}: level dtypes {value_dtypes}, cycle "
+                                 f"{v16.dtype}, coarse {h16.coarse_inv.dtype}")
+        if sum(per_cycle.values()) <= 0:
+            raise AssertionError(f"bf16 {label}: the bfloat16 V-cycle launched no "
+                                 f"kernel: {per_cycle}")
+        del h16
+        return per_cycle
+
+    b3g = torch.from_numpy(b3_np).to(dev).reshape(hm3.grid_dims)
+    bf16_cycle3 = bf16_solve(hm3, b3g, b3_np, A3_sp, f"poisson_stencil(({n3},)*3) mixed",
+                             BF16_ITERS_CONFIG3, 5e-6)
+    bf16_cycle2 = bf16_solve(h, b, b_np, A_sp, f"poisson2d({nx})", res.iters,
+                             1e-6 + (res.iters + 1) * f32_floor)
+    if bf16_cycle2["twell_spmv"] <= 0 or bf16_cycle2["flatdia_spmv"] <= 0:
+        raise AssertionError(f"config #2 bf16 V-cycle skipped a kernel: {bf16_cycle2}")
+    del hm3, b3g
 
     # -- setup_dist3d: config #3 split into 4 parts on the card -----------------
     cfg3_async = dataclasses.replace(cfg3, halo_mode="pallas_async")
@@ -1295,7 +1450,220 @@ def main():
                                jax_package_rows=CONFIG4_JAX["rows"], complexity=cx4,
                                jax_package_complexity=[CONFIG4_JAX["grid_complexity"],
                                                        CONFIG4_JAX["operator_complexity"]])
-    del h4, h4_fast, oh4, x4_oracle
+
+    # -- mp_aniso: config #4 to a true 1e-8 ----------------------------------------
+    _, oracle4_8, _ = oracle_pcg(A4_sp, b4_np.astype(np.float64), oh4, tol=1e-8)
+    # ε = 1e-3 is not a float32 number: the solve applies the rounded matrix
+    A4_rounded = A4_sp.astype(np.float32).astype(np.float64)
+    _, launches_mp4 = mp_solve(h4_fast, b4_np, A4_sp, "mp_aniso", MP_ITERS["config4"],
+                               ("twell_spmv", "flatdia_spmv"), oracle=int(oracle4_8),
+                               A_applied=A4_rounded,
+                               problem=f"anisotropic2d({na}, epsilon=1e-3)")
+    del h4, h4_fast, oh4, x4_oracle, A4_rounded
+
+    # -- device_sa: algebraic SA set up on the card -----------------------------------
+    cfg_sa = ptt.AMGConfig(coarsening="sa", aggregate="greedy", smoother="chebyshev",
+                           n_coarse_max=64, on_device_setup=True)
+
+    def levels_bit_equal(h1, h2):
+        if h1.n_levels != h2.n_levels:
+            return False
+        for l1, l2 in zip(h1.levels, h2.levels):
+            for M1, M2 in ((l1.A, l2.A), (l1.P, l2.P), (l1.R, l2.R)):
+                if (M1 is None) != (M2 is None):
+                    return False
+                if not all(bits_equal(t1, t2)
+                           for t1, t2 in zip(tensors(M1), tensors(M2))):
+                    return False
+        return True
+
+    def sa_device(A_host, label):
+        """Two setups (the second under torch.profiler), bit-equal; then the
+        solve formats and amg_pcg to 1e-6."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        hs = ptt.setup(A_host, cfg_sa)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = spgemm_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            hs2 = ptt.setup(A_host, cfg_sa)
+            torch.cuda.synchronize()
+            secs2 = time.perf_counter() - t0
+        dev_events = [e for e in prof.events()
+                      if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        by_kernel = {}
+        for e in dev_events:
+            for name in ("expand_kernel", "merge_kernel"):
+                if name in e.name:
+                    by_kernel[name] = by_kernel.get(name, 0.0) + e.device_time_total / 1e3
+        equal = levels_bit_equal(hs, hs2)
+        del hs2
+        gc, oc = hs.complexity()
+        t0 = time.perf_counter()
+        hf = ptt.with_best_formats(hs, device=True)
+        torch.cuda.synchronize()
+        convert = time.perf_counter() - t0
+        A_sp_ = A_host.to_scipy()
+        b_host = np.random.default_rng(0).normal(size=A_sp_.shape[0]).astype(np.float32)
+        reset_counts()
+        t0 = time.perf_counter()
+        r = ptt.amg_pcg(None, hf, torch.from_numpy(b_host).to(dev), tol=1e-6, maxiter=60)
+        torch.cuda.synchronize()
+        solve = time.perf_counter() - t0
+        pcg_counts = spmv_counts()
+        info = dict(problem=label, seconds=secs, second_run_seconds_profiled=secs2,
+                    bit_equal=equal, rows=[l.A.n_rows for l in hs.levels],
+                    grid_complexity=gc, operator_complexity=oc, launches=counts,
+                    spgemm_device_ms=by_kernel,
+                    device_ms_setup=sum(e.device_time_total for e in dev_events) / 1e3,
+                    device_ops_setup=len(dev_events), peak_device_gb=peak,
+                    convert_s=convert, formats=[fmt(l.A) for l in hf.levels],
+                    pcg_iters=r.iters, converged=r.converged, solve_s=solve,
+                    true_rel_residual=true_rel_residual(A_sp_, b_host, r.x.cpu().numpy()),
+                    pcg_launches=pcg_counts)
+        if not equal:
+            raise AssertionError(f"device_sa {label}: the second setup differs")
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"device_sa {label}: the setup skipped a kernel: {counts}")
+        if not r.converged:
+            raise AssertionError(f"device_sa {label}: PCG did not reach 1e-6")
+        if min(pcg_counts.values()) <= 0:
+            raise AssertionError(f"device_sa {label}: the solve skipped a kernel: "
+                                 f"{pcg_counts}")
+        del hs, hf
+        return info, b_host, A_sp_
+
+    # mis_aggregate's attach passes break ties between equal |a_ij| by slot,
+    # as jnp.argmax does: torch.argmax must take the first maximum here too
+    ties = torch.randint(0, 3, (1 << 20, 9), generator=g, device=dev).float()
+    slot = torch.arange(ties.shape[1], device=dev)
+    first = torch.where(ties == ties.amax(1, keepdim=True), slot, ties.shape[1]).amin(1)
+    argmax_first = (torch.equal(ties.argmax(1), first)
+                    and int(torch.zeros((4096, 33), device=dev).argmax(1).max()) == 0)
+    emit("device_sa_argmax", rows=ties.shape[0], first_maximum=argmax_first)
+    if not argmax_first:
+        raise AssertionError("torch.argmax on the card does not take the first maximum")
+    del ties, slot, first
+
+    def sa_band(n_2d):
+        """The 2D device SA at n_2d² beside the oracle's greedy SA on the
+        same matrix and b (``tests/test_device_sa.py``'s band, reported)."""
+        info, b_host, A_host = sa_device(poisson2d(n_2d).to_csr(), f"poisson2d({n_2d})")
+        t0 = time.perf_counter()
+        oh_sa = oracle_setup(A_host, dataclasses.replace(cfg_sa, on_device_setup=False))
+        _, oit, _ = oracle_pcg(A_host, b_host.astype(np.float64), oh_sa, tol=1e-6,
+                               maxiter=60)
+        info.update(oracle_greedy_iters=int(oit),
+                    oracle_rows=[l.A.shape[0] for l in oh_sa.levels],
+                    oracle_seconds=time.perf_counter() - t0,
+                    oracle_band_held=info["pcg_iters"] <= int(oit) + 4)
+        if not (info["grid_complexity"] < 2.0 and info["operator_complexity"] < 3.0):
+            raise AssertionError(f"device_sa {info['problem']} complexities "
+                                 f"{info['grid_complexity']}, {info['operator_complexity']}")
+        return info
+
+    # 1024²: the full size (the JAX package's transpose stops at 2^19 rows, so
+    # it has no count here); the float32 x is held as the slice's solve is
+    info_sa2 = sa_band(nx)
+    limit_sa2 = 1e-6 + (info_sa2["pcg_iters"] + 1) * f32_floor
+    info_sa2["true_rel_residual_limit"] = limit_sa2
+    emit("device_sa", **info_sa2)
+    if not info_sa2["true_rel_residual"] <= limit_sa2:
+        raise AssertionError(f"device_sa 2D true residual {info_sa2['true_rel_residual']}")
+    # 512²: the largest 2D size the JAX package sets up; held to its count
+    info_sa512 = sa_band(512)
+    info_sa512.update(jax_package=DEVICE_SA_512_JAX,
+                      rows_equal_jax_package=info_sa512["rows"] == DEVICE_SA_512_JAX["rows"])
+    emit("device_sa", **info_sa512)
+    if abs(info_sa512["pcg_iters"] - DEVICE_SA_512_JAX["pcg_iters"]) > 1:
+        raise AssertionError(f"device_sa 512² took {info_sa512['pcg_iters']} iterations, "
+                             f"the JAX package {DEVICE_SA_512_JAX['pcg_iters']}")
+    info_sa3, _, _ = sa_device(poisson3d(n3).to_csr(), f"poisson3d({n3})")
+    emit("device_sa", **info_sa3)
+    if info_sa3["pcg_iters"] > 30 or not info_sa3["true_rel_residual"] <= 1e-5:
+        raise AssertionError(f"device_sa 3D took {info_sa3['pcg_iters']} iterations, "
+                             f"true residual {info_sa3['true_rel_residual']}")
+
+    # -- fgmres: nonsymmetric convection-diffusion at 1024² -----------------------------
+    cfg_c = ptt.AMGConfig(coarsening="rs", smoother="jacobi", n_coarse_max=128,
+                          interpolation="extended_i")
+    Ac = convection2d(nx, pe_x=5.0, pe_y=2.5).to_csr()
+    Ac_sp = Ac.to_scipy()
+    t0 = time.perf_counter()
+    hc = ptt.setup(Ac, cfg_c, device=dev)
+    torch.cuda.synchronize()
+    setup_c = time.perf_counter() - t0
+    bc_np = np.random.default_rng(0).normal(size=Ac.n_rows).astype(np.float32)
+    bc = torch.from_numpy(bc_np).to(dev)
+    rcg = ptt.amg_pcg(None, hc, bc, tol=1e-6, maxiter=80)
+    reset_counts()
+    t0 = time.perf_counter()
+    rg = ptt.amg_fgmres(None, hc, bc, tol=1e-6, restart=30, max_restarts=20)
+    torch.cuda.synchronize()
+    solve_c = time.perf_counter() - t0
+    launches_fg = spmv_counts()
+    true_c = true_rel_residual(Ac_sp, bc_np, rg.x.cpu().numpy())
+    # the oracle band: scipy GMRES(30) over the float64 oracle V-cycle
+    t0 = time.perf_counter()
+    oh_c = oracle_setup(Ac_sp, cfg_c)
+    M_c = spla.LinearOperator(
+        Ac_sp.shape, matvec=lambda r_: oracle_vcycle(oh_c, np.zeros_like(r_), r_))
+    inner = {"n": 0}
+
+    def count_inner(_):
+        inner["n"] += 1
+
+    _, info_c = spla.gmres(
+        Ac_sp, bc_np.astype(np.float64), M=M_c, restart=30, maxiter=20, rtol=1e-6,
+        callback=count_inner, callback_type="pr_norm")
+    oracle_cycles = max(inner["n"] // 30 + 1, 1)
+    emit("fgmres", problem=f"convection2d({nx}, pe_x=5.0, pe_y=2.5)",
+         levels=[l.A.n_rows for l in hc.levels], setup_s=setup_c,
+         pcg_iters=rcg.iters, pcg_converged=rcg.converged,
+         restart_cycles=rg.iters, converged=rg.converged, solve_s=solve_c,
+         residual_norm=float(rg.residual_norm), true_rel_residual=true_c,
+         launches=launches_fg, oracle_gmres_info=int(info_c),
+         oracle_inner_iterations=inner["n"], oracle_restart_cycles=oracle_cycles,
+         oracle_seconds=time.perf_counter() - t0)
+    if rcg.converged:
+        raise AssertionError("CG converged on the Péclet-5 nonsymmetric operator")
+    if not rg.converged or not true_c < 5e-6:
+        raise AssertionError(f"amg_fgmres: converged {rg.converged}, true residual {true_c}")
+    if info_c != 0 or rg.iters > oracle_cycles + 2:
+        raise AssertionError(f"amg_fgmres took {rg.iters} cycles, scipy over the oracle "
+                             f"{oracle_cycles} (info {info_c})")
+    if min(launches_fg.values()) <= 0:
+        raise AssertionError(f"the FGMRES solve skipped a kernel: {launches_fg}")
+    del hc, oh_c, M_c, Ac, Ac_sp, rg, rcg
+
+    # -- checkpoint: config #2's hierarchy saved and loaded onto the card ------------
+    build_dir = _build.library_path("twell_spmv").parent
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = os.path.join(tmp, "config2.pt")
+        t0 = time.perf_counter()
+        save_hierarchy(path, h)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h_loaded = load_hierarchy(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    y_orig = ptt.vcycle(h, zero, b)
+    y_loaded = ptt.vcycle(h_loaded, zero, b)
+    ckpt_equal = torch.equal(y_orig.view(torch.int32), y_loaded.view(torch.int32))
+    emit("checkpoint", problem=f"poisson2d({nx})", file_bytes=size, save_s=save_s,
+         load_s=load_s, formats=[fmt(l.A) for l in h_loaded.levels],
+         device=str(h_loaded.coarse_inv.device), vcycle_bit_equal=ckpt_equal)
+    if not ckpt_equal or h_loaded.coarse_inv.device.type != "cuda":
+        raise AssertionError("the loaded hierarchy's V-cycle differs from the original's")
+    del h_loaded, y_orig, y_loaded
 
     # -- setup_vec: config #5 at 128³×3 on the card (BSR fine level) ------------
     n5 = 128
@@ -1376,9 +1744,7 @@ def main():
         return ms_, "csr", "; ".join(errors + ([err] if err else [])) or None
 
     def bsr_bytes(A):
-        n_live = int(A.brow_nnz.long().sum())
-        return (n_live * (4 + A.bs * A.bs * A.vals.element_size()) + A.n_block_rows * 4
-                + A.n_block_cols * A.bs * 4 + A.n_block_rows * A.bs * 4), n_live
+        return roofline.spmv_bytes(A), int(A.brow_nnz.long().sum())
 
     A5 = h5.levels[0].A.bsr
     bsr_cases = {
@@ -1457,7 +1823,7 @@ def main():
                 padded = st._matmat_plain(Xg).reshape(st.n, k)
                 extra_ok = bool(((st.matmat(Xg).reshape(st.n, k) - padded).abs()
                                  <= bound).all())
-            n_bytes = len(offs) * st.n * W.element_size() + 2 * st.n * k * 4
+            n_bytes = roofline.spmv_bytes(FlatDIA(W, offs, st.n), k=k)
             b_ms, b_by = bound_ms(n_bytes, 2 * len(offs) * st.n * k)
             lib_ms, lib_err = None, None
             if dtype == torch.float32:
@@ -1762,7 +2128,17 @@ def main():
                **{f"config5_{k}_pcg": v for k, v in launches_by_format.items()},
                "config5_324^3_bsr_pcg": launches_100m,
                "config3_dist_4parts_pcg": dist3["pallas_async"]["launches"],
-               "dist_468^3_8parts_pcg": launches_468}
+               "dist_468^3_8parts_pcg": launches_468,
+               "config2_mp_1e-8_pcg": launches_mp2,
+               "config3_mp_1e-8_pcg": launches_mp3,
+               "config4_mp_1e-8_pcg": launches_mp4,
+               "config3_bf16_vcycle": bf16_cycle3,
+               "config2_bf16_vcycle": bf16_cycle2,
+               "device_sa_2d_setup": info_sa2["launches"],
+               "device_sa_3d_setup": info_sa3["launches"],
+               "device_sa_2d_pcg": info_sa2["pcg_launches"],
+               "device_sa_3d_pcg": info_sa3["pcg_launches"],
+               "convection_fgmres": launches_fg}
 
     line = []
     for name, meta in KERNELS.items():

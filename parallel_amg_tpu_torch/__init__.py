@@ -5,18 +5,25 @@ Hopper GPU.  Module paths and public names mirror the JAX package; the JAX
 package stays the reference the port is tested against.  This package
 imports torch, numpy and scipy, and never jax.
 
-Ported so far: the host setup (Ruge–Stüben, greedy or block smoothed
+Ported: everything the JAX package does on one device, and its structured
+distributed path.  The host setup (Ruge–Stüben, greedy or block smoothed
 aggregation from the float64 oracle); the structured block-SA setup on the
 device (``amg/device_setup.py``, from ``problems.poisson_stencil``, with the
 dense, bucketed and slab Galerkin products); the Ruge–Stüben setup on the
 device (``amg/device_rs.py``: strength, PMIS, three interpolations, ELL
-transpose and SpGEMM) with ``with_best_formats``; the vector (BSR) setup
+transpose and SpGEMM) and the algebraic SA setup on the device
+(``amg/device_sa.py``: distance-2 MIS aggregation, smoothed tentative P),
+both with ``with_best_formats``; the vector (BSR) setup
 ``setup_vector_kron`` (``amg/vector.py``, from
 ``problems.coupled_laplacian``); the DIA, TWELL, ELL, Stencil, FlatDIA, BSR,
 BTWELL and BlockStencil formats with ``with_spmv_backend``; block and vector
 block transfers; Jacobi and Chebyshev smoothing, V/W-cycles, standalone
-``solve`` and ``amg_pcg``; the distributed structured path (``parallel/``:
-a row mesh of parts, PGrid, ShardedStencil, the host-oracle
+``solve``, ``amg_pcg``, the mixed-precision ``amg_pcg_mp`` (float64 CG over
+a float32 or bfloat16 hierarchy, to a true 1e-8) and ``amg_fgmres`` (flexible
+GMRES, ``krylov/gmres.py``, for the nonsymmetric
+``problems.convection2d``); hierarchy checkpoints and casts, run records,
+profiling and traffic models (``utils/``); the distributed structured path
+(``parallel/``: a row mesh of parts, PGrid, ShardedStencil, the host-oracle
 ``structured_distributed_setup`` and the on-device
 ``sharded_device_setup``).  Eight kernels are hand-written CUDA: TWELL's
 SpMV (``csrc/twell_spmv.cu``), FlatDIA's SpMV, which DIA shares
@@ -43,7 +50,7 @@ from parallel_amg_tpu_torch.amg.hierarchy import (
     with_best_formats,
     with_spmv_backend,
 )
-from parallel_amg_tpu_torch.solver import amg_pcg
+from parallel_amg_tpu_torch.solver import amg_fgmres, amg_pcg, amg_pcg_mp
 from parallel_amg_tpu_torch.ops.pspgemm import PallasSpgemmPlan, pallas_spgemm
 from parallel_amg_tpu_torch.parallel.mesh import make_row_mesh
 from parallel_amg_tpu_torch.parallel.pgrid import PGrid
@@ -71,6 +78,8 @@ __all__ = [
     "solve",
     "Hierarchy",
     "amg_pcg",
+    "amg_pcg_mp",
+    "amg_fgmres",
     "setup_vector_kron",
     "with_best_formats",
     "with_spmv_backend",

@@ -5,10 +5,11 @@ the float64 numpy oracle (``oracle/serial_amg.py``) and freezes each level
 with ``ops/select.py::best_format`` (DIA for banded operators, TWELL for the
 rest), or as a Stencil with block transfers on the structured block-SA path,
 then moves the hierarchy to the caller's device.  The on-device setups live
-in ``amg/device_setup.py`` (structured block SA) and ``amg/device_rs.py``
-(Ruge–Stüben, ELL levels); ``with_best_formats`` turns ELL levels into the
-solve formats and ``with_spmv_backend`` swaps level operators between
-Stencil and FlatDIA after setup.
+in ``amg/device_setup.py`` (structured block SA), ``amg/device_rs.py``
+(Ruge–Stüben) and ``amg/device_sa.py`` (algebraic SA), the last two with ELL
+levels; ``with_best_formats`` turns ELL levels into the solve formats and
+``with_spmv_backend`` swaps level operators between Stencil and FlatDIA
+after setup.
 """
 
 from __future__ import annotations
@@ -221,9 +222,11 @@ def setup(A, config: AMGConfig = AMGConfig(), *, device=None,
     - ``config.on_device_setup=True``: the structured block-SA setup on
       ``device`` (``amg/device_setup.py``), from a Stencil or from a matrix
       with ``dims``; with ``coarsening="rs"`` the Ruge–Stüben setup on
-      ``device`` (``amg/device_rs.py``), whose levels stay ELL until
-      ``with_best_formats``.  The algebraic SA setup on the device is not
-      ported yet and raises ``NotImplementedError``.
+      ``device`` (``amg/device_rs.py``); with ``coarsening="sa"`` and any
+      other aggregation (or no ``dims``) the algebraic SA setup on
+      ``device`` (``amg/device_sa.py``: MIS aggregation, smoothed tentative
+      P).  Levels of the two algebraic setups stay ELL until
+      ``with_best_formats``.
     """
     dev = resolve_device(device)
     if config.on_device_setup:
@@ -247,9 +250,10 @@ def setup(A, config: AMGConfig = AMGConfig(), *, device=None,
 
             return device_rs_setup(A, config, dtype=dtype, seed=seed,
                                    device=dev)
-        raise NotImplementedError(
-            "on-device algebraic smoothed aggregation (ROADMAP A7) is not "
-            "ported yet; the structured block-SA and Ruge-Stüben setups are")
+        # algebraic SA: MIS aggregation and the smoothed tentative P
+        from parallel_amg_tpu_torch.amg.device_sa import device_sa_setup
+
+        return device_sa_setup(A, config, dtype=dtype, seed=seed, device=dev)
     return host_setup(A, config, device=dev, dtype=dtype, seed=seed,
                       dims=dims)
 

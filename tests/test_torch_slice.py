@@ -13,7 +13,6 @@ import subprocess
 import sys
 
 import numpy as np
-import pytest
 import torch
 
 import jax.numpy as jnp
@@ -158,9 +157,10 @@ def test_unported_setups_raise():
     h = ptt.setup(A, ptt.AMGConfig(on_device_setup=True, n_coarse_max=16),
                   device="cpu")
     assert h.n_levels >= 2 and type(h.levels[0].A).__name__ == "ELL"
-    with pytest.raises(NotImplementedError, match="A7"):
-        ptt.setup(A, ptt.AMGConfig(coarsening="sa", on_device_setup=True),
-                  device="cpu")
+    # so is algebraic SA on the device: ELL levels too
+    ha = ptt.setup(A, ptt.AMGConfig(coarsening="sa", on_device_setup=True,
+                                    n_coarse_max=16), device="cpu")
+    assert ha.n_levels >= 2 and type(ha.levels[0].A).__name__ == "ELL"
     # block SA with grid dims: the structured path, on the host and on device
     for on_device in (False, True):
         hb = ptt.setup(A, ptt.AMGConfig(coarsening="sa", aggregate="block",
