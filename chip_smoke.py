@@ -135,6 +135,36 @@
     the oracle V-cycle, with the true residual below 5e-6.
 31. checkpoint: config #2's hierarchy saved, loaded onto the card and held
     to a bit-equal V-cycle; file size and seconds.
+32. pcsr (after checkpoint): config #2's matrix as a PCSR in 8 parts on the
+    card (``make_row_mesh(8)``): ``PCSR.from_csr`` by the g++ builder and
+    by numpy (equal), the ring plan's matvec bit-equal to the dense plan's
+    and held against the one-device B1 matvec, B1 on every part against the
+    plain two-plane sum, ``to_csr`` equal to the input; ms per matvec
+    against the one-device B1's, launches and busy share per matvec, the
+    ghosts and send width per part.
+33. passembly: ``pcsr_from_coo_device`` from the matrix's triplets scattered
+    over the 8 parts: planes and plan equal to ``from_csr``'s;
+    ``repartition`` re-aligned (m + 8 rows a part) and shrunk to 4 parts,
+    each matvec held against the one-device B1's; seconds, peak memory.
+34. psetup_host: ``distributed_setup`` from the oracle (config #2, levels of
+    ≤ 2,048 rows on part 0's device): levels equal to the oracle's, PCG
+    within 1 of the one-device count and the true residual to the slice's
+    limit, B1/B2 launches, V-cycle ms and busy share, ``amg_fgmres`` over
+    the same hierarchy at 1e-6 (2 restart cycles), its true residual held to
+    PCG's limit.
+35. prs_setup: ``distributed_setup`` with ``on_device_setup=True`` (the
+    Ruge–Stüben setup on the card), twice (the second under torch.profiler):
+    bit-equal, rows within 5 % and complexities within 2 % of the JAX
+    package's 8-shard run, PMIS rounds, B3/B5/B4 launches, their per-part
+    product at level 0 held against the plain versions (values too), PCG
+    within 1 of the JAX package's 7, V-cycle ms and launches; 12 W-cycles
+    on these levels and on the one-device RS hierarchy, float64 true
+    residuals a cycle (reported), and a W-cycle ``solve`` of 12 cycles on
+    the same setup with λ_max from 100 power iterations, its true residual
+    held to 1e-6 + 13·floor as PCG's is.
+36. psa_setup: ``distributed_setup`` with algebraic SA on the card at 256²
+    (twice, bit-equal; rows and PCG held to the JAX package's) and 1024²
+    (converged; rows, complexities and the oracle's count reported).
 
 Every phase prints JSON lines.  Any failure raises, so the script exits
 non-zero without its last line, which on success is
@@ -159,6 +189,11 @@ RTOL, ATOL = 1e-5, 1e-6
 # A merged SpGEMM value against the plain version's: the same float32
 # products summed in another order, |dv| ≤ ATOL + RTOL·Σ|merged candidates|.
 SPGEMM_RTOL, SPGEMM_ATOL = 1e-5, 1e-6
+# the standalone W-cycle solve's cap: the cycles a 0.30 rate a cycle needs
+# to reach 1e-6 (0.30**12 = 5.3e-7)
+W_CYCLES = 12
+# FGMRES(30)'s restart cycles on config #2 in 8 parts
+FGMRES_RESTARTS = 2
 # NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor
 # cores (the kernels' products are float32 FMAs).
 PEAK_BYTES_S = 3.35e12
@@ -338,6 +373,468 @@ def profile_cycles(fn, n=5):
             "copies_per_call": len(copies) / n,
             "copy_us_per_call": sum(c.end - c.start for c in copies) / n,
             "copy_overlap_with_b8_interior_us_per_call": overlap / n}
+
+
+# The JAX package's distributed setups in 8 shards on its CPU mesh, run by
+# scripts/bench_distributed.py: config #2 with on_device_setup=True
+# (artifacts/distributed_rs_cpu8.json, nx 1024) and algebraic SA at 256²
+# (`--sizes=256 --sa` on the package as it stands; the artifact's 9,248 /
+# 563 / 29 predate its MIS weights becoming a permutation, and its PCG 12
+# stays).  Level rows, complexities and PCG counts only.
+DIST_RS_JAX8 = {"rows": [1_048_576, 382_317, 79_171, 13_883, 2_065, 287, 42],
+                "complexity": (1.456, 2.397), "pcg_iters": 7}
+DIST_SA256_JAX8 = {"rows": [65_536, 9_211, 568, 25], "pcg_iters": 12}
+PCSR_FIELDS = ("diag_cols", "diag_vals", "off_cols", "off_vals", "send_idx",
+               "recv_map")
+
+
+def profile_run(fn):
+    """(fn(), device kernels, device ms, wall ms and busy share of one call,
+    and the device ms of the port's kernels by CUDA name), from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.device_time_total for e in kernels) / 1e3
+    by_kernel = {}
+    for e in kernels:
+        for name in PORT_KERNEL_NAMES:
+            if name in e.name:
+                by_kernel[name] = by_kernel.get(name, 0.0) + e.device_time_total / 1e3
+    return out, {"device_kernels": len(kernels), "device_ms": dev_ms if kernels else None,
+                 "wall_ms_profiled": wall,
+                 "device_busy_share": dev_ms / wall if kernels and wall else None,
+                 "port_kernel_device_ms": by_kernel}
+
+
+def pcsr_equal(X, Y, fields=PCSR_FIELDS):
+    import torch
+
+    return all(len(getattr(X, f)) == len(getattr(Y, f)) and all(
+        a.shape == b.shape and torch.equal(a, b)
+        for a, b in zip(getattr(X, f), getattr(Y, f))) for f in fields)
+
+
+def hierarchies_equal(h1, h2):
+    """Bit-equality of two PCSR hierarchies: every level's planes, plans,
+    d⁻¹ and λ, and the coarse inverse."""
+    import torch
+
+    if h1.n_levels != h2.n_levels:
+        return False
+    for a, b in zip(h1.levels, h2.levels):
+        if a.lam_max != b.lam_max or not torch.equal(
+                a.d_inv.to_global().view(torch.int32), b.d_inv.to_global().view(torch.int32)):
+            return False
+        for name in ("A", "P", "R"):
+            X, Y = getattr(a, name), getattr(b, name)
+            if (X is None) != (Y is None) or (X is not None and not pcsr_equal(X, Y)):
+                return False
+    return torch.equal(h1.coarse_inv, h2.coarse_inv)
+
+
+def dist_algebraic_phases(c):
+    """The algebraic distributed path, 8 parts on the card: phases pcsr,
+    passembly, psetup_host, prs_setup and psa_setup.  ``c`` carries the
+    script's helpers and config #2 (its matrix, b, config, float32 rounding
+    floor and one-device PCG count).  Returns the launch counts by path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import parallel_amg_tpu_torch as ptt
+    from parallel_amg_tpu_torch import native
+    from parallel_amg_tpu_torch.ops import gspgemm, pspgemm, twell
+    from parallel_amg_tpu_torch.ops.twell import TWELL
+    from parallel_amg_tpu_torch.oracle import oracle_pcg, oracle_setup
+    from parallel_amg_tpu_torch.parallel import prs_setup as prs
+    from parallel_amg_tpu_torch.parallel.pcsr import PCSR
+    from parallel_amg_tpu_torch.problems import poisson2d
+    from parallel_amg_tpu_torch.utils import roofline
+
+    S = 8
+    mesh = c.make_mesh(S)
+    A_csr, A_sp, b_np = c.A_csr, c.A_sp, c.b_np
+    n = A_csr.n_rows
+    label = c.label
+    paths = {}
+
+    def counts():
+        return {**c.spmv_counts(), **dict(pspgemm.LAUNCHES)}
+
+    def true_rel(x_parts, part):
+        x = ptt.to_global(x_parts, part).astype(np.float64)
+        return float(np.linalg.norm(b_np - A_sp @ x) / np.linalg.norm(b_np))
+
+    def hold(ok, msg):
+        if not ok:
+            raise AssertionError(msg)
+
+    def w_history(h, b):
+        """‖b − Ax‖/‖b‖ in float64 after each of W_CYCLES W-cycles from 0, on
+        h's own levels (a PGrid b on a PCSR hierarchy, or a tensor)."""
+        hw = ptt.Hierarchy(h.levels, h.coarse_inv, dataclasses.replace(h.config, cycle="W"))
+        x, out = b.zeros_like() if hasattr(b, "parts") else torch.zeros_like(b), []
+        for _ in range(W_CYCLES):
+            x = ptt.vcycle(hw, x, b)
+            out.append(true_rel(x, h.levels[0].A.row_partition) if hasattr(x, "parts")
+                       else float(np.linalg.norm(b_np - A_sp @ x.double().cpu().numpy())
+                                  / np.linalg.norm(b_np)))
+        return out
+
+    # -- pcsr: PCSR.from_csr (native and numpy), dense and ring plans, B1 ------
+    t0 = time.perf_counter()
+    native.build()
+    gxx_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Ap = PCSR.from_csr(A_csr, mesh)
+    c.sync()
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    An = PCSR.from_csr(A_csr, mesh, native=False)
+    c.sync()
+    numpy_s = time.perf_counter() - t0
+    native_equal_numpy = pcsr_equal(Ap, An)
+    del An
+    Ar = Ap.with_neighbor_plan()
+    x_np = np.random.default_rng(5).normal(size=n).astype(np.float32)
+    x = ptt.pvector(x_np, Ap.col_partition, mesh)
+    y_dense = Ap.matvec(x).to_global()
+    c.reset_counts()
+    y_ring = Ar.matvec(x)
+    c.sync()
+    b1_per_matvec = twell.LAUNCHES
+    ring_bit_equal = torch.equal(y_ring.to_global(), y_dense)
+    tw = TWELL.from_csr(A_csr).to(c.dev)
+    xg = torch.from_numpy(x_np).to(c.dev)
+    y_one = tw.matvec(xg)
+    one_bound = c.ATOL + c.RTOL * TWELL(tw.indptr, tw.indices, tw.vals.abs(), tw.shape,
+                                        tw.blocks).matvec(xg.abs())
+    one_err = float((y_ring.to_global()[:n] - y_one).abs().max())
+    one_ok = bool(((y_ring.to_global()[:n] - y_one).abs() <= one_bound).all())
+    # B1 on every part against the plain two-plane gather-sum
+    g = Ar.ghosts(x)
+    ref = torch.cat([(Ar.diag_vals[p] * x.parts[p][Ar.diag_cols[p].long()]).sum(1)
+                     + (Ar.off_vals[p] * g[p][Ar.off_cols[p].long()]).sum(1)
+                     for p in range(S)])
+    bnd = c.ATOL + c.RTOL * torch.cat(
+        [(Ar.diag_vals[p].abs() * x.parts[p].abs()[Ar.diag_cols[p].long()]).sum(1)
+         + (Ar.off_vals[p].abs() * g[p].abs()[Ar.off_cols[p].long()]).sum(1)
+         for p in range(S)])
+    tws = Ar.twell_parts()
+    n_bytes = sum(roofline.spmv_bytes(t) for t in tws)
+    nnz = sum(t.nnz for t in tws)
+    b_ms, b_by = c.bound_ms(n_bytes, 2 * nnz)
+    ms = c.device_ms(lambda: Ar.matvec(x))
+    ms_dense = c.device_ms(lambda: Ap.matvec(x))
+    ms_one = c.device_ms(lambda: tw.matvec(xg))
+    prof = c.profile(lambda: Ar.matvec(x), 20)
+    err = c.check_kernel("twell_spmv", f"pcsr_{label}_{S}parts", torch.float32,
+                         y_ring.to_global(), ref, bnd, dict(
+                             parts=S, nnz=nnz, launches_per_matvec=b1_per_matvec,
+                             ms_per_matvec=ms, bound_ms=b_ms, bound_by=b_by))
+    c.results["twell_spmv"]["max_abs_err"] = max(c.results["twell_spmv"]["max_abs_err"], err)
+    B = Ap.to_csr()
+    to_csr_equal = (np.array_equal(B.indptr, A_csr.indptr)
+                    and np.array_equal(B.indices, A_csr.indices)
+                    and np.array_equal(B.data, A_csr.data.astype(np.float32)))
+    C = Ap.C
+    ghosts = [int((r < S * C).sum()) for r in Ap.recv_map]
+    c.emit("pcsr", problem=label, parts=S, rows_per_part=Ap.row_partition.rows_per_shard,
+           gxx_build_s=gxx_s, build_s_native=native_s, build_s_numpy=numpy_s,
+           native_equal_numpy=native_equal_numpy, G=Ap.G, C=C, ghosts_per_part=ghosts,
+           ring_offsets=list(Ar.nb_offsets), ring_bit_equal_dense=ring_bit_equal,
+           vs_one_device_b1_max_abs_err=one_err, vs_one_device_ok=one_ok,
+           to_csr_equal=to_csr_equal, b1_launches_per_matvec=b1_per_matvec,
+           ms_per_matvec_ring=ms, ms_per_matvec_dense=ms_dense,
+           one_device_b1_ms=ms_one, bound_ms=b_ms, bound_by=b_by, **prof)
+    hold(native_equal_numpy and ring_bit_equal and one_ok and to_csr_equal
+         and b1_per_matvec == S,
+         "pcsr: a hold failed (see the pcsr line)")
+
+    # -- passembly: pcsr_from_coo_device from scrambled triplets, repartition --
+    coo = A_sp.tocoo()
+    which = np.random.default_rng(1).integers(0, S, size=coo.nnz)
+    order = np.argsort(which, kind="stable")
+    per = np.bincount(which, minlength=S)
+    T = int(per.max())
+    starts = np.concatenate([[0], np.cumsum(per)])
+    rows = np.full((S, T), -1, np.int64)
+    cols = np.zeros((S, T), np.int64)
+    vals = np.zeros((S, T), np.float64)
+    for s in range(S):
+        sel = order[starts[s]:starts[s + 1]]
+        rows[s, :per[s]], cols[s, :per[s]], vals[s, :per[s]] = (
+            coo.row[sel], coo.col[sel], coo.data[sel])
+    c.sync()
+    c.reset_peak()
+    t0 = time.perf_counter()
+    Ad = ptt.pcsr_from_coo_device(rows, cols, vals, A_sp.shape, mesh,
+                                  ell_width=Ap.diag_cols[0].shape[1],
+                                  off_width=Ap.off_cols[0].shape[1],
+                                  ghost_capacity=4 * Ap.G)
+    c.sync()
+    asm_s = time.perf_counter() - t0
+    asm_peak = c.peak_gb()
+    asm_equal = pcsr_equal(Ad, Ap)
+    m = Ad.row_partition.rows_per_shard
+    t0 = time.perf_counter()
+    Are = Ad.repartition(mesh, rows_per_shard=m + 8)
+    c.sync()
+    realign_s = time.perf_counter() - t0
+    mesh4 = c.make_mesh(4)
+    t0 = time.perf_counter()
+    As4 = Ad.repartition(mesh4)
+    c.sync()
+    shrink_s = time.perf_counter() - t0
+    errs = {}
+    for name, M in (("assembled", Ad), ("realigned", Are), ("shrunk_4parts", As4)):
+        y = M.matvec(ptt.pvector(x_np, M.col_partition, M.mesh)).to_global()[:n]
+        d = (y - y_one).abs()
+        errs[name] = (float(d.max()), bool((d <= one_bound).all()))
+    c.emit("passembly", problem=label, parts=S, triplets_per_part=per.tolist(),
+           seconds=asm_s, peak_device_gb=asm_peak, planes_and_plan_equal_from_csr=asm_equal,
+           realign_rows_per_part=m + 8, realign_s=realign_s, shrink_to=4,
+           shrink_s=shrink_s, matvec_max_abs_err_vs_one_device={k: v[0] for k, v in errs.items()})
+    hold(asm_equal and all(v[1] for v in errs.values()),
+         "passembly: a hold failed (see the passembly line)")
+    del Ad, Are, As4, rows, cols, vals
+
+    # -- psetup_host: distributed_setup from the oracle, PCG, FGMRES -----------
+    t0 = time.perf_counter()
+    hd = ptt.distributed_setup(A_sp, c.cfg, mesh)
+    c.sync()
+    host_s = time.perf_counter() - t0
+    part = hd.levels[0].A.row_partition
+    b = ptt.pvector(b_np, part, mesh)
+    rows_host = [l.n for l in hd.levels]
+    vt, _ = c.wall_ms(lambda: ptt.vcycle(hd, b.zeros_like(), b))
+    c.reset_counts()
+    t0 = time.perf_counter()
+    r = ptt.amg_pcg(None, hd, b, tol=1e-6, maxiter=100)
+    c.sync()
+    solve_s = time.perf_counter() - t0
+    paths["dist_config2_8parts_host_pcg"] = launches = counts()
+    tr = true_rel(r.x, part)
+    limit = 1e-6 + (r.iters + 1) * c.f32_floor
+    prof = c.profile(lambda: ptt.vcycle(hd, b.zeros_like(), b), 5)
+    # FGMRES is held as PCG is: tol 1e-6, and the true residual within the
+    # limit above.  Its own stopping test reads the float32 residual b − Ax
+    # at each restart, which cannot fall below x's float32 rounding floor
+    # (above 1e-6 at 1024²), so there it runs all its restart cycles
+    t0 = time.perf_counter()
+    rf = ptt.amg_fgmres(None, hd, b, tol=1e-6, restart=30, max_restarts=FGMRES_RESTARTS)
+    c.sync()
+    fg_s = time.perf_counter() - t0
+    fg_tr = true_rel(rf.x, part)
+    c.emit("psetup_host", problem=label, parts=S, setup_s=host_s, rows=rows_host,
+           oracle_rows=c.oracle_rows,
+           formats=[type(l.A).__name__ for l in hd.levels],
+           vcycle_ms_median=statistics.median(vt), vcycle_ms=vt, pcg_iters=r.iters,
+           one_device_iters=c.one_device_iters, converged=r.converged, solve_s=solve_s,
+           true_rel_residual=tr, true_rel_residual_limit=limit, launches=launches,
+           fgmres_tol=1e-6, fgmres_restart_cycles=rf.iters,
+           fgmres_converged_float32=rf.converged,
+           fgmres_float32_rel_residual=float(rf.residual_norm / b.norm()),
+           fgmres_true_rel_residual=fg_tr, fgmres_s=fg_s, **prof)
+    hold(rows_host == c.oracle_rows and r.converged
+         and abs(r.iters - c.one_device_iters) <= 1 and tr <= limit
+         and launches["twell_spmv"] > 0 and fg_tr <= limit,
+         "psetup_host: a hold failed (see the psetup_host line)")
+    del hd, r, rf
+
+    # -- prs_setup: distributed_rs_setup on the card, twice --------------------
+    cfg_rs = dataclasses.replace(c.cfg, on_device_setup=True)
+    c.sync()
+    c.reset_peak()
+    c.reset_counts()
+    t0 = time.perf_counter()
+    h1 = ptt.distributed_setup(Ap, cfg_rs, mesh)
+    c.sync()
+    rs_s = time.perf_counter() - t0
+    paths["dist_config2_8parts_rs_setup"] = setup_launches = counts()
+    rs_peak = c.peak_gb()
+    h2, prof_setup = c.profile_run(lambda: ptt.distributed_setup(Ap, cfg_rs, mesh))
+    bit_equal = hierarchies_equal(h1, h2)
+    del h2
+    rows_rs = [l.n for l in h1.levels]
+    cx = h1.complexity()
+    stats = h1.setup_stats
+    # B3, B5 and B4 on level 0's per-part R·A against their plain versions:
+    # B3's candidates bit-equal, B5's counts equal, and B4's merged columns
+    # and counts equal with each value within SPGEMM_ATOL + SPGEMM_RTOL·Σ|the
+    # candidates it merges|, as the kernel phase holds config2_L0_RAP
+    R0 = h1.levels[0].R
+    sent = int(Ap.col_partition.n_padded)
+    bc, bv = prs._pcsr_global_cols(Ap, sent)
+    gbc, gbv = prs._fetch_rows(R0, bc, bv, sent)
+    prod_err, prod_err_over_bound, prod_same_cols = 0.0, 0.0, True
+    for p in range(S):
+        Ao, Bo = prs.part_product_operands(R0, p, bc[p], bv[p], gbc[p], gbv[p], sent)
+        cc, cv = prs.part_candidates(Ao, Bo)
+        pc, pv = prs.part_candidates(Ao, Bo, plain=True)
+        merged = pspgemm._dedup_plain(pc, pv, sent, counts_only=True)
+        w = max(int(merged.max()), 1)
+        got = prs.part_product(Ao, Bo)
+        want = gspgemm._dedup_compact_plain(pc, pv, sent, w)
+        bound = SPGEMM_ATOL + SPGEMM_RTOL * gspgemm._dedup_compact_plain(
+            pc, pv.abs(), sent, w)[1]
+        d = (got.vals - want[1]).abs()
+        prod_same_cols &= (torch.equal(cc, pc) and torch.equal(cv, pv)
+                           and torch.equal(pspgemm.dedup(cc, cv, sent, counts_only=True),
+                                           merged)
+                           and got.width == w and torch.equal(got.cols, want[0])
+                           and torch.equal(got.row_nnz, want[2]))
+        prod_err = max(prod_err, float(d.max()))
+        prod_err_over_bound = max(prod_err_over_bound, float((d / bound).max()))
+        del cc, cv, pc, pv, got, want, bound, d
+    for k in ("spgemm_expand", "spgemm_dedup", "spgemm_dedup_compact"):
+        c.results[k]["max_abs_err"] = max(c.results[k]["max_abs_err"], prod_err)
+    hold(prod_same_cols and prod_err_over_bound <= 1.0,
+         f"prs_setup: level 0's per-part R·A disagrees with the plain B3 + B5 + B4 "
+         f"(columns and counts equal {prod_same_cols}, |dv| {prod_err}, "
+         f"{prod_err_over_bound} of its bound)")
+    b = ptt.pvector(b_np, h1.levels[0].A.row_partition, mesh)
+    vt, _ = c.wall_ms(lambda: ptt.vcycle(h1, b.zeros_like(), b))
+    c.reset_counts()
+    ptt.vcycle(h1, b.zeros_like(), b)
+    c.sync()
+    cycle_launches = counts()
+    c.reset_counts()
+    t0 = time.perf_counter()
+    r = ptt.amg_pcg(None, h1, b, tol=1e-6, maxiter=100)
+    c.sync()
+    solve_s = time.perf_counter() - t0
+    paths["dist_config2_8parts_rs_pcg"] = pcg_launches = counts()
+    tr = true_rel(r.x, h1.levels[0].A.row_partition)
+    limit = 1e-6 + (r.iters + 1) * c.f32_floor
+    # The standalone W-cycle.  On these levels it slows from 0.30 a cycle to
+    # 0.7–0.85 from about 6e-4 on, as the one-device hierarchy's does and
+    # the float64 oracle's: 15 power iterations put level 1's λ_max(D⁻¹A)
+    # below its true value even with the 1.1 factor, so Chebyshev amplifies
+    # that level's top modes, and a W-cycle visits the level twice.  Both
+    # are reported, cycle by cycle, as float64 true residuals; the held
+    # solve is the same setup with λ_max from 100 power iterations, capped
+    # at the cycles a 0.30 rate needs to 1e-6 and held as PCG is
+    w_main = w_history(h1, b)
+    w_one = w_history(c.one_device_rs, torch.from_numpy(b_np).float().to(c.dev))
+    lam_main = [l.lam_max for l in h1.levels]
+    del h1
+    cfg_w = dataclasses.replace(cfg_rs, cycle="W", lambda_power_iters=100)
+    hw = ptt.distributed_setup(Ap, cfg_w, mesh)
+    bw = ptt.pvector(b_np, hw.levels[0].A.row_partition, mesh)
+    t0 = time.perf_counter()
+    x_w, hist_w, k_w = ptt.solve(hw, bw, tol=1e-6, maxiter=W_CYCLES)
+    c.sync()
+    w_s = time.perf_counter() - t0
+    w_tr = true_rel(x_w, hw.levels[0].A.row_partition)
+    w_limit = 1e-6 + (k_w + 1) * c.f32_floor
+    c.emit("prs_setup", problem=label, parts=S, setup_s=rs_s,
+           second_setup_profiled=prof_setup, bit_equal=bit_equal, rows=rows_rs,
+           jax_package_8_shards=DIST_RS_JAX8, grid_complexity=cx[0],
+           operator_complexity=cx[1], pmis_rounds=[l.get("pmis_rounds") for l in stats["levels"]],
+           products=[l.get("products") for l in stats["levels"]],
+           phase_seconds=stats["seconds"], launches=setup_launches,
+           peak_device_gb=rs_peak, part_products_level0_RA_same_cols=prod_same_cols,
+           part_products_level0_RA_max_abs_err=prod_err,
+           part_products_level0_RA_max_err_over_bound=prod_err_over_bound,
+           part_products_level0_RA_tolerance=(
+               f"B3 bit-equal, B5 counts and B4 columns equal, |dv| <= {SPGEMM_ATOL} + "
+               f"{SPGEMM_RTOL}*sum|merged|"),
+           vcycle_ms_median=statistics.median(vt), vcycle_ms=vt,
+           vcycle_launches=cycle_launches, pcg_iters=r.iters, converged=r.converged,
+           solve_s=solve_s, true_rel_residual=tr, true_rel_residual_limit=limit,
+           pcg_launches=pcg_launches,
+           wcycle_true_rel_residual_by_cycle=w_main, lam_max=lam_main,
+           wcycle_one_device_rs_true_rel_residual_by_cycle=w_one,
+           wcycle_lam_max=[l.lam_max for l in hw.levels],
+           wcycle_lambda_power_iters=cfg_w.lambda_power_iters,
+           wcycle_solve_cycles=k_w,
+           wcycle_float32_rel_residual_by_cycle=(hist_w[:k_w] / bw.norm()).cpu().tolist(),
+           wcycle_true_rel_residual=w_tr, wcycle_true_rel_residual_limit=w_limit,
+           wcycle_solve_s=w_s)
+    hold(len(rows_rs) == len(DIST_RS_JAX8["rows"]) and all(
+        abs(a / b_ - 1) <= 0.05 for a, b_ in zip(rows_rs, DIST_RS_JAX8["rows"])),
+        f"prs_setup rows {rows_rs}, the JAX package's {DIST_RS_JAX8['rows']}")
+    hold(all(abs(a / b_ - 1) <= 0.02 for a, b_ in zip(cx, DIST_RS_JAX8["complexity"])),
+         f"prs_setup complexities {cx}, the JAX package's {DIST_RS_JAX8['complexity']}")
+    hold(abs(r.iters - DIST_RS_JAX8["pcg_iters"]) <= 1,
+         f"prs_setup PCG {r.iters}, the JAX package's {DIST_RS_JAX8['pcg_iters']}")
+    launched = (min(setup_launches[k] for k in ("twell_spmv", *pspgemm.LAUNCHES)) > 0
+                and pcg_launches["twell_spmv"] > 0)
+    hold(bit_equal and r.converged and tr <= limit and w_tr <= w_limit
+         and launched,
+         "prs_setup: a hold failed (see the prs_setup line)")
+    del hw, r, R0, bc, bv, gbc, gbv, x_w
+
+    # -- psa_setup: distributed_sa_setup at 256² and 1024² ---------------------
+    cfg_sa = ptt.AMGConfig(coarsening="sa", smoother="chebyshev", n_coarse_max=256,
+                           on_device_setup=True, coarse_drop_tol=0.0)
+    out = {}
+    for nx_sa in c.sa_sizes:
+        A_h = poisson2d(nx_sa).to_csr()
+        A_s = A_h.to_scipy()
+        bs_np = np.random.default_rng(0).normal(size=A_h.n_rows)
+        c.sync()
+        c.reset_peak()
+        c.reset_counts()
+        t0 = time.perf_counter()
+        hs = ptt.distributed_setup(A_h, cfg_sa, mesh)
+        c.sync()
+        secs = time.perf_counter() - t0
+        s_launch = counts()
+        peak = c.peak_gb()
+        first = nx_sa == c.sa_sizes[0]
+        equal = None
+        if first:
+            equal = hierarchies_equal(hs, ptt.distributed_setup(A_h, cfg_sa, mesh))
+        bs = ptt.pvector(bs_np, hs.levels[0].A.row_partition, mesh)
+        c.reset_counts()
+        t0 = time.perf_counter()
+        r = ptt.amg_pcg(None, hs, bs, tol=1e-6, maxiter=60)
+        c.sync()
+        solve_s = time.perf_counter() - t0
+        p_launch = counts()
+        x = ptt.to_global(r.x, hs.levels[0].A.row_partition).astype(np.float64)
+        tr = float(np.linalg.norm(bs_np - A_s @ x) / np.linalg.norm(bs_np))
+        oracle_iters = None
+        if not first:
+            oh = oracle_setup(A_s, cfg_sa)
+            _, oracle_iters, _ = oracle_pcg(A_s, bs_np, oh, tol=1e-6, maxiter=100)
+            oracle_iters = int(oracle_iters)
+        rows_sa = [l.n for l in hs.levels]
+        out[nx_sa] = dict(setup_s=secs, rows=rows_sa, complexity=hs.complexity(),
+                          mis_rounds=[l.get("mis_rounds") for l in hs.setup_stats["levels"]],
+                          products=[l.get("products") for l in hs.setup_stats["levels"]],
+                          phase_seconds=hs.setup_stats["seconds"], bit_equal=equal,
+                          launches=s_launch, peak_device_gb=peak, pcg_iters=r.iters,
+                          converged=r.converged, solve_s=solve_s, true_rel_residual=tr,
+                          pcg_launches=p_launch, oracle_iters=oracle_iters)
+        if first:
+            paths[f"dist_sa_{nx_sa}_8parts_setup"] = s_launch
+            paths[f"dist_sa_{nx_sa}_8parts_pcg"] = p_launch
+        launched = (min(s_launch[k] for k in ("twell_spmv", *pspgemm.LAUNCHES)) > 0
+                    and p_launch["twell_spmv"] > 0)
+        hold(r.converged and launched and equal in (None, True),
+             f"psa_setup {nx_sa}²: a hold failed: {out[nx_sa]}")
+        del hs, r
+    c.emit("psa_setup", parts=S, config="sa chebyshev n_coarse_max=256 coarse_drop_tol=0",
+           jax_package_8_shards_256=DIST_SA256_JAX8, **{f"poisson2d_{k}": v for k, v in out.items()})
+    o = out[c.sa_sizes[0]]
+    hold(o["rows"] == DIST_SA256_JAX8["rows"]
+         and abs(o["pcg_iters"] - DIST_SA256_JAX8["pcg_iters"]) <= 1,
+         f"psa_setup 256²: rows {o['rows']}, PCG {o['pcg_iters']}")
+    del Ap, Ar, tw
+    return paths
 
 
 def main():
@@ -738,6 +1235,7 @@ def main():
     _, launches_mp2 = mp_solve(h, b_np, A_sp, "mp_rs", MP_ITERS["config2"],
                                ("twell_spmv", "flatdia_spmv"), oracle=int(oracle8_iters),
                                problem=f"poisson2d({nx})")
+    oracle_rows = [int(l.A.shape[0]) for l in oh.levels]
     del oh, x_oracle
 
     # C1: each configuration's counts beside the JAX package's, printed last
@@ -1665,6 +2163,22 @@ def main():
         raise AssertionError("the loaded hierarchy's V-cycle differs from the original's")
     del h_loaded, y_orig, y_loaded
 
+    # -- pcsr, passembly, psetup_host, prs_setup, psa_setup: the algebraic
+    # distributed path, config #2 in 8 parts on the card ------------------------
+    import types
+
+    dist_paths = dist_algebraic_phases(types.SimpleNamespace(
+        make_mesh=ptt.make_row_mesh, dev=dev, label=f"poisson2d({nx})",
+        A_csr=A_csr, A_sp=A_sp, b_np=b_np, cfg=cfg, f32_floor=f32_floor,
+        one_device_iters=res.iters, oracle_rows=oracle_rows, one_device_rs=h_fast,
+        sa_sizes=(256, 1024), emit=emit, sync=torch.cuda.synchronize,
+        reset_peak=torch.cuda.reset_peak_memory_stats,
+        peak_gb=lambda: torch.cuda.max_memory_allocated() / 1e9,
+        reset_counts=reset_counts, spmv_counts=spmv_counts, device_ms=device_ms,
+        wall_ms=wall_ms, bound_ms=bound_ms, profile=profile_cycles,
+        profile_run=profile_run, check_kernel=check_kernel, results=results,
+        ATOL=ATOL, RTOL=RTOL))
+
     # -- setup_vec: config #5 at 128³×3 on the card (BSR fine level) ------------
     n5 = 128
     C5 = coupling_matrix(3, 0.3)
@@ -2138,7 +2652,8 @@ def main():
                "device_sa_3d_setup": info_sa3["launches"],
                "device_sa_2d_pcg": info_sa2["pcg_launches"],
                "device_sa_3d_pcg": info_sa3["pcg_launches"],
-               "convection_fgmres": launches_fg}
+               "convection_fgmres": launches_fg,
+               **dist_paths}
 
     line = []
     for name, meta in KERNELS.items():

@@ -5,8 +5,8 @@ Hopper GPU.  Module paths and public names mirror the JAX package; the JAX
 package stays the reference the port is tested against.  This package
 imports torch, numpy and scipy, and never jax.
 
-Ported: everything the JAX package does on one device, and its structured
-distributed path.  The host setup (Ruge–Stüben, greedy or block smoothed
+Ported: everything the JAX package does on one device, its structured
+distributed path and its algebraic distributed path in one process.  The host setup (Ruge–Stüben, greedy or block smoothed
 aggregation from the float64 oracle); the structured block-SA setup on the
 device (``amg/device_setup.py``, from ``problems.poisson_stencil``, with the
 dense, bucketed and slab Galerkin products); the Ruge–Stüben setup on the
@@ -25,14 +25,21 @@ GMRES, ``krylov/gmres.py``, for the nonsymmetric
 profiling and traffic models (``utils/``); the distributed structured path
 (``parallel/``: a row mesh of parts, PGrid, ShardedStencil, the host-oracle
 ``structured_distributed_setup`` and the on-device
-``sharded_device_setup``).  Eight kernels are hand-written CUDA: TWELL's
+``sharded_device_setup``); the algebraic distributed path (``parallel/``:
+the row-partitioned PCSR with its dense and ring halo plans, built by the
+g++ builder of ``native/`` or assembled from triplets on the parts' devices
+by ``pcsr_from_coo_device``, ``pvector``, the host-oracle
+``distributed_setup`` and the on-device ``distributed_rs_setup`` and
+``distributed_sa_setup``, with ``amg_pcg``, ``solve`` and ``amg_fgmres``
+over its PGrid vectors).  Eight kernels are hand-written CUDA: TWELL's
 SpMV (``csrc/twell_spmv.cu``), FlatDIA's SpMV, which DIA shares
 (``csrc/flatdia_spmv.cu``), the setup SpGEMM's expand, merge and
 merge-and-compact steps (``csrc/spgemm.cu``), the block SpMV of BSR and
 BTWELL (``csrc/bsr_spmv.cu``) and the multi-RHS flattened-diagonal product
 behind ``Stencil.matmat`` (``csrc/flatdia_spmm.cu``) and the overlapped halo
 stencil matvec of ``ShardedStencil`` (``csrc/halo_stencil.cu``);
-``pallas_spgemm`` runs on the SpGEMM's three.  Entry points that make
+``pallas_spgemm`` runs on the SpGEMM's three, and so do the per-part
+products of the distributed setups; ``PCSR.matvec`` runs on TWELL's.  Entry points that make
 tensors run on the CUDA card unless the caller passes ``device="cpu"``
 (``make_row_mesh(n, device="cpu")`` for the distributed path).
 """
@@ -65,6 +72,12 @@ from parallel_amg_tpu_torch.parallel.pdevice_setup import (
     poisson_stencil_sharded,
     sharded_device_setup,
 )
+from parallel_amg_tpu_torch.parallel.pcsr import PCSR
+from parallel_amg_tpu_torch.parallel.pvector import dot, norm, pvector, to_global
+from parallel_amg_tpu_torch.parallel.passembly_device import pcsr_from_coo_device
+from parallel_amg_tpu_torch.parallel.psetup import distributed_setup
+from parallel_amg_tpu_torch.parallel.prs_setup import distributed_rs_setup
+from parallel_amg_tpu_torch.parallel.psa_setup import distributed_sa_setup
 
 __all__ = [
     "AMGConfig",
@@ -94,4 +107,13 @@ __all__ = [
     "poisson_stencil_sharded",
     "anisotropic_stencil_sharded",
     "sharded_device_setup",
+    "PCSR",
+    "pvector",
+    "to_global",
+    "dot",
+    "norm",
+    "distributed_setup",
+    "pcsr_from_coo_device",
+    "distributed_rs_setup",
+    "distributed_sa_setup",
 ]

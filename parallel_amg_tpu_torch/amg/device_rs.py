@@ -370,16 +370,16 @@ def _ell_lambda_max(A: ELL, d_inv, iters: int, seed: int = 0):
 
 
 class _Clock:
-    """Seconds per setup phase; each lap waits for the device first."""
+    """Seconds per setup phase; each lap waits for the devices first."""
 
-    def __init__(self, device):
-        self.device = device
+    def __init__(self, *devices):
+        self.devices = {d for d in devices if d.type == "cuda"}
         self.seconds: dict = {}
         self._t = time.perf_counter()
 
     def lap(self, phase: str) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in self.devices:
+            torch.cuda.synchronize(d)
         now = time.perf_counter()
         self.seconds[phase] = self.seconds.get(phase, 0.0) + now - self._t
         self._t = now

@@ -40,6 +40,10 @@ A level whose A is a ShardedStencil takes its ``d_inv`` over the padded
 dims and splits it over the mesh, and may carry ``true_n``.  The levels
 below a distributed hierarchy's agglomeration boundary, and the coarse
 inverse, go to part 0's device.
+
+``pcsr_from_numpy`` turns the arrays of a row-partitioned PCSR (the JAX
+package's, as numpy) into the port's, so that one operator can feed both
+packages and one setup stage be compared at a time.
 """
 
 from __future__ import annotations
@@ -192,3 +196,37 @@ def hierarchy_from_numpy(levels: Sequence[Mapping], coarse_inv,
                              lam, l.get("true_n")).to(dev))
     inv = torch.from_numpy(np.array(coarse_inv)).to(torch.float32).to(dev)
     return Hierarchy(out, inv, config)
+
+
+def _partition(p):
+    """A Partition from an object with n_global/n_shards/rows_per_shard or
+    a (n_global, n_shards, rows_per_shard) tuple."""
+    from parallel_amg_tpu_torch.parallel.partition import Partition
+
+    if isinstance(p, Sequence):
+        return Partition(*(int(v) for v in p))
+    return Partition(int(p.n_global), int(p.n_shards), int(p.rows_per_shard))
+
+
+def pcsr_from_numpy(arrays: Mapping, mesh, dtype=torch.float32):
+    """A :class:`~parallel_amg_tpu_torch.parallel.pcsr.PCSR` on ``mesh`` from
+    host arrays.
+
+    ``arrays`` maps ``diag_cols``/``diag_vals`` (S, m, Wd),
+    ``off_cols``/``off_vals`` (S, m, Wo), ``send_idx`` (S, S, C),
+    ``recv_map`` (S, G), ``row_partition`` and ``col_partition`` (objects
+    with ``n_global``, ``n_shards`` and ``rows_per_shard``, or such tuples)
+    and ``true_shape``.  A mapping that also has ``nb_offsets`` gets the ring
+    plan of ``with_neighbor_plan``, which derives from the dense plan.
+    """
+    from parallel_amg_tpu_torch.parallel.pcsr import PCSR
+
+    A = PCSR.from_planes(
+        np.asarray(arrays["diag_cols"]), np.asarray(arrays["diag_vals"]),
+        np.asarray(arrays["off_cols"]), np.asarray(arrays["off_vals"]),
+        np.asarray(arrays["send_idx"]), np.asarray(arrays["recv_map"]), mesh,
+        _partition(arrays["row_partition"]), _partition(arrays["col_partition"]),
+        tuple(arrays["true_shape"]), dtype=dtype)
+    if arrays.get("nb_offsets") is not None:
+        A = A.with_neighbor_plan()
+    return A

@@ -11,9 +11,16 @@ draws 8-bit words) keeps the low byte of the XOR, shifts it right by one
 into the mantissa of a bf16 in [1, 2) and subtracts 1, as
 ``jax._src.random._uniform`` does for ``nmant < 8``.
 
-The PMIS weights and the power-iteration start vector come from here, so
-the port's setups pick the same C/F splits and λ estimates as the JAX
-package. The draw runs on the host and its caller copies it to the device.
+``permutation(n, seed)`` equals ``jax.random.permutation(PRNGKey(seed), n)``
+bit for bit: ⌈3·ln(max(1, n)) / ln(2³²−1)⌉ rounds, each of which splits the
+key (threefry2x32 of the counters 0 and 1 under the current key: the next
+key and the subkey), draws n 32-bit words under the subkey and applies a
+stable argsort of them to the running permutation.
+
+The PMIS weights, the power-iteration start vector and the distance-2 MIS
+weights of the distributed SA setup come from here, so the port's setups
+pick the same C/F splits, aggregates and λ estimates as the JAX package.
+The draw runs on the host and its caller copies it to the device.
 """
 
 import os
@@ -50,11 +57,17 @@ def _threefry2x32(k0: int, k1: int, x0, x1):
     return x0, x1
 
 
-def _random_bits32(n: int, seed: int) -> np.ndarray:
-    """(n,) uint32: ``jax.random.bits(PRNGKey(seed), (n,), uint32)``."""
+def _check_seed(seed) -> int:
     seed = int(seed)
     if not 0 <= seed < 1 << 32:
         raise ValueError(f"seed {seed} is outside [0, 2**32)")
+    return seed
+
+
+def _random_bits32(n: int, seed: int, key=None) -> np.ndarray:
+    """(n,) uint32: ``jax.random.bits(PRNGKey(seed), (n,), uint32)``, or
+    the same draw under the key pair ``key`` when given."""
+    k0, k1 = (0, _check_seed(seed)) if key is None else key
     out = np.empty(n, np.uint32)
     # numpy's ufuncs release the GIL: chunks hash in parallel on the host,
     # about four a thread
@@ -67,7 +80,7 @@ def _random_bits32(n: int, seed: int) -> np.ndarray:
         x0 = (idx >> np.uint64(32)).astype(np.uint32)
         x1 = idx.astype(np.uint32)
         with np.errstate(over="ignore"):
-            b0, b1 = _threefry2x32(0, seed, x0, x1)
+            b0, b1 = _threefry2x32(k0, k1, x0, x1)
         np.bitwise_xor(b0, b1, out=out[s:e])
 
     starts = range(0, n, size)
@@ -93,3 +106,26 @@ def uniform(shape, seed: int, dtype=torch.float32) -> torch.Tensor:
         return (one - 1.0).reshape(shape)
     raise TypeError(f"uniform draws float32, float64 or bfloat16, "
                     f"not {dtype}")
+
+
+def _split_key(k0: int, k1: int):
+    """(next key, subkey) of ``jax.random.split(key)``: threefry2x32 of the
+    counter pairs (0, 0) and (0, 1) under the key."""
+    with np.errstate(over="ignore"):
+        a, b = _threefry2x32(k0, k1, np.zeros(2, np.uint32),
+                             np.arange(2, dtype=np.uint32))
+    return (int(a[0]), int(b[0])), (int(a[1]), int(b[1]))
+
+
+def permutation(n: int, seed: int) -> torch.Tensor:
+    """A CPU int64 tensor equal to
+    ``jax.random.permutation(jax.random.PRNGKey(seed), n)``."""
+    n = int(n)
+    key = (0, _check_seed(seed))
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = np.arange(n, dtype=np.int64)
+    for _ in range(rounds):
+        key, sub = _split_key(*key)
+        bits = _random_bits32(n, 0, key=sub)
+        x = x[np.argsort(bits, kind="stable")]
+    return torch.from_numpy(x)

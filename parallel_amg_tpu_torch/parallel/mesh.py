@@ -38,14 +38,14 @@ def runtime_init(coordinator_address: str | None = None,
                  process_id: int | None = None) -> None:
     """Multi-host bring-up: a no-op in a single-process run.
 
-    One process per host, joined by ``torch.distributed``, is ROADMAP A11's
-    multi-process slice and is not ported; asking for more than one process
-    raises.
+    One process per host, joined by ``torch.distributed``, is the
+    multi-process half of ROADMAP A6 and is not ported; asking for more than
+    one process raises.
     """
     if num_processes is not None and num_processes > 1:
         raise NotImplementedError(
             "multi-process runs (torch.distributed, one process per host) are "
-            "ROADMAP A11's multi-process slice and are not ported yet")
+            "the multi-process half of ROADMAP A6 and are not ported yet")
 
 
 def make_row_mesh(n_parts: int | None = None, device=None) -> RowMesh:

@@ -145,8 +145,9 @@ def amg_fgmres(A, hierarchy: Hierarchy, b, tol: float = 1e-8,
 
     GMRES stacks basis vectors, so it runs in the flat 1-D layout; on a
     structured hierarchy (``grid_dims`` set) each operator application
-    reshapes to the grid and back.  M is one ``vcycle``.  Pass A=None to
-    solve with the hierarchy's fine operator.
+    reshapes to the grid and back.  On a distributed PCSR hierarchy b is a
+    PGrid (``pvector``) and so is the solution.  M is one ``vcycle``.  Pass
+    A=None to solve with the hierarchy's fine operator.
     """
     if A is None:
         A = hierarchy.levels[0].A
@@ -159,7 +160,7 @@ def amg_fgmres(A, hierarchy: Hierarchy, b, tol: float = 1e-8,
             return A.matvec(v.reshape(dims)).reshape(-1)
 
     def M(r):
-        return vcycle(hierarchy, torch.zeros_like(r), r)
+        return vcycle(hierarchy, pgrid.zeros_like(r), r)
 
     return fgmres(A_mv, b, M=M, tol=tol, restart=restart,
                   max_restarts=max_restarts)

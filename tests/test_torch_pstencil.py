@@ -180,7 +180,7 @@ def test_row_mesh_devices_and_errors(monkeypatch):
     assert [str(d) for d in mesh.devices] == ["cuda:0", "cuda:1", "cuda:2", "cuda:0"]
     assert ptt.make_row_mesh().size == 3
     pmesh.runtime_init()  # single process: nothing to do
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         pmesh.runtime_init("localhost:1234", num_processes=2, process_id=0)
 
 
