@@ -43,7 +43,8 @@
     over out_width, and a product with K 5120 (the in-place and compact
     tables in global scratch; B3 splits its rows into m ranges): B3's
     tiling per case (rows, m and k a tile, staging bytes, store path), B3
-    torch.equal to its plain version, kernel, plain and bound times of B5
+    torch.equal to its plain version, B5 and B4 bit-equal to theirs (both
+    sum each column in slot order), kernel, plain and bound times of B5
     in both modes and of B3 and B4 (the merges' bound: bytes against one table
     insert per live candidate, with an all-pairs merge's compares beside
     it), cuSPARSE's time for the product, and B4 held bit-equal to B5's
@@ -84,8 +85,9 @@
     with m0 ≤ h that must not launch.  The one-launch path
     (halo_stencil_matvec, parts on one card: one launch per matvec) with
     kernel, plain, bound and library-CSR times and bit-equality over 20
-    calls; the several-card copy-stream path (halo_stencil_interior +
-    halo_stencil_boundary, run on one card) bit-equal too, with its
+    calls; the exchange path of parts on several cards or processes
+    (halo_stencil_interior + halo_stencil_boundary, the halos through
+    parallel/exchange.py; run on one card) bit-equal too, with its
     whole-matvec time and each entry's own; launches and device busy share
     per matvec of both paths (torch.profiler).
 21. slice_dist3d: the 4-part V-cycle (18 B8 launches per cycle: 9 matvecs
@@ -156,7 +158,7 @@
     Ruge–Stüben setup on the card), twice (the second under torch.profiler):
     bit-equal, rows within 5 % and complexities within 2 % of the JAX
     package's 8-shard run, PMIS rounds, B3/B5/B4 launches, their per-part
-    product at level 0 held against the plain versions (values too), PCG
+    product at level 0 held bit-equal to the plain versions (values too), PCG
     within 1 of the JAX package's 7, V-cycle ms and launches; 12 W-cycles
     on these levels and on the one-device RS hierarchy, float64 true
     residuals a cycle (reported), and a W-cycle ``solve`` of 12 cycles on
@@ -165,6 +167,19 @@
 36. psa_setup: ``distributed_setup`` with algebraic SA on the card at 256²
     (twice, bit-equal; rows and PCG held to the JAX package's) and 1024²
     (converged; rows, complexities and the oracle's count reported).
+37. multiprocess (after psa_setup): 2 ranks on the card
+    (``parallel/launch.py``: ``runtime_init`` with the gloo route and a
+    FileStore under build/multiprocess, the kernel libraries already built
+    by the parent, a 600 s join timeout), each holding half of the parts:
+    config #2 in 8 parts (the host oracle's setup and PCG, iterate and count
+    bit-equal to phase 34's; the Ruge–Stüben setup on the card, its levels'
+    planes and plans bit-equal to phase 35's, PCG count equal), config #3 in
+    4 parts ("pallas_async", residual history bit-equal to phase 21's, B8's
+    interior and boundary kernels launched on the exchange route) and SA at
+    256² in 8 parts (rows and PCG held as in phase 36).  Per rank: setup and
+    solve seconds, V-cycle wall and CUDA-event ms, the exchange's host ms per
+    V-cycle and per matvec and its share, peak memory, and the launches of
+    each path; a rank that fails or outlasts the timeout fails the script.
 
 Every phase prints JSON lines.  Any failure raises, so the script exits
 non-zero without its last line, which on success is
@@ -239,7 +254,9 @@ PORT_KERNEL_NAMES = ("twell_stream_kernel", "flatdia_spmv_kernel",
 LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm", "bsr_spmv",
              "flatdia_spmm", "halo_stencil")  # csrc/<name>.cu
 CONFIG3_ROWS = [2_097_152, 79_507, 3_375, 125]
-CONFIG3_ITERS = 12  # the JAX package's count (bench_details.json:40)
+# the JAX package's count on the CPU ("xla" backend) at 128³
+# (scripts/config3_cpu_counts.py); its TPU run took 12 (bench_details.json:40)
+CONFIG3_ITERS = 11
 # The JAX package's device-RS numbers: config #2 at 1024² (BENCH_r04.json,
 # stage amg_rs2d) and config #4 at 512² (BENCH_r05.json, stage anisotropic).
 CONFIG2_JAX = {"grid_complexity": 1.455, "operator_complexity": 2.397,
@@ -386,6 +403,9 @@ DIST_RS_JAX8 = {"rows": [1_048_576, 382_317, 79_171, 13_883, 2_065, 287, 42],
 DIST_SA256_JAX8 = {"rows": [65_536, 9_211, 568, 25], "pcg_iters": 12}
 PCSR_FIELDS = ("diag_cols", "diag_vals", "off_cols", "off_vals", "send_idx",
                "recv_map")
+# The multiprocess phase: ranks sharing the card, and their join timeout
+MP_WORLD = 2
+MP_TIMEOUT_S = 600
 
 
 def profile_run(fn):
@@ -413,6 +433,166 @@ def profile_run(fn):
                  "wall_ms_profiled": wall,
                  "device_busy_share": dev_ms / wall if kernels and wall else None,
                  "port_kernel_device_ms": by_kernel}
+
+
+def part_digests(parts):
+    """sha256 of each part's bytes, in part order."""
+    import hashlib
+
+    return [hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+            for t in parts]
+
+
+def plane_digests(h):
+    """Per PCSR level operator, the digest of each local part's planes and
+    plans (``PCSR_FIELDS``), keyed "L<level>.<A|P|R>"."""
+    import hashlib
+
+    out = {}
+    for i, l in enumerate(h.levels):
+        for k in ("A", "P", "R"):
+            T = getattr(l, k)
+            if hasattr(T, "diag_cols"):
+                out[f"L{i}.{k}"] = [
+                    hashlib.sha256(b"".join(getattr(T, f)[j].cpu().numpy().tobytes()
+                                            for f in PCSR_FIELDS)).hexdigest()
+                    for j in range(len(T.diag_cols))]
+    return out
+
+
+def multiprocess_rank(cfg2, cfg3, cfg_sa):
+    """One rank of the multiprocess phase, run by ``parallel/launch.py`` on
+    the card with the gloo route: config #2 in 8 parts (the host oracle's
+    setup and PCG, then the Ruge–Stüben setup on the card and PCG), config
+    #3 in 4 parts ("pallas_async", kernel B8's exchange route) and SA at
+    256² in 8 parts.  Each path runs with the launch counts set to 0 just
+    before it and read just after.  Returns this rank's digests, counts,
+    times and peak memory."""
+    import numpy as np
+    import torch
+
+    import parallel_amg_tpu_torch as ptt
+    from parallel_amg_tpu_torch.ops import flatdia, pspgemm, twell
+    from parallel_amg_tpu_torch.parallel import exchange, phalo_async
+    from parallel_amg_tpu_torch.parallel.mesh import process
+    from parallel_amg_tpu_torch.parallel.pcsr import PCSR
+    from parallel_amg_tpu_torch.problems import poisson2d
+
+    rank, world = process()
+
+    def reset():
+        twell.LAUNCHES = 0
+        for d in (flatdia.LAUNCHES, pspgemm.LAUNCHES, phalo_async.LAUNCHES):
+            for k in d:
+                d[k] = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"twell_spmv": twell.LAUNCHES,
+                "flatdia_spmv": flatdia.LAUNCHES["flatdia_spmv"],
+                **pspgemm.LAUNCHES, **phalo_async.LAUNCHES}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def cycle_times(fn, n=10):
+        """Per call: wall ms, this rank's CUDA-event window ms, and the
+        exchange's host ms (``exchange.STATS``), medians over n calls."""
+        fn()
+        wall, event, exch = [], [], []
+        for _ in range(n):
+            exchange.STATS.update(calls=0, seconds=0.0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            event.append(start.elapsed_time(end))
+            exch.append(exchange.STATS["seconds"] * 1e3)
+        return {"wall_ms": statistics.median(wall), "event_ms": statistics.median(event),
+                "exchange_ms": statistics.median(exch),
+                "exchange_calls": exchange.STATS["calls"]}
+
+    out = {"rank": rank, "world": world,
+           "device": str(torch.cuda.current_device())}
+    torch.cuda.reset_peak_memory_stats()
+
+    # config #2 in 8 parts: the host oracle, then PCG to 1e-6
+    mesh8 = ptt.make_row_mesh(8)
+    out["local_parts"] = list(mesh8.local)
+    A_csr = poisson2d(1024).to_csr()
+    A_sp = A_csr.to_scipy()
+    b_np = np.random.default_rng(0).normal(size=A_csr.n_rows).astype(np.float32)
+    hd, s = timed(lambda: ptt.distributed_setup(A_sp, cfg2, mesh8))
+    b = ptt.pvector(b_np, hd.levels[0].A.row_partition, mesh8)
+    reset()
+    r, solve_s = timed(lambda: ptt.amg_pcg(None, hd, b, tol=1e-6, maxiter=100))
+    out["host"] = dict(setup_s=s, solve_s=solve_s, iters=r.iters,
+                       converged=r.converged, x=part_digests(r.x.parts),
+                       launches=counts(), rows=[l.n for l in hd.levels],
+                       vcycle=cycle_times(lambda: ptt.vcycle(hd, b.zeros_like(), b)),
+                       matvec=cycle_times(lambda: hd.levels[0].A.matvec(b), n=20))
+    del hd, r
+
+    # config #2 in 8 parts: the Ruge–Stüben setup on the card, then PCG
+    Ap = PCSR.from_csr(A_csr, mesh8)
+    reset()
+    h1, s = timed(lambda: ptt.distributed_setup(
+        Ap, dataclasses.replace(cfg2, on_device_setup=True), mesh8))
+    setup_counts = counts()
+    b = ptt.pvector(b_np, h1.levels[0].A.row_partition, mesh8)
+    reset()
+    r, solve_s = timed(lambda: ptt.amg_pcg(None, h1, b, tol=1e-6, maxiter=100))
+    out["rs"] = dict(setup_s=s, solve_s=solve_s, iters=r.iters, converged=r.converged,
+                     levels=plane_digests(h1), rows=[l.n for l in h1.levels],
+                     setup_launches=setup_counts, pcg_launches=counts(),
+                     vcycle=cycle_times(lambda: ptt.vcycle(h1, b.zeros_like(), b)))
+    del h1, r, Ap
+
+    # config #3 in 4 parts, "pallas_async"
+    mesh4 = ptt.make_row_mesh(4)
+    dims3 = (128,) * 3
+    b3_np = np.random.default_rng(0).normal(size=128 ** 3).astype(np.float32)
+
+    def setup3():
+        A_d, td = ptt.poisson_stencil_sharded(dims3, mesh4, cfg3)
+        return ptt.sharded_device_setup(A_d, cfg3, true_dims=td)
+
+    h3, s = timed(setup3)
+    b3 = ptt.distribute_grid(b3_np, dims3, h3, mesh4)
+    reset()
+    r, solve_s = timed(lambda: ptt.amg_pcg(None, h3, b3, tol=1e-6, maxiter=100))
+    out["config3"] = dict(
+        setup_s=s, solve_s=solve_s, iters=r.iters, converged=r.converged,
+        history=r.residual_history[:r.iters + 1].cpu().tolist(), launches=counts(),
+        rows=[l.n for l in h3.levels], local_parts=list(mesh4.local),
+        vcycle=cycle_times(lambda: ptt.vcycle(h3, b3.zeros_like(), b3)),
+        matvec=cycle_times(lambda: h3.levels[0].A.matvec(b3), n=20))
+    del h3, r, b3
+
+    # SA at 256² in 8 parts
+    A_h = poisson2d(256).to_csr()
+    bs_np = np.random.default_rng(0).normal(size=A_h.n_rows)
+    reset()
+    hs, s = timed(lambda: ptt.distributed_setup(A_h, cfg_sa, mesh8))
+    setup_counts = counts()
+    bs = ptt.pvector(bs_np, hs.levels[0].A.row_partition, mesh8)
+    reset()
+    r, solve_s = timed(lambda: ptt.amg_pcg(None, hs, bs, tol=1e-6, maxiter=60))
+    out["sa256"] = dict(setup_s=s, solve_s=solve_s, iters=r.iters, converged=r.converged,
+                        rows=[l.n for l in hs.levels], setup_launches=setup_counts,
+                        pcg_launches=counts())
+    out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    return out
 
 
 def pcsr_equal(X, Y, fields=PCSR_FIELDS):
@@ -624,6 +804,7 @@ def dist_algebraic_phases(c):
     c.sync()
     solve_s = time.perf_counter() - t0
     paths["dist_config2_8parts_host_pcg"] = launches = counts()
+    c.mp_ref["host"] = dict(iters=r.iters, x=part_digests(r.x.parts))
     tr = true_rel(r.x, part)
     limit = 1e-6 + (r.iters + 1) * c.f32_floor
     prof = c.profile(lambda: ptt.vcycle(hd, b.zeros_like(), b), 5)
@@ -670,14 +851,16 @@ def dist_algebraic_phases(c):
     cx = h1.complexity()
     stats = h1.setup_stats
     # B3, B5 and B4 on level 0's per-part R·A against their plain versions:
-    # B3's candidates bit-equal, B5's counts equal, and B4's merged columns
-    # and counts equal with each value within SPGEMM_ATOL + SPGEMM_RTOL·Σ|the
-    # candidates it merges|, as the kernel phase holds config2_L0_RAP
+    # B3's candidates bit-equal, B5's counts equal, and B4's merged columns,
+    # counts and values bit-equal (both sum each column in slot order); the
+    # error against SPGEMM_ATOL + SPGEMM_RTOL·Σ|the candidates it merges| is
+    # reported beside it
     R0 = h1.levels[0].R
     sent = int(Ap.col_partition.n_padded)
     bc, bv = prs._pcsr_global_cols(Ap, sent)
     gbc, gbv = prs._fetch_rows(R0, bc, bv, sent)
     prod_err, prod_err_over_bound, prod_same_cols = 0.0, 0.0, True
+    prod_bit_equal = True
     for p in range(S):
         Ao, Bo = prs.part_product_operands(R0, p, bc[p], bv[p], gbc[p], gbv[p], sent)
         cc, cv = prs.part_candidates(Ao, Bo)
@@ -694,15 +877,16 @@ def dist_algebraic_phases(c):
                                            merged)
                            and got.width == w and torch.equal(got.cols, want[0])
                            and torch.equal(got.row_nnz, want[2]))
+        prod_bit_equal &= torch.equal(got.vals, want[1])
         prod_err = max(prod_err, float(d.max()))
         prod_err_over_bound = max(prod_err_over_bound, float((d / bound).max()))
         del cc, cv, pc, pv, got, want, bound, d
     for k in ("spgemm_expand", "spgemm_dedup", "spgemm_dedup_compact"):
         c.results[k]["max_abs_err"] = max(c.results[k]["max_abs_err"], prod_err)
-    hold(prod_same_cols and prod_err_over_bound <= 1.0,
+    hold(prod_same_cols and prod_bit_equal and prod_err_over_bound <= 1.0,
          f"prs_setup: level 0's per-part R·A disagrees with the plain B3 + B5 + B4 "
-         f"(columns and counts equal {prod_same_cols}, |dv| {prod_err}, "
-         f"{prod_err_over_bound} of its bound)")
+         f"(columns and counts equal {prod_same_cols}, values bit-equal "
+         f"{prod_bit_equal}, |dv| {prod_err}, {prod_err_over_bound} of its bound)")
     b = ptt.pvector(b_np, h1.levels[0].A.row_partition, mesh)
     vt, _ = c.wall_ms(lambda: ptt.vcycle(h1, b.zeros_like(), b))
     c.reset_counts()
@@ -715,6 +899,7 @@ def dist_algebraic_phases(c):
     c.sync()
     solve_s = time.perf_counter() - t0
     paths["dist_config2_8parts_rs_pcg"] = pcg_launches = counts()
+    c.mp_ref["rs"] = dict(iters=r.iters, levels=plane_digests(h1), rows=rows_rs)
     tr = true_rel(r.x, h1.levels[0].A.row_partition)
     limit = 1e-6 + (r.iters + 1) * c.f32_floor
     # The standalone W-cycle.  On these levels it slows from 0.30 a cycle to
@@ -747,9 +932,10 @@ def dist_algebraic_phases(c):
            peak_device_gb=rs_peak, part_products_level0_RA_same_cols=prod_same_cols,
            part_products_level0_RA_max_abs_err=prod_err,
            part_products_level0_RA_max_err_over_bound=prod_err_over_bound,
+           part_products_level0_RA_bit_equal=prod_bit_equal,
            part_products_level0_RA_tolerance=(
-               f"B3 bit-equal, B5 counts and B4 columns equal, |dv| <= {SPGEMM_ATOL} + "
-               f"{SPGEMM_RTOL}*sum|merged|"),
+               "B3 bit-equal, B5 counts equal, B4 columns, counts and values "
+               f"bit-equal (and |dv| <= {SPGEMM_ATOL} + {SPGEMM_RTOL}*sum|merged|)"),
            vcycle_ms_median=statistics.median(vt), vcycle_ms=vt,
            vcycle_launches=cycle_launches, pcg_iters=r.iters, converged=r.converged,
            solve_s=solve_s, true_rel_residual=tr, true_rel_residual_limit=limit,
@@ -830,6 +1016,7 @@ def dist_algebraic_phases(c):
     c.emit("psa_setup", parts=S, config="sa chebyshev n_coarse_max=256 coarse_drop_tol=0",
            jax_package_8_shards_256=DIST_SA256_JAX8, **{f"poisson2d_{k}": v for k, v in out.items()})
     o = out[c.sa_sizes[0]]
+    c.mp_ref["sa256"] = dict(rows=o["rows"], iters=o["pcg_iters"], config=cfg_sa)
     hold(o["rows"] == DIST_SA256_JAX8["rows"]
          and abs(o["pcg_iters"] - DIST_SA256_JAX8["pcg_iters"]) <= 1,
          f"psa_setup 256²: rows {o['rows']}, PCG {o['pcg_iters']}")
@@ -850,13 +1037,12 @@ def main():
     from parallel_amg_tpu_torch.amg import device_rs, device_setup
     from parallel_amg_tpu_torch.amg.hierarchy import Hierarchy
     from parallel_amg_tpu_torch.ops import _build, bsr, flatdia, gspgemm, pspgemm, twell
-    from parallel_amg_tpu_torch.parallel import phalo_async
+    from parallel_amg_tpu_torch.parallel import exchange, launch, phalo_async
     from parallel_amg_tpu_torch.parallel.pgrid import PGrid
     from parallel_amg_tpu_torch.parallel.pstencil import (
         ShardedStencil,
         apply_halo_mode,
         boundary_plain,
-        halo_planes,
         interior_plain,
     )
     from parallel_amg_tpu_torch.ops.csr import CSR
@@ -1514,7 +1700,7 @@ def main():
                      copy_path_ms=copy_extra["copy_path_ms"])
             # the several-card path's two entries, each over every part
             offs = A_s.offsets
-            lands = [halo_planes(x.parts, p, hw) for p in range(S)]
+            lands = exchange.halos(x.parts, hw)
             ys0 = [phalo_async.stencil_interior(W, xl, offs, hw)
                    for W, xl in zip(A_s.weights, x.parts)]
             yb = [yy.clone() for yy in ys0]
@@ -1719,10 +1905,13 @@ def main():
         torch.cuda.synchronize()
         err5 = float((full[1] - ref5[1]).abs().max())
         err4 = float((comp[1] - ref4[1]).abs().max())
+        # the merges sum each column in slot order, as the plain versions
+        # do: values bit-equal, and within the bound too
         ok = (torch.equal(counts, ref5[2]) and torch.equal(full[0], ref5[0])
-              and torch.equal(full[2], ref5[2])
+              and torch.equal(full[2], ref5[2]) and torch.equal(full[1], ref5[1])
               and bool(((full[1] - ref5[1]).abs() <= bound5).all())
               and torch.equal(comp[0], ref4[0]) and torch.equal(comp[2], ref4[2])
+              and torch.equal(comp[1], ref4[1])
               and bool(((comp[1] - ref4[1]).abs() <= bound4).all()) and b4_is_b5)
         over = int((ref5[2] > w).sum())
         timing = {
@@ -1764,8 +1953,8 @@ def main():
                  rows_over_width=over, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
                  bound_by=b_by, share_of_bound=b_ms / ms, live_candidates=live,
                  compares=compares, max_abs_err=err, ok=ok,
-                 tolerance=f"cols and counts equal, |dv| <= {SPGEMM_ATOL} + "
-                           f"{SPGEMM_RTOL}*sum|merged|",
+                 tolerance=f"cols, counts and values bit-equal (and |dv| <= "
+                           f"{SPGEMM_ATOL} + {SPGEMM_RTOL}*sum|merged|)",
                  **({"full_mode_ms": full_ms, "full_mode_bound_ms": full_bound_ms}
                     if name == "spgemm_dedup" else {}),
                  **({"bit_equal_to_b5_compacted": b4_is_b5}
@@ -2167,7 +2356,8 @@ def main():
     # distributed path, config #2 in 8 parts on the card ------------------------
     import types
 
-    dist_paths = dist_algebraic_phases(types.SimpleNamespace(
+    mp_ref = {}
+    dist_paths = dist_algebraic_phases(types.SimpleNamespace(mp_ref=mp_ref,
         make_mesh=ptt.make_row_mesh, dev=dev, label=f"poisson2d({nx})",
         A_csr=A_csr, A_sp=A_sp, b_np=b_np, cfg=cfg, f32_floor=f32_floor,
         one_device_iters=res.iters, oracle_rows=oracle_rows, one_device_rs=h_fast,
@@ -2178,6 +2368,70 @@ def main():
         wall_ms=wall_ms, bound_ms=bound_ms, profile=profile_cycles,
         profile_run=profile_run, check_kernel=check_kernel, results=results,
         ATOL=ATOL, RTOL=RTOL))
+
+    # -- multiprocess: 2 ranks on the card, joined by torch.distributed -------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mp_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                          "multiprocess")
+    t0 = time.perf_counter()
+    ranks = launch.spawn(multiprocess_rank, MP_WORLD,
+                         args=(cfg, cfg3_async, mp_ref["sa256"]["config"]),
+                         timeout_s=MP_TIMEOUT_S, threads=4, store_dir=mp_dir)
+    mp_s = time.perf_counter() - t0
+    mp_paths = {}
+    for key, sub in (("mp_config2_8parts_host_pcg", ("host", "launches")),
+                     ("mp_config2_8parts_rs_setup", ("rs", "setup_launches")),
+                     ("mp_config2_8parts_rs_pcg", ("rs", "pcg_launches")),
+                     ("mp_config3_4parts_pcg", ("config3", "launches")),
+                     ("mp_sa256_8parts_setup", ("sa256", "setup_launches")),
+                     ("mp_sa256_8parts_pcg", ("sa256", "pcg_launches"))):
+        mp_paths[key] = {k: sum(r[sub[0]][sub[1]][k] for r in ranks)
+                         for k in ranks[0][sub[0]][sub[1]]}
+    for r in ranks:
+        emit("multiprocess_rank", rank=r["rank"], world=r["world"], backend="gloo",
+             device=r["device"], nvidia_smi=smi, local_parts_8=r["local_parts"],
+             local_parts_4=r["config3"]["local_parts"],
+             peak_allocated_gb=r["peak_allocated_gb"],
+             peak_reserved_gb=r["peak_reserved_gb"],
+             **{f"{k}_{f}": r[k][f] for k in ("host", "rs", "config3", "sa256")
+                for f in ("setup_s", "solve_s", "iters", "rows")},
+             host_vcycle=r["host"]["vcycle"], host_matvec=r["host"]["matvec"],
+             host_exchange_share_of_vcycle=(r["host"]["vcycle"]["exchange_ms"]
+                                            / r["host"]["vcycle"]["wall_ms"]),
+             rs_vcycle=r["rs"]["vcycle"],
+             config3_vcycle=r["config3"]["vcycle"], config3_matvec=r["config3"]["matvec"],
+             config3_exchange_share_of_vcycle=(r["config3"]["vcycle"]["exchange_ms"]
+                                               / r["config3"]["vcycle"]["wall_ms"]))
+    mp_holds = {
+        "config2_host_pcg_iters_equal": all(
+            r["host"]["iters"] == mp_ref["host"]["iters"] for r in ranks),
+        "config2_host_x_bit_equal": [d for r in ranks for d in r["host"]["x"]]
+        == mp_ref["host"]["x"],
+        "config2_rs_planes_bit_equal": all(
+            [d for r in ranks for d in r["rs"]["levels"].get(k, [])] == v
+            for k, v in mp_ref["rs"]["levels"].items())
+        and all(set(r["rs"]["levels"]) == set(mp_ref["rs"]["levels"]) for r in ranks),
+        "config2_rs_pcg_iters_equal": all(
+            r["rs"]["iters"] == mp_ref["rs"]["iters"] for r in ranks),
+        "config3_history_bit_equal": all(
+            r["config3"]["history"] == dist3["pallas_async"]["history"] for r in ranks),
+        "config3_b8_interior_and_boundary_launched": min(
+            mp_paths["mp_config3_4parts_pcg"]["halo_stencil_interior"],
+            mp_paths["mp_config3_4parts_pcg"]["halo_stencil_boundary"]) > 0,
+        "sa256_rows": all(r["sa256"]["rows"] == DIST_SA256_JAX8["rows"] for r in ranks),
+        "sa256_pcg_iters": all(abs(r["sa256"]["iters"] - DIST_SA256_JAX8["pcg_iters"]) <= 1
+                               for r in ranks),
+        "converged": all(r[k]["converged"] for r in ranks
+                         for k in ("host", "rs", "config3", "sa256")),
+    }
+    emit("multiprocess", world=MP_WORLD, backend="gloo", seconds=mp_s,
+         nvidia_smi=smi, store=mp_dir, single_process_iters={
+             "host": mp_ref["host"]["iters"], "rs": mp_ref["rs"]["iters"],
+             "config3": dist3["pallas_async"]["iters"]},
+         rs_rows=ranks[0]["rs"]["rows"], launches=mp_paths, holds=mp_holds)
+    if not all(mp_holds.values()):
+        raise AssertionError(f"multiprocess: a hold failed: {mp_holds}")
 
     # -- setup_vec: config #5 at 128³×3 on the card (BSR fine level) ------------
     n5 = 128
@@ -2632,6 +2886,9 @@ def main():
     launches = {"twell_spmv": launches2["twell_spmv"],
                 "flatdia_spmv": slice3["mixed"]["launches"]["flatdia_spmv"],
                 **dist3["pallas_async"]["launches"],
+                # B8's exchange route runs on the multiprocess path
+                **{k: mp_paths["mp_config3_4parts_pcg"][k]
+                   for k in ("halo_stencil_interior", "halo_stencil_boundary")},
                 "pallas_spgemm": results["pallas_spgemm"]["route_launches"]["spgemm_expand"],
                 **launches_rs, **launches_vec}
     by_path = {"config2_pcg": launches2,
@@ -2653,7 +2910,7 @@ def main():
                "device_sa_2d_pcg": info_sa2["pcg_launches"],
                "device_sa_3d_pcg": info_sa3["pcg_launches"],
                "convection_fgmres": launches_fg,
-               **dist_paths}
+               **dist_paths, **mp_paths}
 
     line = []
     for name, meta in KERNELS.items():
@@ -2667,8 +2924,10 @@ def main():
         if "design" in meta:
             extra["design"] = meta["design"]
         if name in ("halo_stencil_interior", "halo_stencil_boundary"):
-            extra["path"] = ("parts on several cards; held bit-equal on this card in "
-                             "the B8 kernel phase, not on the one-card main path")
+            extra["path"] = ("the exchange route: config #3 in 4 parts on 2 processes "
+                             "sharing this card (multiprocess phase), where a part's "
+                             "halo comes from the other process; held bit-equal on "
+                             "this card in the B8 kernel phase")
         if name == "pallas_spgemm":
             extra["routed_to"] = ["spgemm_expand", "spgemm_dedup", "spgemm_dedup_compact"]
             extra["launches_by_path"] = {"pallas_spgemm_config2_L0_AA": r["route_launches"]}

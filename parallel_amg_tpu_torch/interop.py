@@ -39,7 +39,7 @@ matrix (``to_csr().to_scipy()`` of an algebraic level; it goes through
 A level whose A is a ShardedStencil takes its ``d_inv`` over the padded
 dims and splits it over the mesh, and may carry ``true_n``.  The levels
 below a distributed hierarchy's agglomeration boundary, and the coarse
-inverse, go to part 0's device.
+inverse, go to the mesh's ``home`` device.
 
 ``pcsr_from_numpy`` turns the arrays of a row-partitioned PCSR (the JAX
 package's, as numpy) into the port's, so that one operator can feed both
@@ -179,9 +179,9 @@ def hierarchy_from_numpy(levels: Sequence[Mapping], coarse_inv,
         optionally ``true_n``.
       coarse_inv: (n_c, n_c) dense inverse of the coarsest operator.
       mesh: the row mesh of a distributed hierarchy's sharded levels; its
-        part 0's device then holds the rest, and ``device`` is not read.
+        ``home`` device then holds the rest, and ``device`` is not read.
     """
-    dev = resolve_device(device) if mesh is None else mesh.device(0)
+    dev = resolve_device(device) if mesh is None else mesh.home
     out = []
     for l in levels:
         lam = float(torch.as_tensor(np.asarray(l["lam_max"], np.float64)).to(dtype))

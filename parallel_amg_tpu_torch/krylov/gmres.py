@@ -21,7 +21,7 @@ part): each part holds its own (m+1, n_p) block of the basis and its
 (m, n_p) block of Z, the products ``Vj @ w`` are the per-part products
 summed over the parts (``exchange.psum``; one part is its own sum), and
 ``Vj.T @ h`` and ``Z.T @ y`` stay per part.  The small problem (H, g, y)
-lives on part 0's device.
+lives on the first local part's device, the same on every process.
 """
 
 from __future__ import annotations
@@ -90,8 +90,8 @@ def fgmres(A_matvec: Callable, b, M: Optional[Callable] = None,
     eye_eps = _EPS_BREAKDOWN * torch.eye(m, dtype=dtype, device=dev0)
 
     def project(V, j, w):
-        """(h on part 0's device, w − Vjᵀh per part) for basis rows 0..j
-        (the rest are zero)."""
+        """(h on the first part's device, w − Vjᵀh per part) for basis rows
+        0..j (the rest are zero)."""
         h = psum([Vp[:j + 1] @ wp for Vp, wp in zip(V, w)])
         return h, [wp - Vp[:j + 1].T @ h.to(wp.device) for Vp, wp in zip(V, w)]
 

@@ -27,6 +27,7 @@ import functools
 import torch
 
 from parallel_amg_tpu_torch.ops import _build
+from parallel_amg_tpu_torch.parallel.segment import segment_sum
 
 # kernel launches by C entry, counted in ``launch``; callers may reset them
 LAUNCHES = {"spgemm_expand": 0, "spgemm_dedup": 0, "spgemm_dedup_compact": 0}
@@ -110,14 +111,21 @@ def merge_rows_plain(cc, cv, sent: int):
     """(leader, sums) of one block of candidate rows, plain torch.
 
     E[r, k, j] = (col k == col j) for valid slots; slot j leads when no
-    earlier slot k < j has its column; sums[r, j] = Σ_k vals[k]·E[k, j].
+    earlier slot k < j has its column.  sums[r, j] at a leader j is the sum
+    of its column's values added one after another in ascending slot order,
+    as ``merge_kernel`` adds them, so the two agree bit for bit; at other
+    slots it is 0.
     """
-    K = cc.shape[1]
+    R, K = cc.shape
     valid = cc != sent
     E = (cc[:, :, None] == cc[:, None, :]) & valid[:, :, None]
     earlier = torch.ones((K, K), dtype=torch.bool, device=cc.device).triu(1)
     leader = valid & ~(E & earlier).any(1)
-    sums = (cv[:, :, None] * E).sum(1)
+    # each valid slot's leader: the first slot k with its column
+    lead_of = E.to(torch.uint8).argmax(1)
+    rows = torch.arange(R, device=cc.device)[:, None] * K
+    ids = torch.where(valid, rows + lead_of, R * K)
+    sums = segment_sum(cv, ids, R * K + 1)[: R * K].reshape(R, K)
     return leader, sums
 
 

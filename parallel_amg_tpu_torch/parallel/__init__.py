@@ -10,9 +10,11 @@ distributed vectors (``pvector``), host and on-device COO assembly
 (``assembly``, ``passembly_device``), and the distributed setups
 (``psetup``: the oracle frozen to PCSR levels; ``prs_setup``: Ruge–Stüben
 on the parts' devices; ``psa_setup``: smoothed aggregation on the parts'
-devices, their products on kernels B3, B5 and B4).  Every collective goes
-through ``exchange``.  One process holds every part; multi-process runs are
-not ported (``runtime_init``).
+devices, their products on kernels B3, B5 and B4).  Every copy between
+parts goes through ``exchange``.  One process may hold every part, or
+``runtime_init`` joins several processes over ``torch.distributed`` and each
+holds a contiguous block of the parts (``RowMesh.local``); ``launch.spawn``
+runs a function on such a group of processes.
 """
 
 from parallel_amg_tpu_torch.parallel.mesh import (

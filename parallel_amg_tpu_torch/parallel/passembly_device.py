@@ -150,7 +150,8 @@ def _assemble_part(me, rr, cc, vv, *, S, m, mc, Wd, Wo, G, C):
 
 
 def _per_part(a, mesh, dtype):
-    """Per-part 1-D tensors from a PGrid, a list, or an (S, T) array."""
+    """This process's 1-D triplet blocks from a PGrid, a list of every
+    part's or of the local parts' blocks, or an (S, T) array."""
     if isinstance(a, PGrid):
         parts = a.parts
     elif isinstance(a, (list, tuple)):
@@ -158,11 +159,13 @@ def _per_part(a, mesh, dtype):
     else:
         t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
         parts = list(t.unbind(0))
-    if len(parts) != mesh.size:
+    if len(parts) == mesh.size:
+        parts = [parts[p] for p in mesh.local]
+    elif len(parts) != mesh.n_local:
         raise ValueError(f"need one triplet block per part: {len(parts)} blocks, "
                          f"{mesh.size} parts")
-    return [p.reshape(-1).to(device=mesh.device(i), dtype=dtype)
-            for i, p in enumerate(parts)]
+    return [b.reshape(-1).to(device=mesh.device(p), dtype=dtype)
+            for b, p in zip(parts, mesh.local)]
 
 
 def pcsr_from_coo_device(rows, cols, vals, shape, mesh, *,
@@ -185,7 +188,7 @@ def pcsr_from_coo_device(rows, cols, vals, shape, mesh, *,
     rows = _per_part(rows, mesh, torch.long)
     cols = _per_part(cols, mesh, torch.long)
     vals = _per_part(vals, mesh, dtype)
-    T = max(r.numel() for r in rows)
+    T = exchange.max_int([r.numel() for r in rows], rows[0].device)
     m = rows_per_shard or -(-n_rows // S)
     mc = m if n_rows == n_cols else -(-n_cols // S)
     K = route_capacity or T
@@ -198,21 +201,21 @@ def pcsr_from_coo_device(rows, cols, vals, shape, mesh, *,
     rr = [x.reshape(-1) for x in exchange.all_to_all([t[0] for t in routed])]
     cc = [x.reshape(-1) for x in exchange.all_to_all([t[1] for t in routed])]
     vv = [x.reshape(-1) for x in exchange.all_to_all([t[2] for t in routed])]
-    parts = [_assemble_part(p, rr[p], cc[p], vv[p], S=S, m=m, mc=mc,
+    parts = [_assemble_part(p, rr[i], cc[i], vv[i], S=S, m=m, mc=mc,
                             Wd=ell_width, Wo=off_width, G=G, C=C)
-             for p in range(S)]
+             for i, p in enumerate(mesh.local)]
     send_idx = exchange.all_to_all([t[5] for t in parts])
     dc, dv, oc, ov = ([t[i] for t in parts] for i in range(4))
     rmap = [t[4] for t in parts]
 
     if pad_identity and n_rows == n_cols:
-        for p in range(S):
-            r = torch.arange(m, device=dc[p].device)
+        for i, p in enumerate(mesh.local):
+            r = torch.arange(m, device=dc[i].device)
             is_pad = (p * m + r) >= n_rows
-            dc[p][:, 0] = torch.where(is_pad, r, dc[p][:, 0])
-            dv[p][:, 0] = torch.where(is_pad, torch.ones((), dtype=dtype,
-                                                         device=dv[p].device),
-                                      dv[p][:, 0])
+            dc[i][:, 0] = torch.where(is_pad, r, dc[i][:, 0])
+            dv[i][:, 0] = torch.where(is_pad, torch.ones((), dtype=dtype,
+                                                         device=dv[i].device),
+                                      dv[i][:, 0])
 
     # one host read: the overflow counts and the plan's true extents
     of = exchange.psum([torch.cat([t[3].reshape(1), x[6]]) for t, x in
@@ -229,11 +232,12 @@ def pcsr_from_coo_device(rows, cols, vals, shape, mesh, *,
     # exchange pay for the allowance (and setups that size the next level's
     # capacity from this G would compound it).  Ghost slots are a per-part
     # prefix by construction, so slicing is exact.
-    rmap_np = np.stack([t.cpu().numpy() for t in rmap])
-    valid = rmap_np < S * C
-    G_true = max(int(valid.sum(axis=1).max()), 1)
-    C_true = (max(int((rmap_np[valid] % C).max()) + 1, 1)
-              if valid.any() else 1)
+    ext = []
+    for t in rmap:
+        valid = t < S * C
+        ext.append(torch.stack([valid.sum(),
+                                torch.where(valid, t % C + 1, 0).max().long()]))
+    G_true, C_true = (max(int(e), 1) for e in exchange.pmax(ext).cpu())
     if G_true < G or C_true < C:
         rmap = [torch.where(t < S * C, torch.div(t, C, rounding_mode="floor") * C_true
                             + t % C, S * C_true)[:G_true] for t in rmap]

@@ -5,8 +5,10 @@ analog, SURVEY.md §1 L3).  Each part of a row mesh stores its row block as
 two padded ELL planes: the **diag block** (columns owned by the same part,
 local indices) and the **offdiag block** (columns resolved through a ghost
 buffer that a static halo plan fills).  Every field the JAX class carries
-with a leading shard axis is here a list with one tensor per part, on
-``mesh.device(p)``; vectors are 1-D PGrids (``parallel/pvector.py``).
+with a leading shard axis is here a list with one tensor per part this
+process holds (``mesh.local``), on ``mesh.device(p)``; vectors are 1-D
+PGrids (``parallel/pvector.py``).  Plans are built from the global part
+count, so every process builds the same ones.
 
 ``matvec`` is: send-window gather → ``exchange.all_to_all`` (or the ring
 shifts of ``with_neighbor_plan``) → ghost gather → y = diag·x_local +
@@ -33,18 +35,18 @@ from parallel_amg_tpu_torch.parallel.pgrid import PGrid
 
 
 def _split(a, mesh, dtype=None):
-    """Per-part tensors from an (S, ...) host array (copied: the array may be
-    read-only)."""
+    """This process's per-part tensors from an (S, ...) host array (copied:
+    the array may be read-only)."""
     out = []
-    for p in range(mesh.size):
+    for p in mesh.local:
         t = torch.from_numpy(np.array(a[p]))
         out.append((t if dtype is None else t.to(dtype)).to(mesh.device(p)))
     return out
 
 
 def _host(parts):
-    """(S, ...) numpy array of per-part tensors."""
-    return np.stack([t.cpu().numpy() for t in parts])
+    """(S, ...) numpy array of every part's tensor (``exchange.all_gather``)."""
+    return np.stack([t.cpu().numpy() for t in exchange.all_gather(parts)])
 
 
 def _partition_numpy(indptr, indices, data, n_rows, S, m, mc, col_part):
@@ -92,7 +94,7 @@ def _partition_numpy(indptr, indices, data, n_rows, S, m, mc, col_part):
 class PCSR:
     """Distributed sparse matrix over a row mesh.
 
-    Array fields are lists with one tensor per part.  ``shape`` is the PADDED
+    Array fields are lists with one tensor per local part.  ``shape`` is the PADDED
     global shape (S·m_row, S·m_col), so vectors align without ragged
     handling; ``true_shape`` keeps the logical dimensions.
     """
@@ -171,8 +173,8 @@ class PCSR:
     @property
     def nnz(self) -> int:
         """Stored nonzeros over all parts (one host read)."""
-        return int(sum(int((d != 0).sum()) + int((o != 0).sum())
-                       for d, o in zip(self.diag_vals, self.off_vals)))
+        return int(exchange.psum([(d != 0).sum() + (o != 0).sum()
+                                  for d, o in zip(self.diag_vals, self.off_vals)]))
 
     # -- construction -----------------------------------------------------
     @classmethod
@@ -346,13 +348,12 @@ class PCSR:
         plan; B1 per part on the card, the plain gather-sum on the CPU."""
         g = self.ghosts(x)
         out = []
-        for p in range(self.n_shards):
-            xl = x.parts[p]
+        for i, xl in enumerate(x.parts):
             if xl.device.type == "cpu":
-                out.append((self.diag_vals[p] * xl[self.diag_cols[p].long()]).sum(1)
-                           + (self.off_vals[p] * g[p][self.off_cols[p].long()]).sum(1))
+                out.append((self.diag_vals[i] * xl[self.diag_cols[i].long()]).sum(1)
+                           + (self.off_vals[i] * g[i][self.off_cols[i].long()]).sum(1))
             else:
-                out.append(self.twell_parts()[p].matvec(torch.cat([xl, g[p]])))
+                out.append(self.twell_parts()[i].matvec(torch.cat([xl, g[i]])))
         return PGrid(out, self.mesh)
 
     def __matmul__(self, x):
@@ -363,7 +364,7 @@ class PCSR:
         when this operator is a prolongation)."""
         mc = self.col_partition.rows_per_shard
         return PGrid([torch.zeros(mc, dtype=dtype, device=self.mesh.device(p))
-                      for p in range(self.n_shards)], self.mesh)
+                      for p in self.mesh.local], self.mesh)
 
     # -- ghost exchange primitives (the consistent!/assemble! analogs) ----
     def consistent(self, x: PGrid) -> PGrid:
@@ -386,11 +387,11 @@ class PCSR:
             bufs.append(buf.reshape(S, C))
         recv = exchange.all_to_all(bufs)
         out = []
-        for p, (r, sidx) in enumerate(zip(recv, self.send_idx)):
-            # recv[src, j] adds at local index send_idx[p][src, j]; padded
+        for i, (r, sidx) in enumerate(zip(recv, self.send_idx)):
+            # recv[src, j] adds at local index send_idx[i][src, j]; padded
             # slots carry zeros, so the plain segment sum is safe
             add = segment_sum(r.reshape(-1), sidx.reshape(-1), mc)
-            out.append(add if y is None else y.parts[p] + add)
+            out.append(add if y is None else y.parts[i] + add)
         return PGrid(out, self.mesh)
 
     # -- host round-trip and repartitioning --------------------------------
@@ -411,8 +412,8 @@ class PCSR:
         return out
 
     def to_csr(self):
-        """Reconstruct the global host CSR (strips padding; entries whose
-        value is exactly 0 drop)."""
+        """Reconstruct the global host CSR on every process (strips padding;
+        entries whose value is exactly 0 drop)."""
         from parallel_amg_tpu_torch.ops.coo import COO
 
         rows, cols, vals = self.to_triplets()
@@ -434,15 +435,15 @@ class PCSR:
         n_rows = self.true_shape[0]
         gids = self.ghost_gids()
         R, Cc, V = [], [], []
-        for p in range(self.n_shards):
-            dc, dv = self.diag_cols[p], self.diag_vals[p]
-            oc, ov = self.off_cols[p], self.off_vals[p]
+        for i, p in enumerate(self.mesh.local):
+            dc, dv = self.diag_cols[i], self.diag_vals[i]
+            oc, ov = self.off_cols[i], self.off_vals[i]
             dev = dc.device
             gr = p * m + torch.arange(m, device=dev)
             live = (gr < n_rows)[:, None]
             c_d = p * mc + dc.long()
             ok_d = (dv != 0) & live
-            c_o = gids[p][oc.long()]
+            c_o = gids[i][oc.long()]
             ok_o = (ov != 0) & live & (c_o >= 0)
             r_d = gr[:, None].expand(dc.shape)
             r_o = gr[:, None].expand(oc.shape)
@@ -464,8 +465,9 @@ class PCSR:
         - same mesh (re-balance / re-align rows_per_shard): triplet recovery
           (``to_triplets``) + owner routing (``pcsr_from_coo_device``);
         - another mesh (e.g. shrink a coarse level to fewer parts): the
-          per-part triplet blocks are re-blocked for the target part count
-          and copied to its devices, then assembled there.
+          per-part triplet blocks are gathered (``exchange.all_gather``),
+          re-blocked for the target part count, and each process keeps its
+          blocks, then assembled there.
 
         Only ``col_partition`` (a bespoke column split) still goes through
         the host rebuild, and that path rejects the device-only arguments.
@@ -488,11 +490,11 @@ class PCSR:
         if mesh is not self.mesh:
             S_new = mesh.size
             dev0 = rows.device
-            total = sum(p.numel() for p in rows.parts)
+            total = rows.parts[0].numel() * self.mesh.size
             pad = (-total) % S_new
 
             def reblock(g, fill):
-                flat = torch.cat([p.to(dev0) for p in g.parts])
+                flat = torch.cat(exchange.all_gather(g.parts))
                 if pad:
                     flat = torch.cat([flat, torch.full((pad,), fill,
                                                        dtype=flat.dtype,

@@ -5,17 +5,18 @@ the ≥100M-DOF configuration: the fine operator is born on the devices as
 sharded stencil planes (``poisson_stencil_sharded``), and every level's
 Galerkin triple product runs part by part: each part computes its axis-0
 slab of the coarse operator from its weight planes extended by its
-neighbors' halo planes (copies, where the JAX package runs two ``ppermute``
-exchanges).  No global matrix is ever assembled.
+neighbors' halo planes (``exchange.halos``, where the JAX package runs two
+``ppermute`` exchanges).  No global matrix is ever assembled.
 
 Level layout (as ``parallel/pstructured.py``): axis 0 is padded so every
 part owns whole aggregation blocks at every sharded level; padding rows
 carry identity diagonals and are masked out of the tentative aggregates, so
 they stay exactly zero through the solve.  Once a level is small enough
 (``config.agglomerate_n``) or its slab can no longer split evenly, the tiny
-operator is gathered on part 0's device and the remaining levels are built
-there by the single-device engine (``amg/device_setup.py``) — the
-agglomeration of the JAX package, whose tail is replicated on every chip.
+operator is gathered on every process (``mesh.home``) and the remaining
+levels are built there by the single-device engine (``amg/device_setup.py``)
+— the agglomeration of the JAX package, whose tail is replicated on every
+chip.
 
 The slab Galerkin kernel is the single-device one
 (``device_setup._slab_coarse_operator``, with its padding ``mask``).
@@ -33,6 +34,7 @@ from parallel_amg_tpu_torch.amg.hierarchy import Hierarchy, Level
 from parallel_amg_tpu_torch.amg.transfers import downsample_sum_nd
 from parallel_amg_tpu_torch.config import AMGConfig
 from parallel_amg_tpu_torch.ops.stencil import Stencil
+from parallel_amg_tpu_torch.parallel import exchange
 from parallel_amg_tpu_torch.parallel.pgrid import PGrid, norm
 from parallel_amg_tpu_torch.parallel.pstencil import ShardedStencil, apply_halo_mode
 from parallel_amg_tpu_torch.parallel.pstructured import (
@@ -42,23 +44,24 @@ from parallel_amg_tpu_torch.parallel.pstructured import (
 
 
 # ---------------------------------------------------------------------------
-# halo extension of k planes along an array axis, by copies
+# halo extension of k planes along an array axis, through the exchange
 # ---------------------------------------------------------------------------
 
-def _halo_concat(parts, p: int, h: int, axis: int):
-    """Part p extended by h neighbor planes on both ends of ``axis`` (zero
-    planes at the grid's ends), on part p's device."""
-    x = parts[p]
+def _halos(parts, h: int, axis: int):
+    """Per local part its neighbours' h planes along ``axis``
+    (``exchange.halos``; None at the grid's ends), or None where h = 0."""
+    return exchange.halos(parts, h, axis) if h else [None] * len(parts)
+
+
+def _halo_concat(x, halos, h: int, axis: int):
+    """x extended by its (left, right) ``halos`` on both ends of ``axis``
+    (zero planes at the grid's ends)."""
     if h == 0:
         return x
-
-    def take(t, sl):
-        return t[(slice(None),) * axis + (sl,)].to(x.device)
-
-    zero = torch.zeros_like(take(x, slice(0, h)))
-    left = take(parts[p - 1], slice(-h, None)) if p > 0 else zero
-    right = take(parts[p + 1], slice(0, h)) if p < len(parts) - 1 else zero
-    return torch.cat([left, x, right], dim=axis)
+    left, right = halos
+    zero = torch.zeros_like(x[(slice(None),) * axis + (slice(0, h),)])
+    return torch.cat([zero if left is None else left, x,
+                      zero if right is None else right], dim=axis)
 
 
 _product_offsets = ds.product_offsets
@@ -95,10 +98,12 @@ def sharded_coarse_operator(A: ShardedStencil, d_inv: PGrid, coef, scale: PGrid,
     dims_slab = (m0 + 2 * halo,) + A.dims[1:]
     cdims_slab = (m0 // b,) + tuple(cdims[1:])
     parts = []
-    for p in range(mesh.size):
-        W_ext = _halo_concat(A.weights, p, halo, 1)
-        d_ext = _halo_concat(d_inv.parts, p, halo, 0)
-        sc_ext = _halo_concat(scale.parts, p, rc, 0)
+    hW, hd = _halos(A.weights, halo, 1), _halos(d_inv.parts, halo, 0)
+    hs = _halos(scale.parts, rc, 0)
+    for i, p in enumerate(mesh.local):
+        W_ext = _halo_concat(A.weights[i], hW[i], halo, 1)
+        d_ext = _halo_concat(d_inv.parts[i], hd[i], halo, 0)
+        sc_ext = _halo_concat(scale.parts[i], hs[i], rc, 0)
         gi = _local_rows(p, m0, -halo, m0 + 2 * halo, W_ext.device)
         mask = ((gi >= 0) & (gi < true_d0)).to(W_ext.dtype)
         mask = mask.reshape((-1,) + (1,) * (nd - 1))
@@ -120,8 +125,8 @@ def _sharded_sparsify_sym(A: ShardedStencil, tol: float) -> ShardedStencil:
     m0 = A.m0
     dims_ext = (m0 + 2 * h,) + A.dims[1:]
     parts = []
-    for p in range(A.mesh.size):
-        st = Stencil(_halo_concat(A.weights, p, h, 1), A.offsets, dims_ext)
+    for W, hw in zip(A.weights, _halos(A.weights, h, 1)):
+        st = Stencil(_halo_concat(W, hw, h, 1), A.offsets, dims_ext)
         st = ds.symmetrize_stencil(ds.sparsify_stencil(st, tol))
         parts.append(st.weights[:, h:h + m0].contiguous())
     return ShardedStencil(parts, tuple(offs), A.dims, A.mesh)
@@ -129,10 +134,10 @@ def _sharded_sparsify_sym(A: ShardedStencil, tol: float) -> ShardedStencil:
 
 def _sharded_prune(A: ShardedStencil) -> ShardedStencil:
     """Drop offset planes that are zero on every part (one small host read
-    per part)."""
+    of the planes' norms over all parts)."""
     nd = len(A.dims)
-    norms = sum(W.abs().sum(dim=tuple(range(1, 1 + nd))).cpu()
-                for W in A.weights)
+    norms = exchange.psum([W.abs().sum(dim=tuple(range(1, 1 + nd)))
+                           for W in A.weights]).cpu()
     keep = (norms > 0).numpy()
     keep[A.offsets.index(tuple(0 for _ in range(nd)))] = True
     if keep.all():
@@ -164,7 +169,7 @@ def _sharded_counts(pdims, true_d0, cdims, block, mesh, dtype) -> PGrid:
     m0 = pdims[0] // mesh.size
     local_cdims = (cdims[0] // mesh.size,) + tuple(cdims[1:])
     parts = []
-    for p in range(mesh.size):
+    for p in mesh.local:
         gi = _local_rows(p, m0, 0, m0, mesh.device(p))
         mask = (gi < true_d0).to(dtype).reshape((-1,) + (1,) * (nd - 1))
         field = mask.expand((m0,) + tuple(pdims[1:]))
@@ -182,7 +187,7 @@ def _sharded_power(A: ShardedStencil, d_inv: PGrid, iters: int, seed: int = 0):
     vector is ``device_setup.start_vector`` over the padded global dims,
     split into parts, so it is the single-device engine's draw."""
     x = PGrid.from_global(ds.start_vector(A.dims, A.weights[0].dtype,
-                                          A.mesh.device(0), seed), A.mesh)
+                                          A.mesh.home, seed), A.mesh)
     lam = torch.ones((), dtype=x.dtype, device=x.device)
     for _ in range(iters):
         y = d_inv * A.matvec(x)
@@ -194,13 +199,13 @@ def _sharded_power(A: ShardedStencil, d_inv: PGrid, iters: int, seed: int = 0):
 
 # ---------------------------------------------------------------------------
 # transfers across the agglomeration boundary (sharded padded fine grid ↔
-# the true-dims coarse grid on part 0's device)
+# the true-dims coarse grid replicated on every process's mesh.home)
 # ---------------------------------------------------------------------------
 
 class SBoundaryProlongator:
-    """P across the agglomeration boundary: true-dims coarse grid on part
-    0's device → sharded padded fine grid (zero-pad axis 0, split over the
-    parts, then the SBlock P)."""
+    """P across the agglomeration boundary: true-dims coarse grid on
+    ``mesh.home`` → sharded padded fine grid (zero-pad axis 0, split over
+    the parts, then the SBlock P)."""
 
     def __init__(self, inner: SBlockProlongator, true_cdims):
         self.inner = inner
@@ -216,7 +221,7 @@ class SBoundaryProlongator:
 
     def zeros_coarse(self, dtype):
         return torch.zeros(self.true_cdims, dtype=dtype,
-                           device=self.inner.mesh.device(0))
+                           device=self.inner.mesh.home)
 
     def matvec(self, xc):
         return self.matvec_linked(self.inner.A, self.inner.d_inv, xc)
@@ -233,8 +238,8 @@ class SBoundaryProlongator:
 
 class SBoundaryRestrictor:
     """R across the agglomeration boundary: sharded padded fine residual →
-    true-dims coarse right-hand side gathered on part 0's device (SBlock R,
-    gather, crop)."""
+    true-dims coarse right-hand side gathered on every process's
+    ``mesh.home`` (SBlock R, gather, crop)."""
 
     def __init__(self, inner: SBlockRestrictor, true_cdims):
         self.inner = inner
@@ -328,7 +333,7 @@ def _sharded_stencil_nd(dims, d0p, mesh, axis_weights, diag_val,
         return (lo + torch.arange(n, device=dev)).reshape(shape)
 
     parts = []
-    for p in range(mesh.size):
+    for p in mesh.local:
         dev = mesh.device(p)
         one = torch.ones((), dtype=dtype, device=dev)
         zero = torch.zeros((), dtype=dtype, device=dev)
@@ -388,8 +393,8 @@ def sharded_device_setup(A, config: AMGConfig, mesh=None, true_dims=None,
     Per level: d⁻¹ and λ_max(D⁻¹A) on the sharded operator, then the slab
     Galerkin kernel part by part; once the next level would be smaller than
     ``config.agglomerate_n`` (or its slab can no longer split evenly) the
-    operator is gathered on part 0's device and the remaining levels are
-    built there by the single-device engine.  ``setup_stats`` holds the
+    operator is gathered on every process and the remaining levels are
+    built there by the single-device engine, replicated.  ``setup_stats`` holds the
     number of sharded levels and the tail's product paths.
     """
     if not (config.coarsening == "sa" and config.aggregate == "block"):
@@ -451,7 +456,7 @@ def sharded_device_setup(A, config: AMGConfig, mesh=None, true_dims=None,
         A = A_c
         true_d = nxt_true
 
-    # gather the (tiny) remaining operator on part 0's device and build the
+    # gather the (tiny) remaining operator on every process and build the
     # tail there with the single-device engine
     W_tail = A.global_weights()[:, :true_d[0]].contiguous()
     A_tail = Stencil(W_tail, A.offsets, (true_d[0],) + tuple(A.dims[1:]))

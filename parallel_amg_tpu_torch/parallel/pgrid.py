@@ -2,9 +2,10 @@
 
 What ``NamedSharding(mesh, P(ROW_AXIS))`` gives a grid array in the JAX
 package (``parallel/pstructured.py``): part p holds axis-0 planes
-[p·m0, (p+1)·m0) of the padded global grid, on ``mesh.device(p)``.
-Elementwise arithmetic runs part by part; ``dot`` and ``norm`` reduce the
-per-part partials on part 0's device (the ``psum``).
+[p·m0, (p+1)·m0) of the padded global grid, on ``mesh.device(p)``, and a
+process holds the parts ``mesh.local`` only.  Elementwise arithmetic runs
+part by part; ``dot`` and ``norm`` reduce the per-part partials through
+``exchange``, the same value on every process.
 
 The cycle, the smoothers and PCG take a PGrid wherever they take a tensor,
 through the helpers at the end of this module (``vdot``, ``norm``,
@@ -17,22 +18,26 @@ import numbers
 
 import torch
 
+from parallel_amg_tpu_torch.parallel import exchange
+
 
 class PGrid:
-    """Per-part axis-0 slabs of one padded global grid."""
+    """Per-part axis-0 slabs of one padded global grid: ``parts[i]`` is
+    global part ``mesh.local[i]``."""
 
     def __init__(self, parts, mesh):
         self.parts = list(parts)
         self.mesh = mesh
-        if len(self.parts) != mesh.size:
-            raise ValueError(f"{len(self.parts)} parts on a mesh of {mesh.size}")
+        if len(self.parts) != mesh.n_local:
+            raise ValueError(f"{len(self.parts)} parts where this process holds "
+                             f"{mesh.n_local} of a mesh of {mesh.size}")
 
     # -- layout ------------------------------------------------------------
     @property
     def shape(self):
         """The padded global dims."""
-        rest = tuple(self.parts[0].shape[1:])
-        return (sum(p.shape[0] for p in self.parts),) + rest
+        return (self.parts[0].shape[0] * self.mesh.size,) + tuple(
+            self.parts[0].shape[1:])
 
     @property
     def ndim(self) -> int:
@@ -44,24 +49,27 @@ class PGrid:
 
     @property
     def device(self) -> torch.device:
-        """Part 0's device, where reductions land."""
+        """The first local part's device, where reductions land."""
         return self.parts[0].device
 
     @classmethod
     def from_global(cls, v, mesh) -> "PGrid":
-        """Split a global grid tensor into equal axis-0 parts on the mesh."""
+        """Split a global grid tensor (the same on every process) into equal
+        axis-0 parts and keep this process's."""
         S = mesh.size
         if v.shape[0] % S:
             raise ValueError(f"axis 0 of {tuple(v.shape)} does not split into "
                              f"{S} equal parts")
         m0 = v.shape[0] // S
         return cls([v[p * m0:(p + 1) * m0].to(mesh.device(p)).contiguous()
-                    for p in range(S)], mesh)
+                    for p in mesh.local], mesh)
 
     def to_global(self, device=None):
-        """The whole grid as one tensor on ``device`` (part 0's when None)."""
+        """The whole grid as one tensor on ``device`` (the first local
+        part's when None), on every process (``exchange.all_gather``)."""
         dev = self.device if device is None else torch.device(device)
-        return torch.cat([p.to(dev) for p in self.parts], dim=0)
+        return torch.cat([p.to(dev) for p in exchange.all_gather(self.parts)],
+                         dim=0)
 
     def zeros_like(self) -> "PGrid":
         return PGrid([torch.zeros_like(p) for p in self.parts], self.mesh)
@@ -123,17 +131,15 @@ class PGrid:
 
     # -- reductions (the psum) ---------------------------------------------
     def dot(self, other: "PGrid"):
-        """Σ_p vdot(part p, other's part p), summed on part 0's device."""
-        dev = self.device
-        partial = [torch.vdot(a.reshape(-1), b.reshape(-1)).to(dev)
-                   for a, b in zip(self.parts, other.parts)]
-        return torch.stack(partial).sum()
+        """Σ_p vdot(part p, other's part p), summed in part order
+        (``exchange.psum``)."""
+        return exchange.psum([torch.vdot(a.reshape(-1), b.reshape(-1))
+                              for a, b in zip(self.parts, other.parts)])
 
     def norm(self):
-        """2-norm: the norm of the per-part norms, on part 0's device."""
-        dev = self.device
-        return torch.linalg.norm(torch.stack(
-            [torch.linalg.norm(p).to(dev) for p in self.parts]))
+        """2-norm: the norm of the per-part norms, gathered in part order."""
+        return torch.linalg.norm(torch.stack(exchange.all_gather(
+            [torch.linalg.norm(p) for p in self.parts])))
 
 
 # -- helpers the solve path calls on tensors and PGrids alike -----------------

@@ -8,31 +8,29 @@ on the semaphores, boundary corrections.
 
 Where the parts lie picks the CUDA path, not a flag:
 
-- **All parts on one card** (``make_row_mesh(S)`` with one card): one launch
-  of ``halo_stencil_matvec`` (``csrc/halo_stencil.cu``) per matvec computes
-  every part.  A part table passed by value holds each part's W, x and y and
-  its neighbors' x slabs; the halo terms read the neighbor's boundary planes
-  in place, so there are no copies, streams or events.  The W pointers of
-  the table are built once and kept on the ShardedStencil; y is one buffer
-  viewed per part.
-- **Parts on several cards**: the copy-stream path (``matvec_copy_streams``)
-  keeps the JAX kernel's overlap with streams and events:
+- **All parts on one card in one process** (``make_row_mesh(S)`` with one
+  card): one launch of ``halo_stencil_matvec`` (``csrc/halo_stencil.cu``)
+  per matvec computes every part.  A part table passed by value holds each
+  part's W, x and y and its neighbors' x slabs; the halo terms read the
+  neighbor's boundary planes in place, so there are no copies, streams or
+  events.  The W pointers of the table are built once and kept on the
+  ShardedStencil; y is one buffer viewed per part.
+- **Parts on several cards or processes**: the exchange path
+  (``matvec_copy_streams``) keeps the JAX kernel's overlap:
 
-  1. each device's copy stream waits on the compute (current) stream, so x
-     is ready;
-  2. on the copy stream, each part's landing buffers take the neighbors' h
-     boundary planes (``copy_(…, non_blocking=True)``), and an event is
-     recorded per part;
-  3. the compute stream launches every part's interior kernel
-     (``halo_stencil_interior``);
-  4. the compute stream waits on each part's event and launches its boundary
-     kernel (``halo_stencil_boundary``).
+  1. ``exchange.start_halos`` starts the halo exchange: planes bound for
+     another card are copied on its copy stream, and planes bound for
+     another process are staged to the host on a side stream (gloo);
+  2. the compute stream launches the interior kernel
+     (``halo_stencil_interior``) of every part that has a halo to wait for;
+  3. the halos arrive (``wait``: the point-to-point messages between
+     processes, the copy streams' events) and each such part's boundary
+     kernel (``halo_stencil_boundary``) runs.
 
-  The landing buffers are allocated on the compute stream before step 1, so
-  the copy stream waits for every earlier user of their memory, and
-  ``record_stream`` marks them and the source slabs as used by the copy
-  stream.  The parts at the grid's two ends get the zero halo (a null
-  pointer).
+  In a multi-process run the local parts whose neighbours all lie in the
+  same process and on one card take one ``halo_stencil_matvec`` launch
+  between steps 1 and 2, as on one card.  The parts at the grid's two ends
+  get the zero halo (a null pointer).
 
 Every sum is taken in a fixed order, so the result does not depend on timing,
 and both paths equal the "xla" path bit for bit.  On the CPU each part runs
@@ -49,11 +47,11 @@ import functools
 import torch
 
 from parallel_amg_tpu_torch.ops import _build
+from parallel_amg_tpu_torch.parallel import exchange
 from parallel_amg_tpu_torch.parallel.pgrid import PGrid
 from parallel_amg_tpu_torch.parallel.pstencil import (
     ShardedStencil,
     boundary_plain,
-    halo_planes,
     interior_plain,
 )
 
@@ -189,67 +187,46 @@ def stencil_boundary(y, W, left, right, offsets, h: int):
     return y
 
 
-@functools.cache
-def _copy_stream(index: int):
-    return torch.cuda.Stream(device=index)
-
-
-def matvec_copy_streams(A: ShardedStencil, x: PGrid) -> PGrid:
-    """The several-card path, steps 1–4 of the module docstring over every
-    part: two launches per part, the halo planes copied between them.  It
-    runs on one card too (the parts' copies are then device-local)."""
+def matvec_copy_streams(A: ShardedStencil, x: PGrid, one_launch=()) -> PGrid:
+    """The exchange path, steps 1–3 of the module docstring: two launches
+    per part, the halo exchange between them.  The local parts at the
+    positions ``one_launch`` (neighbours all local, on one card) take one
+    ``halo_stencil_matvec`` launch instead.  It runs on one card too (the
+    halos are then views of the neighbours' slabs)."""
     h, offsets, parts = A.halo, A.offsets, x.parts
-    S = len(parts)
-    rest = tuple(parts[0].shape[1:])
-    # landing buffers first, on the compute streams (see the docstring)
-    lands = [(None if p == 0 else torch.empty((h,) + rest, device=xl.device),
-              None if p == S - 1 else torch.empty((h,) + rest, device=xl.device))
-             for p, xl in enumerate(parts)]
-    ready = {}
-    for xl in parts:
-        if xl.device not in ready:
-            ready[xl.device] = torch.cuda.current_stream(xl.device).record_event()
-    landed = []
-    for p, xl in enumerate(parts):
-        cs = _copy_stream(xl.device.index)
-        for q in (p - 1, p, p + 1):
-            if 0 <= q < S:
-                cs.wait_event(ready[parts[q].device])
-        left, right = lands[p]
-        with torch.cuda.stream(cs):
-            if left is not None:
-                left.copy_(parts[p - 1][-h:], non_blocking=True)
-                left.record_stream(cs)
-                parts[p - 1].record_stream(cs)
-            if right is not None:
-                right.copy_(parts[p + 1][:h], non_blocking=True)
-                right.record_stream(cs)
-                parts[p + 1].record_stream(cs)
-            landed.append(cs.record_event())
-    ys = [stencil_interior(W, xl, offsets, h)
-          for W, xl in zip(A.weights, parts)]
-    for p, (W, y) in enumerate(zip(A.weights, ys)):
-        torch.cuda.current_stream(y.device).wait_event(landed[p])
-        stencil_boundary(y, W, *lands[p], offsets, h)
+    pending = exchange.start_halos(parts, h)
+    ys = [None] * len(parts)
+    if one_launch:
+        for i, y in zip(one_launch, one_launch_parts(A, x, one_launch)):
+            ys[i] = y
+    split = [i for i in range(len(parts)) if ys[i] is None]
+    for i in split:
+        ys[i] = stencil_interior(A.weights[i], parts[i], offsets, h)
+    halos = pending.wait()
+    for i in split:
+        stencil_boundary(ys[i], A.weights[i], *halos[i], offsets, h)
     return PGrid(ys, A.mesh)
 
 
 class _LaunchTable:
-    """What a one-card launch of A needs that does not change between
-    matvecs: the part tables (one per group of MAX_PARTS parts) with their W
-    pointers, the offsets, the (n1, n2) plane and whether W allows the
-    four-points-a-thread route.  Built once and kept on A."""
+    """What a one-card launch of A's local parts at the positions ``which``
+    needs that does not change between matvecs: the part tables (one per
+    group of MAX_PARTS parts) with their W pointers, the offsets, the (n1,
+    n2) plane and whether W allows the four-points-a-thread route.  Built
+    once and kept on A."""
 
-    def __init__(self, A: ShardedStencil):
-        self.device = A.weights[0].device
+    def __init__(self, A: ShardedStencil, which):
+        self.which = tuple(which)
+        weights = [A.weights[i] for i in self.which]
+        self.device = weights[0].device
         (self.n1, self.n2), offs3 = grid3(A.dims[1:], A.offsets)
         self.offsets = _offsets_struct(offs3)
         self.slab = (A.m0,) + tuple(A.dims[1:])
-        for W in A.weights:
+        for W in weights:
             _check_weights(W, self.slab, A.offsets, self.device)
-        self.tables = part_tables(A.weights)
+        self.tables = part_tables(weights)
         self.vec = self.n2 % 4 == 0 and all(W.data_ptr() % 16 == 0
-                                            for W in A.weights)
+                                            for W in weights)
 
 
 def part_tables(weights):
@@ -264,29 +241,39 @@ def part_tables(weights):
     return tables
 
 
-def fill_tables(tables, xs, y_ptr: int, step: int):
+def fill_tables(tables, xs, y_ptr: int, step: int, lefts=None, rights=None):
     """Fill the x, y and neighbor pointers of the part ``tables`` for the
-    slabs ``xs`` and the parts' y at ``y_ptr + p·step``: the left neighbor
-    of part p is part p − 1's slab, the right one part p + 1's, null at the
-    grid's ends.  Returns the slabs' pointers."""
-    S = len(xs)
+    slabs ``xs`` and the parts' y at ``y_ptr + p·step``: by default the
+    left neighbor of part p is part p − 1's slab, the right one part
+    p + 1's, null at the grid's ends; ``lefts`` and ``rights`` give them per
+    part instead.  Returns the slabs' pointers."""
     ptrs = [xl.data_ptr() for xl in xs]
+    if lefts is None:
+        lefts = [None] + ptrs[:-1]
+        rights = ptrs[1:] + [None]
     for c0, t in tables:
         k = t.count
         t.x[:k] = ptrs[c0:c0 + k]
         t.y[:k] = [y_ptr + p * step for p in range(c0, c0 + k)]
-        t.left[:k] = [ptrs[p - 1] if p > 0 else None for p in range(c0, c0 + k)]
-        t.right[:k] = [ptrs[p + 1] if p < S - 1 else None
-                       for p in range(c0, c0 + k)]
+        t.left[:k] = lefts[c0:c0 + k]
+        t.right[:k] = rights[c0:c0 + k]
     return ptrs
 
 
 def matvec_one_card(A: ShardedStencil, x: PGrid) -> PGrid:
     """Every part of A on one card, one ``halo_stencil_matvec`` launch per
     MAX_PARTS parts (one for every mesh up to 16 parts)."""
+    return PGrid(one_launch_parts(A, x, range(len(x.parts))), A.mesh)
+
+
+def one_launch_parts(A: ShardedStencil, x: PGrid, which):
+    """y of A's local parts at the positions ``which``, on one card with
+    their neighbours: one ``halo_stencil_matvec`` launch per MAX_PARTS of
+    them.  Returns their y, in the order of ``which``."""
+    which = tuple(which)
     lt = A.launch_table
-    if lt is None:
-        lt = A.launch_table = _LaunchTable(A)
+    if lt is None or lt.which != which:
+        lt = A.launch_table = _LaunchTable(A, which)
     dev, slab = lt.device, lt.slab
     if len(x.parts) != len(A.weights):
         raise ValueError(f"{len(x.parts)} slabs for {len(A.weights)} parts")
@@ -297,19 +284,36 @@ def matvec_one_card(A: ShardedStencil, x: PGrid) -> PGrid:
                              f"on {dev}, got {xl.dtype} {tuple(xl.shape)} on "
                              f"{xl.device}")
     m0 = slab[0]
-    y = torch.empty((len(x.parts) * m0,) + slab[1:], device=dev)
+    y = torch.empty((len(which) * m0,) + slab[1:], device=dev)
     step = 4 * m0 * lt.n1 * lt.n2
-    ptrs = fill_tables(lt.tables, x.parts, y.data_ptr(), step)
-    vec = int(lt.vec and all(p % 16 == 0 for p in ptrs))
+    local, S = list(A.mesh.local), A.mesh.size
+
+    def neighbour(i, d):
+        return None if not 0 <= local[i] + d < S else x.parts[i + d].data_ptr()
+
+    ptrs = fill_tables(lt.tables, [x.parts[i] for i in which], y.data_ptr(),
+                       step, [neighbour(i, -1) for i in which],
+                       [neighbour(i, 1) for i in which])
+    vec = int(lt.vec and all(p % 16 == 0 for p in ptrs)
+              and all(x.parts[i].data_ptr() % 16 == 0 for i in range(len(x.parts))))
     for _, t in lt.tables:
         _launch("halo_stencil_matvec", dev, t, m0, lt.n1, lt.n2, A.halo,
                 lt.offsets, vec)
-    return PGrid(list(y.split(m0)), A.mesh)
+    return list(y.split(m0))
+
+
+def _inner_parts(A: ShardedStencil):
+    """Positions of the local parts whose neighbours are local too."""
+    local, S = list(A.mesh.local), A.mesh.size
+    return tuple(i for i, p in enumerate(local)
+                 if all(q in A.mesh.local or not 0 <= q < S
+                        for q in (p - 1, p + 1)))
 
 
 def async_halo_matvec(A: ShardedStencil, x: PGrid) -> PGrid:
-    """y = A @ x by kernel B8: one launch for the parts on one card, the
-    copy-stream path for parts on several cards.
+    """y = A @ x by kernel B8: one launch for the parts on one card in one
+    process, the exchange path where parts lie on several cards or
+    processes (with one launch for the parts whose neighbours are local).
 
     The JAX package's rule stays: with no halo, one part, or a slab no
     thicker than the halo (m0 ≤ h: no interior to overlap with) the matvec
@@ -321,14 +325,11 @@ def async_halo_matvec(A: ShardedStencil, x: PGrid) -> PGrid:
         return ShardedStencil.matvec(A.with_halo_mode("xla"), x)
     kinds = {xl.device.type for xl in x.parts}
     if kinds == {"cpu"}:
-        out = []
-        for p, (W, xl) in enumerate(zip(A.weights, x.parts)):
-            y = stencil_interior(W, xl, A.offsets, h)
-            out.append(stencil_boundary(y, W, *halo_planes(x.parts, p, h),
-                                        A.offsets, h))
-        return PGrid(out, A.mesh)
+        return matvec_copy_streams(A, x)
     if kinds != {"cuda"}:
         raise ValueError(f"async_halo_matvec runs on cpu or cuda parts, not {kinds}")
-    if len({W.device for W in A.weights}) == 1:
+    if len({W.device for W in A.weights}) > 1:
+        return matvec_copy_streams(A, x)
+    if A.mesh.world == 1:
         return matvec_one_card(A, x)
-    return matvec_copy_streams(A, x)
+    return matvec_copy_streams(A, x, _inner_parts(A))

@@ -9,7 +9,10 @@ matrix exists anywhere in this call graph: the input is a PCSR (assemble one
 with ``passembly_device.pcsr_from_coo_device``), intermediates are per-part
 ELL planes with global column ids, and products are reassembled with the
 device assembly.  Where the JAX package runs one ``shard_map`` program per
-stage, the port runs the same body once per part, split at each exchange.
+stage, the port runs the same body once per part this process holds, split
+at each exchange; every host read that decides a shape or a loop is of a
+value reduced over all parts (``exchange.psum``, ``pmax``, ``max_int``), so
+every process takes the same branch.
 
 Communication pattern per stage:
 - strength: none (rowwise max over the local diag/off planes);
@@ -61,7 +64,7 @@ _NEG = -1e30
 
 # ---------------------------------------------------------------------------
 # exchange helpers over the dense halo plan; arguments and results are lists
-# with one tensor per part
+# with one tensor per local part
 # ---------------------------------------------------------------------------
 
 def _fetch(A: PCSR, xs, fill):
@@ -164,7 +167,7 @@ def pcsr_pmis(A: PCSR, Sd, So, seed: int = 0, max_rounds: int = 64,
     states (FINE/COARSE; diagonal-only rows FINE).  One host read of the
     undecided count per round; ``stats``, where given, receives the number
     of rounds."""
-    S = A.n_shards
+    S, L = A.n_shards, A.mesh.n_local
     m = A.row_partition.rows_per_shard
     G, C = A.G, A.C
     n_true = A.true_shape[0]
@@ -184,9 +187,9 @@ def pcsr_pmis(A: PCSR, Sd, So, seed: int = 0, max_rounds: int = 64,
         bufs.append(buf[: S * C].reshape(S, C))
     recv = exchange.all_to_all(bufs)
     w, state = [], []
-    for p, (r, sidx, sd, so) in enumerate(zip(recv, A.send_idx, Sd, So)):
+    for p, lc, r, sidx, sd, so in zip(A.mesh.local, loc, recv, A.send_idx, Sd, So):
         dev = r.device
-        infl = loc[p].clone().index_add_(0, sidx.reshape(-1).long(), r.reshape(-1))
+        infl = lc.clone().index_add_(0, sidx.reshape(-1).long(), r.reshape(-1))
         w.append(infl.to(torch.float32) + w_rand[p * m:(p + 1) * m].to(dev))
         live = (p * m + torch.arange(m, device=dev)) < n_true
         has_out = sd.any(1) | so.any(1)
@@ -202,32 +205,32 @@ def pcsr_pmis(A: PCSR, Sd, So, seed: int = 0, max_rounds: int = 64,
     while nund > 0 and rounds < max_rounds:
         st_g = _fetch(A, state, FINE)
         m1, gmax, und_l = [], [], []
-        for p in range(S):
-            dc, oc = A.diag_cols[p].long(), A.off_cols[p].long()
-            sd, so = Sd[p], So[p]
-            und = state[p] == UNDECIDED
-            und_g = st_g[p] == UNDECIDED
+        for i in range(L):
+            dc, oc = A.diag_cols[i].long(), A.off_cols[i].long()
+            sd, so = Sd[i], So[i]
+            und = state[i] == UNDECIDED
+            und_g = st_g[i] == UNDECIDED
             # m1: strongest undecided out-neighbor
-            m1d = torch.where(sd & und[dc], w[p][dc], _NEG).amax(1)
-            m1o = torch.where(so & und_g[oc], w_g[p][oc], _NEG).amax(1)
+            m1d = torch.where(sd & und[dc], w[i][dc], _NEG).amax(1)
+            m1o = torch.where(so & und_g[oc], w_g[i][oc], _NEG).amax(1)
             # m2: strongest undecided in-neighbor (reverse direction)
-            wrow = torch.where(und, w[p], _NEG)[:, None]
+            wrow = torch.where(und, w[i], _NEG)[:, None]
             m2d = segment_max(torch.where(sd, wrow, _NEG), dc, m, -float("inf"))
             gmax.append(segment_max(torch.where(so, wrow, _NEG), oc, G,
                                     -float("inf")))
             m1.append(torch.maximum(torch.maximum(m1d, m1o), m2d))
             und_l.append(und)
         m2o = _push_max(A, gmax, m)
-        state = [torch.where(und_l[p] & (w[p] > torch.maximum(m1[p], m2o[p])),
-                             COARSE, state[p]).to(torch.int32) for p in range(S)]
+        state = [torch.where(und_l[i] & (w[i] > torch.maximum(m1[i], m2o[i])),
+                             COARSE, state[i]).to(torch.int32) for i in range(L)]
         # F-assignment against the UPDATED neighbor states
         st_g2 = _fetch(A, state, FINE)
-        for p in range(S):
-            dc, oc = A.diag_cols[p].long(), A.off_cols[p].long()
-            dep_c = ((Sd[p] & (state[p][dc] == COARSE)).any(1)
-                     | (So[p] & (st_g2[p][oc] == COARSE)).any(1))
-            state[p] = torch.where((state[p] == UNDECIDED) & dep_c, FINE,
-                                   state[p]).to(torch.int32)
+        for i in range(L):
+            dc, oc = A.diag_cols[i].long(), A.off_cols[i].long()
+            dep_c = ((Sd[i] & (state[i][dc] == COARSE)).any(1)
+                     | (So[i] & (st_g2[i][oc] == COARSE)).any(1))
+            state[i] = torch.where((state[i] == UNDECIDED) & dep_c, FINE,
+                                   state[i]).to(torch.int32)
         rounds += 1
         nund = n_undecided(state)
     if stats is not None:
@@ -242,11 +245,10 @@ def coarse_numbering(A: PCSR, state: PGrid):
     Returns (cmap PGrid of per-part (m,) int32 with -1 on non-C rows,
     mc_pad, nc_true) — one small host read of the per-part counts."""
     is_c = [s == COARSE for s in state.parts]
-    dev0 = A.mesh.device(0)
-    counts = torch.stack([c.sum().to(dev0) for c in is_c]).cpu().numpy()
+    counts = torch.stack(exchange.all_gather([c.sum() for c in is_c])).cpu().numpy()
     mc_pad = max(int(counts.max()), 1)
     cmap = [torch.where(c, p * mc_pad + torch.cumsum(c.long(), 0) - 1, -1)
-            .to(torch.int32) for p, c in enumerate(is_c)]
+            .to(torch.int32) for p, c in zip(A.mesh.local, is_c)]
     return PGrid(cmap, A.mesh), mc_pad, int(counts.sum())
 
 
@@ -255,11 +257,11 @@ def coarse_numbering(A: PCSR, state: PGrid):
 # global-column planes, then assembled once
 # ---------------------------------------------------------------------------
 
-def _interp_direct_part(p, A: PCSR, sd, so, st_g, cm_g, state, cmap, *, m,
+def _interp_direct_part(i, A: PCSR, sd, so, st_g, cm_g, state, cmap, *, m,
                         k0, sentinel):
-    """Direct interpolation of part p's rows at width k0 (top-|w| and the
-    row-sum rescale), C rows the identity onto their own coarse id."""
-    dc, dv, oc, ov = A.diag_cols[p], A.diag_vals[p], A.off_cols[p], A.off_vals[p]
+    """Direct interpolation of local part i's rows at width k0 (top-|w| and
+    the row-sum rescale), C rows the identity onto their own coarse id."""
+    dc, dv, oc, ov = A.diag_cols[i], A.diag_vals[i], A.off_cols[i], A.off_vals[i]
     dcl, ocl = dc.long(), oc.long()
     dmask = dv != 0
     omask = ov != 0
@@ -318,7 +320,8 @@ def _interp_direct_part(p, A: PCSR, sd, so, st_g, cm_g, state, cmap, *, m,
 
 
 def _triplets(p, pc, pv, *, m, n_true, sentinel):
-    """(rows, cols, vals) of part p's interpolation rows (row −1 drops)."""
+    """(rows, cols, vals) of global part p's interpolation rows (row −1
+    drops)."""
     gr = p * m + torch.arange(m, device=pc.device)
     ok = (pc < sentinel) & (pv != 0) & (gr < n_true)[:, None]
     return (torch.where(ok, gr[:, None], -1).reshape(-1),
@@ -342,25 +345,25 @@ def _xi_tables(A: PCSR, Sd, So, state: PGrid, cmap: PGrid, sent_f: int):
     st_g = _fetch(A, state.parts, FINE)
     cm_g = _fetch(A, cmap.parts, -1)
     out = []
-    for p in range(A.n_shards):
-        dc, dv, oc, ov = A.diag_cols[p], A.diag_vals[p], A.off_cols[p], A.off_vals[p]
+    for i, p in enumerate(A.mesh.local):
+        dc, dv, oc, ov = A.diag_cols[i], A.diag_vals[i], A.off_cols[i], A.off_vals[i]
         dcl, ocl = dc.long(), oc.long()
-        sd, so = Sd[p], So[p]
-        st, cm = state.parts[p], cmap.parts[p]
+        sd, so = Sd[i], So[i]
+        st, cm = state.parts[i], cmap.parts[i]
         dmask = dv != 0
-        omask = (ov != 0) & (gids[p][ocl] >= 0)
+        omask = (ov != 0) & (gids[i][ocl] >= 0)
         rowc = torch.cat([torch.where(dmask, p * m + dcl, sent_f),
-                          torch.where(omask, gids[p][ocl], sent_f)], 1).to(torch.int32)
+                          torch.where(omask, gids[i][ocl], sent_f)], 1).to(torch.int32)
         rowv = torch.cat([torch.where(dmask, dv, 0.0), torch.where(omask, ov, 0.0)], 1)
         scd = sd & (st[dcl] == COARSE)
-        sco = so & (st_g[p][ocl] == COARSE)
+        sco = so & (st_g[i][ocl] == COARSE)
         sfd = sd & (st[dcl] != COARSE)
-        sfo = so & (st_g[p][ocl] != COARSE)
+        sfo = so & (st_g[i][ocl] != COARSE)
         sfm = torch.cat([sfd, sfo], 1)
         sc_m = torch.cat([scd, sco], 1)
         sc_fid = torch.where(sc_m, rowc, sent_f)
         sc_cid = torch.cat([torch.where(scd, cm[dcl], -1),
-                            torch.where(sco, cm_g[p][ocl], -1)], 1).to(torch.int32)
+                            torch.where(sco, cm_g[i][ocl], -1)], 1).to(torch.int32)
         order = torch.sort(torch.where(sc_m, 0, 1), dim=1, stable=True).indices
         sc_fid = sc_fid.gather(1, order)
         sc_cid = sc_cid.gather(1, order)
@@ -452,7 +455,7 @@ def pcsr_extended_i(A: PCSR, Sd, So, state: PGrid, cmap: PGrid, mc_pad: int,
     Same algorithm as the single-device
     ``amg.device_rs.extended_i_interpolation_device``; the distance-two
     reach is ONE extra ghost-row exchange of the stage-A tables.  Two small
-    host reads (table widths)."""
+    host reads (table widths, the widest over all parts)."""
     S = A.n_shards
     m = A.row_partition.rows_per_shard
     G = A.G
@@ -460,8 +463,8 @@ def pcsr_extended_i(A: PCSR, Sd, So, state: PGrid, cmap: PGrid, mc_pad: int,
     n_coarse = S * mc_pad
     sent_f = int(A.col_partition.n_padded)
     tabs = _xi_tables(A, Sd, So, state, cmap, sent_f)
-    c_max = max(max(int(t[7].amax()) for t in tabs), 1)  # host reads
-    f_max = max(max(int(t[8].amax()) for t in tabs), 1)
+    c_max, f_max = (max(int(v), 1) for v in exchange.pmax(  # host reads
+        [torch.stack([t[7].amax(), t[8].amax()]) for t in tabs]).cpu())
     rowc = [t[0] for t in tabs]
     rowv = [t[1] for t in tabs]
     scf = [t[3][:, :c_max] for t in tabs]
@@ -479,8 +482,8 @@ def pcsr_extended_i(A: PCSR, Sd, So, state: PGrid, cmap: PGrid, mc_pad: int,
     K = c_max * (1 + f_max)
     ext = m + G
     R, Cc, V = [], [], []
-    for p in range(S):
-        dev = rowc[p].device
+    for i, p in enumerate(A.mesh.local):
+        dev = rowc[i].device
         row_chunk = _ext_i_row_chunk(f_max, W, K, dev)
 
         def cap(t, fill):
@@ -488,19 +491,19 @@ def pcsr_extended_i(A: PCSR, Sd, So, state: PGrid, cmap: PGrid, mc_pad: int,
                               device=dev)
 
         # extended tables indexed by e ∈ [0, m+G]; row m+G = inert sentinel
-        ext_tabs = (torch.cat([rowc[p], growc[p], cap(rowc[p], sent_f)]),
-                    torch.cat([rowv[p], growv[p], cap(rowv[p], 0.0)]),
-                    torch.cat([scf[p], gscf[p], cap(scf[p], sent_f)]),
-                    torch.cat([sccid[p], gsccid[p], cap(sccid[p], -1)]))
+        ext_tabs = (torch.cat([rowc[i], growc[i], cap(rowc[i], sent_f)]),
+                    torch.cat([rowv[i], growv[i], cap(rowv[i], 0.0)]),
+                    torch.cat([scf[i], gscf[i], cap(scf[i], sent_f)]),
+                    torch.cat([sccid[i], gsccid[i], cap(sccid[i], -1)]))
         pcs, pvs = [], []
         for r0 in range(0, m, row_chunk):
             r1 = min(r0 + row_chunk, m)
             rid = torch.arange(r0, r1, device=dev)
             pc, pv = _xi_chunk(
-                rid, p * m + rid, rowc[p][r0:r1], rowv[p][r0:r1],
-                tabs[p][2][r0:r1], scf[p][r0:r1], sccid[p][r0:r1],
-                sfe[p][r0:r1], sfa[p][r0:r1], state.parts[p][r0:r1],
-                cmap.parts[p][r0:r1], ext_tabs, sent_f=sent_f,
+                rid, p * m + rid, rowc[i][r0:r1], rowv[i][r0:r1],
+                tabs[i][2][r0:r1], scf[i][r0:r1], sccid[i][r0:r1],
+                sfe[i][r0:r1], sfa[i][r0:r1], state.parts[i][r0:r1],
+                cmap.parts[i][r0:r1], ext_tabs, sent_f=sent_f,
                 sent_c=n_coarse, p_max=config.p_max, ext=ext)
             pcs.append(pc)
             pvs.append(pv)
@@ -534,27 +537,26 @@ def pcsr_interpolation(A: PCSR, Sd, So, state: PGrid, cmap: PGrid,
     k0 = max(config.p_max * (2 if smooth else 1), 1)
     st_g = _fetch(A, state.parts, FINE)
     cm_g = _fetch(A, cmap.parts, -1)
-    P0 = [_interp_direct_part(p, A, Sd[p], So[p], st_g[p], cm_g[p],
-                              state.parts[p], cmap.parts[p], m=m, k0=k0,
-                              sentinel=n_coarse) for p in range(S)]
+    P0 = [_interp_direct_part(i, A, Sd[i], So[i], st_g[i], cm_g[i],
+                              state.parts[i], cmap.parts[i], m=m, k0=k0,
+                              sentinel=n_coarse) for i in range(A.mesh.n_local)]
     if smooth:
         # P ← (I − ω D⁻¹A) P over the halo'd P0 rows, then top-p_max
         d_inv = A.diagonal().map(lambda d: torch.where(d != 0, 1.0 / d, 0.0))
         gpc, gpv = _fetch_rows(A, [t[0] for t in P0], [t[1] for t in P0],
                                n_coarse)
         out = []
-        for p in range(S):
-            pc, pv = P0[p]
-            dc, dv, oc, ov = (A.diag_cols[p].long(), A.diag_vals[p],
-                              A.off_cols[p].long(), A.off_vals[p])
+        for i, (pc, pv) in enumerate(P0):
+            dc, dv, oc, ov = (A.diag_cols[i].long(), A.diag_vals[i],
+                              A.off_cols[i].long(), A.off_vals[i])
             dmask, omask = dv != 0, ov != 0
-            di = -config.jacobi_omega * d_inv.parts[p][:, None]
+            di = -config.jacobi_omega * d_inv.parts[i][:, None]
             da_d = di * torch.where(dmask, dv, 0.0)
             da_o = di * torch.where(omask, ov, 0.0)
             cd = torch.where(dmask[..., None], pc[dc], n_coarse)
             vd = torch.where(dmask[..., None], da_d[..., None] * pv[dc], 0.0)
-            co = torch.where(omask[..., None], gpc[p][oc], n_coarse)
-            vo = torch.where(omask[..., None], da_o[..., None] * gpv[p][oc], 0.0)
+            co = torch.where(omask[..., None], gpc[i][oc], n_coarse)
+            vo = torch.where(omask[..., None], da_o[..., None] * gpv[i][oc], 0.0)
             cand_c2 = torch.cat([pc, cd.reshape(m, -1), co.reshape(m, -1)], 1)
             cand_v2 = torch.cat([pv, vd.reshape(m, -1), vo.reshape(m, -1)], 1)
             cand_v2 = torch.where(cand_c2 < n_coarse, cand_v2, 0.0)
@@ -563,7 +565,7 @@ def pcsr_interpolation(A: PCSR, Sd, So, state: PGrid, cmap: PGrid,
             out.append((pc2, pv2))
         P0 = out
     trip = [_triplets(p, pc, pv, m=m, n_true=n_true, sentinel=n_coarse)
-            for p, (pc, pv) in enumerate(P0)]
+            for p, (pc, pv) in zip(A.mesh.local, P0)]
     width = config.p_max if smooth else k0
     return _assemble_grow(
         [t[0] for t in trip], [t[1] for t in trip], [t[2] for t in trip],
@@ -605,9 +607,9 @@ def _pcsr_global_cols(B: PCSR, sentinel: int):
     mc = B.col_partition.rows_per_shard
     gids = B.ghost_gids()
     cols, vals = [], []
-    for p in range(B.n_shards):
-        dc, dv, oc, ov = B.diag_cols[p], B.diag_vals[p], B.off_cols[p], B.off_vals[p]
-        go = gids[p][oc.long()]
+    for i, p in enumerate(B.mesh.local):
+        dc, dv, oc, ov = B.diag_cols[i], B.diag_vals[i], B.off_cols[i], B.off_vals[i]
+        go = gids[i][oc.long()]
         ok_o = (ov != 0) & (go >= 0)
         cols.append(torch.cat([torch.where(dv != 0, p * mc + dc.long(), sentinel),
                                torch.where(ok_o, go, sentinel)], 1).to(torch.int32))
@@ -626,14 +628,14 @@ def _compact_front(cols, vals, keep):
             keep.gather(1, order))
 
 
-def part_product_operands(A: PCSR, p: int, bc, bv, gbc, gbv, sentinel: int):
-    """The ELL pair whose product is part p's rows of A·B: A′ = [diag | off]
+def part_product_operands(A: PCSR, i: int, bc, bv, gbc, gbv, sentinel: int):
+    """The ELL pair whose product is local part i's rows of A·B: A′ = [diag | off]
     with columns ``[diag_cols, off_cols + mB]`` over the row table
     cat(B's local rows, its fetched ghost rows), whose columns are B's global
     column ids.  Both keep only their stored entries (nonzero values, valid
     columns), moved to the row front, so the candidate table is no wider
     than the product needs."""
-    dc, dv, oc, ov = A.diag_cols[p], A.diag_vals[p], A.off_cols[p], A.off_vals[p]
+    dc, dv, oc, ov = A.diag_cols[i], A.diag_vals[i], A.off_cols[i], A.off_vals[i]
     mB = bc.shape[0]
     vals = torch.cat([dv, ov], 1)
     a_c, a_v, a_k = _compact_front(torch.cat([dc, oc + mB], 1), vals, vals != 0)
@@ -687,13 +689,13 @@ def pcsr_spgemm(A: PCSR, B: PCSR, *, out_true_rows: int | None = None,
     brings B's rows through A's halo plan; per part, ``part_product`` (B3,
     then B5's counts for the width, then B4) forms the part's rows; the
     compacted triplets reassemble into a PCSR.  Host reads: one width per
-    part and the assembly's overflow check.  ``stats``, where given,
-    receives the per-part candidate width K and output width.
+    part, the widest over all parts and the assembly's overflow check.
+    ``stats``, where given, receives the widest candidate width K and
+    output width over the parts.
     """
     if A.col_partition.rows_per_shard != B.row_partition.rows_per_shard:
         raise ValueError("pcsr_spgemm: A's column partition must match B's "
                          "row partition")
-    S = A.n_shards
     m = A.row_partition.rows_per_shard
     n_rows = out_true_rows or A.true_shape[0]
     n_cols = B.true_shape[1]
@@ -701,18 +703,20 @@ def pcsr_spgemm(A: PCSR, B: PCSR, *, out_true_rows: int | None = None,
 
     bc, bv = _pcsr_global_cols(B, sentinel)
     gbc, gbv = _fetch_rows(A, bc, bv, sentinel)
-    prods, K = [], 0
-    for p in range(S):
-        Ap, Bp = part_product_operands(A, p, bc[p], bv[p], gbc[p], gbv[p],
+    prods, Ks = [], []
+    for i in range(A.mesh.n_local):
+        Ap, Bp = part_product_operands(A, i, bc[i], bv[i], gbc[i], gbv[i],
                                        sentinel)
         prods.append(part_product(Ap, Bp))
-        K = max(K, Ap.width * Bp.width)
-    width = max(C.width for C in prods)
+        Ks.append(Ap.width * Bp.width)
+    dev = prods[0].cols.device
+    K = exchange.max_int(Ks, dev)
+    width = exchange.max_int([C.width for C in prods], dev)
     if stats is not None:
         stats.setdefault("products", []).append(
             {"K": K, "w": width})
     R, Cc, V = [], [], []
-    for p, C in enumerate(prods):
+    for p, C in zip(A.mesh.local, prods):
         dev = C.cols.device
         gr = (p * m + torch.arange(m, device=dev))[:, None]
         ok = C.mask() & (gr < n_rows) & (C.vals != 0)
@@ -767,8 +771,8 @@ def _ensure_diag(A: PCSR) -> PCSR:
 # ---------------------------------------------------------------------------
 
 def _pcsr_lambda_max(A: PCSR, d_inv: PGrid, iters: int, seed: int = 0):
-    """λ_max(D⁻¹A) estimate (1.1 safety factor) as a 0-d tensor on part 0's
-    device; the start vector is the JAX package's uniform draw over the
+    """λ_max(D⁻¹A) estimate (1.1 safety factor) as a 0-d tensor on the first
+    local part's device; the start vector is the JAX package's uniform draw over the
     padded columns, minus 0.5."""
     n = A.col_partition.n_padded
     x = PGrid.from_global(prng.uniform((n,), seed, A.dtype) - 0.5, A.mesh)
@@ -789,7 +793,7 @@ def coarse_inverse_from_triplets(Ac: PCSR):
     """Replicated dense coarse pseudo-inverse from the gathered triplets of
     the coarsest operator: zeros, the triplets scattered, and a unit
     diagonal ONLY on structurally empty rows (coarse-numbering holes).
-    Float32, on part 0's device."""
+    Float32, on this process's parts' device, the same on every process."""
     rows, cols, vals = Ac.to_triplets()
     r = rows.to_global("cpu").numpy()
     c = cols.to_global("cpu").numpy()
@@ -802,7 +806,7 @@ def coarse_inverse_from_triplets(Ac: PCSR):
     has_entry[r[keep]] = True
     dense[~has_entry, ~has_entry] = 1.0
     return torch.from_numpy(coarse_inverse_np(dense)).to(torch.float32).to(
-        Ac.mesh.device(0))
+        rows.device)
 
 
 def distributed_rs_setup(A: PCSR, config: AMGConfig, dtype=torch.float32,
@@ -812,7 +816,7 @@ def distributed_rs_setup(A: PCSR, config: AMGConfig, dtype=torch.float32,
 
     Every level stays row-split over the mesh; the coarsest operator is
     gathered as triplets (it is ≤ n_coarse_max by construction) into a dense
-    pseudo-inverse on part 0's device.  No global sparse matrix exists at
+    pseudo-inverse on every process.  No global sparse matrix exists at
     any point of this call graph.  ``setup_stats`` holds per-level rows,
     PMIS rounds and product widths, and seconds per phase.
     """

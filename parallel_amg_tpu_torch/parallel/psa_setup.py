@@ -71,14 +71,14 @@ def pcsr_sa_strength(A: PCSR, theta: float):
         d.append(torch.where(isdiag, dv, 0.0).sum(1).abs())
     d_g = _fetch(A, d, 0.0)
     Sd, So = [], []
-    for p, (dc, dv, oc, ov) in enumerate(zip(A.diag_cols, A.diag_vals,
+    for i, (dc, dv, oc, ov) in enumerate(zip(A.diag_cols, A.diag_vals,
                                              A.off_cols, A.off_vals)):
         dmask = (dv != 0) & (dc != _r_iota(dc))
         omask = ov != 0
         da = torch.where(dmask, dv.abs(), 0.0)
         oa = torch.where(omask, ov.abs(), 0.0)
-        th_d = theta * torch.sqrt(d[p][:, None] * d[p][dc.long()])
-        th_o = theta * torch.sqrt(d[p][:, None] * d_g[p].abs()[oc.long()])
+        th_d = theta * torch.sqrt(d[i][:, None] * d[i][dc.long()])
+        th_o = theta * torch.sqrt(d[i][:, None] * d_g[i].abs()[oc.long()])
         Sd.append(dmask & (da >= th_d - 1e-30) & (da > 0))
         So.append(omask & (oa >= th_o - 1e-30) & (oa > 0))
     return Sd, So
@@ -94,24 +94,24 @@ def pcsr_mis_seed(A: PCSR, Sd, So, seed: int = 0, max_rounds: int = 64,
     states (COARSE on seeds): no two seeds within two hops, every
     strongly-connected node within two hops of a seed.  Diagonal-only rows
     never seed.  ``stats``, where given, receives the number of rounds."""
-    S = A.n_shards
+    S, L = A.n_shards, A.mesh.n_local
     m = A.row_partition.rows_per_shard
     # weights: a random PERMUTATION of row ids — all distinct, exact compares
     w_all = prng.permutation(S * m, seed).to(torch.int32)
-    w = [w_all[p * m:(p + 1) * m].to(A.mesh.device(p)) for p in range(S)]
+    w = [w_all[p * m:(p + 1) * m].to(A.mesh.device(p)) for p in A.mesh.local]
     dcs = [dc.long() for dc in A.diag_cols]
     ocs = [oc.long() for oc in A.off_cols]
 
     def nmax(v, v_g):
         return [torch.maximum(
-            torch.where(Sd[p], v[p][dcs[p]], _NEGI).amax(1),
-            torch.where(So[p], v_g[p][ocs[p]], _NEGI).amax(1)) for p in range(S)]
+            torch.where(Sd[i], v[i][dcs[i]], _NEGI).amax(1),
+            torch.where(So[i], v_g[i][ocs[i]], _NEGI).amax(1)) for i in range(L)]
 
     def reach(f, f_g):
-        return [(Sd[p] & (f[p][dcs[p]] > 0)).any(1)
-                | (So[p] & (f_g[p][ocs[p]] > 0)).any(1) for p in range(S)]
+        return [(Sd[i] & (f[i][dcs[i]] > 0)).any(1)
+                | (So[i] & (f_g[i][ocs[i]] > 0)).any(1) for i in range(L)]
 
-    cand = [Sd[p].any(1) | So[p].any(1) for p in range(S)]
+    cand = [Sd[i].any(1) | So[i].any(1) for i in range(L)]
     seeds = [torch.zeros(m, dtype=torch.bool, device=c.device) for c in cand]
 
     def n_cand(c):
@@ -120,18 +120,18 @@ def pcsr_mis_seed(A: PCSR, Sd, So, seed: int = 0, max_rounds: int = 64,
     rounds = 0
     nc = n_cand(cand)
     while nc > 0 and rounds < max_rounds:
-        wc = [torch.where(cand[p], w[p], _NEGI) for p in range(S)]
+        wc = [torch.where(cand[i], w[i], _NEGI) for i in range(L)]
         wc_g = _fetch(A, wc, _NEGI)
         h = [torch.maximum(a, b) for a, b in zip(wc, nmax(wc, wc_g))]
         h_g = _fetch(A, h, _NEGI)
         m2hop = nmax(h, h_g)
-        is_max = [cand[p] & (m2hop[p] <= w[p]) for p in range(S)]
+        is_max = [cand[i] & (m2hop[i] <= w[i]) for i in range(L)]
         seeds = [s | x for s, x in zip(seeds, is_max)]
         f = [x.to(torch.int32) for x in is_max]
         r1 = reach(f, _fetch(A, f, 0))
         r1i = [x.to(torch.int32) for x in r1]
         r2 = reach(r1i, _fetch(A, r1i, 0))
-        cand = [cand[p] & ~is_max[p] & ~r1[p] & ~r2[p] for p in range(S)]
+        cand = [cand[i] & ~is_max[i] & ~r1[i] & ~r2[i] for i in range(L)]
         rounds += 1
         nc = n_cand(cand)
     if stats is not None:
@@ -145,27 +145,27 @@ def pcsr_attach(A: PCSR, Sd, So, cmap: PGrid):
     (m,) int32: aggregate id, -1 = strongly-connected but unreached, -2 =
     inert (no strong connections); leftover = global count of -1).  Phase 1
     attaches to seed neighborhoods, phase 2 to any aggregated neighbor."""
-    S = A.n_shards
+    L = A.mesh.n_local
     agg = list(cmap.parts)  # seeds carry their id; everyone else -1
     for _ in range(2):
         agg_g = _fetch(A, agg, -1)
         nxt = []
-        for p in range(S):
-            dc, oc = A.diag_cols[p].long(), A.off_cols[p].long()
-            ad_all, ao_all = agg[p][dc], agg_g[p][oc]
-            sc_d = torch.where(Sd[p] & (ad_all >= 0), A.diag_vals[p].abs(), _NEG)
-            sc_o = torch.where(So[p] & (ao_all >= 0), A.off_vals[p].abs(), _NEG)
+        for i in range(L):
+            dc, oc = A.diag_cols[i].long(), A.off_cols[i].long()
+            ad_all, ao_all = agg[i][dc], agg_g[i][oc]
+            sc_d = torch.where(Sd[i] & (ad_all >= 0), A.diag_vals[i].abs(), _NEG)
+            sc_o = torch.where(So[i] & (ao_all >= 0), A.off_vals[i].abs(), _NEG)
             bd, bo = sc_d.amax(1), sc_o.amax(1)
             ad = ad_all.gather(1, sc_d.argmax(1, keepdim=True))[:, 0]
             ao = ao_all.gather(1, sc_o.argmax(1, keepdim=True))[:, 0]
             best = torch.where(bd >= bo, ad, ao)
             score = torch.maximum(bd, bo)
-            nxt.append(torch.where((agg[p] < 0) & (score > _NEG), best, agg[p]))
+            nxt.append(torch.where((agg[i] < 0) & (score > _NEG), best, agg[i]))
         agg = nxt
     out = []
-    for p in range(S):
-        has_strong = Sd[p].any(1) | So[p].any(1)
-        out.append(torch.where(has_strong | (agg[p] >= 0), agg[p], -2)
+    for i in range(L):
+        has_strong = Sd[i].any(1) | So[i].any(1)
+        out.append(torch.where(has_strong | (agg[i] >= 0), agg[i], -2)
                    .to(torch.int32))
     left = int(exchange.psum([(a == -1).sum() for a in out]))
     return PGrid(out, A.mesh), left
@@ -189,9 +189,9 @@ def _prolongation_smoother(A: PCSR, d_inv: PGrid, coef) -> PCSR:
     """S_m = I − coef·D⁻¹A as a PCSR (local transform; the +I lands on the
     stored diagonal slot, which every assembled square PCSR carries)."""
     dvs, ovs = [], []
-    for p, (dc, dv, ov) in enumerate(zip(A.diag_cols, A.diag_vals, A.off_vals)):
+    for dc, dv, ov, di in zip(A.diag_cols, A.diag_vals, A.off_vals, d_inv.parts):
         c = torch.as_tensor(coef).to(dv.device)
-        di = d_inv.parts[p][:, None]
+        di = di[:, None]
         isdiag = (dc == _r_iota(dc)) & (dv != 0)
         v = torch.where(dv != 0, -c * di * dv, 0.0)
         dvs.append(v + torch.where(isdiag, 1.0, 0.0))
@@ -211,8 +211,8 @@ def distributed_sa_setup(A: PCSR, config: AMGConfig, dtype=torch.float32,
 
     Same level loop as ``distributed_rs_setup``: every level stays
     row-split, coarse numbering is part-padded (holes inert), and the
-    coarsest operator gathers as triplets into a dense pseudo-inverse on part
-    0's device.  ``setup_stats`` holds per-level rows and MIS rounds and
+    coarsest operator gathers as triplets into a dense pseudo-inverse on
+    every process.  ``setup_stats`` holds per-level rows and MIS rounds and
     seconds per phase."""
     if not isinstance(A, PCSR):
         raise TypeError("distributed_sa_setup takes a PCSR — assemble one with "
@@ -262,7 +262,7 @@ def distributed_sa_setup(A: PCSR, config: AMGConfig, dtype=torch.float32,
         m = A.row_partition.rows_per_shard
         n_coarse = S * mc_pad
         rows, cols, vals = [], [], []
-        for p, a in enumerate(agg.parts):
+        for p, a in zip(mesh.local, agg.parts):
             ok = a >= 0
             gr = p * m + torch.arange(m, device=a.device)
             rows.append(torch.where(ok, gr, -1))
@@ -274,7 +274,7 @@ def distributed_sa_setup(A: PCSR, config: AMGConfig, dtype=torch.float32,
                            ghost_capacity=max(4 * A.G, 256))
         R0 = pcsr_transpose(T, rows_per_shard=mc_pad)
         ones = PGrid([torch.ones(m, dtype=dtype, device=mesh.device(p))
-                      for p in range(S)], mesh)
+                      for p in mesh.local], mesh)
         counts = R0.matvec(ones)
         inv_sqrt = counts.map(lambda c: torch.where(
             c > 0, 1.0 / torch.sqrt(torch.clamp(c, min=1.0)), 0.0))

@@ -7,11 +7,12 @@ as the single-device path (format polymorphism over ``.matvec``).
 
 Levels at or below ``config.agglomerate_n`` rows are agglomerated: one
 plain operator from ``ops/select.py::best_format`` (DIA on kernel B2 or
-TWELL on kernel B1) on part 0's device, where the JAX package replicates it
-on every device; the sub-hierarchy below the boundary then runs as a plain
-single-device program.  ``ReshardedTransfer`` moves vectors across the
-boundary, as ``pdevice_setup.SBoundaryProlongator``/``SBoundaryRestrictor``
-do on the structured path.
+TWELL on kernel B1) replicated on every process, on its parts' device
+(``mesh.home``), as the JAX package replicates it on every device; the
+sub-hierarchy below the boundary then runs as a plain single-device program
+on each process.  ``ReshardedTransfer`` moves vectors across the boundary,
+as ``pdevice_setup.SBoundaryProlongator``/``SBoundaryRestrictor`` do on the
+structured path.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from parallel_amg_tpu_torch.amg.hierarchy import (
 from parallel_amg_tpu_torch.config import AMGConfig
 from parallel_amg_tpu_torch.ops.csr import CSR
 from parallel_amg_tpu_torch.ops.select import best_format
+from parallel_amg_tpu_torch.parallel import exchange
 from parallel_amg_tpu_torch.parallel.partition import uniform_row_partition
 from parallel_amg_tpu_torch.parallel.pcsr import PCSR
 from parallel_amg_tpu_torch.parallel.pgrid import PGrid
@@ -40,11 +42,12 @@ from parallel_amg_tpu_torch.parallel.pvector import pvector
 class ReshardedTransfer:
     """Transfer operator across the split↔agglomerated boundary.
 
-    Wraps a small plain operator T on part 0's device.  ``out="replicated"``
-    (restriction): the split fine residual is gathered on part 0's device,
-    its padding cut, and T applied — a tensor.  ``out="rows"``
-    (prolongation): T, whose rows are padded to the fine partition, maps the
-    coarse correction to a vector split back over the mesh — a PGrid.
+    Wraps a small plain operator T, replicated on every process's
+    ``mesh.home``.  ``out="replicated"`` (restriction): the split fine
+    residual is gathered there (``exchange.all_gather``), its padding cut,
+    and T applied — a tensor.  ``out="rows"`` (prolongation): T, whose rows
+    are padded to the fine partition, maps the coarse correction to a vector
+    split back over the mesh — a PGrid of this process's parts.
     """
 
     def __init__(self, T, mesh, out: str):
@@ -59,14 +62,13 @@ class ReshardedTransfer:
         return self.T.shape
 
     def zeros_coarse(self, dtype):
-        """The coarse iterate below the boundary: a tensor on part 0's
-        device."""
-        return torch.zeros(self.T.shape[1], dtype=dtype,
-                           device=self.mesh.device(0))
+        """The coarse iterate below the boundary: a tensor on
+        ``mesh.home``."""
+        return torch.zeros(self.T.shape[1], dtype=dtype, device=self.mesh.home)
 
     def matvec(self, v):
         if self.out == "replicated":
-            x = v.to_global(self.mesh.device(0))[: self.T.shape[1]]
+            x = v.to_global(self.mesh.home)[: self.T.shape[1]]
             return self.T.matvec(x.contiguous())
         return PGrid.from_global(self.T.matvec(v), self.mesh)
 
@@ -87,6 +89,18 @@ def with_neighbor_plans(h: Hierarchy) -> Hierarchy:
     return out
 
 
+def oracle_arrays(oh):
+    """Every array of an oracle hierarchy's levels (A, P, R, D⁻¹, λ_max)."""
+    out = []
+    for l in oh.levels:
+        for M in (l.A, l.P, l.R):
+            if M is not None:
+                M = M.tocsr()
+                out += [M.indptr, M.indices, M.data]
+        out += [np.asarray(l.d_inv), np.float64(l.lam_max)]
+    return out
+
+
 def _plain(M, dtype, device):
     return best_format(CSR.from_scipy(M.tocsr()), dtype=dtype).to(device)
 
@@ -101,8 +115,9 @@ def distributed_setup(A, config: AMGConfig, mesh, dtype=torch.float32,
     host oracle builds the levels and each is frozen: A as a square PCSR
     (identity padding), P/R as rectangular PCSRs between the fine and coarse
     row partitions, D⁻¹ as a PGrid; levels with ≤ ``config.agglomerate_n``
-    rows (never the finest) become plain operators on part 0's device
-    behind ``ReshardedTransfer`` boundary transfers.  Every PCSR gets the
+    rows (never the finest) become plain operators replicated on every
+    process behind ``ReshardedTransfer`` boundary transfers.  Each process
+    runs the oracle on the (replicated) host matrix and keeps its parts.  Every PCSR gets the
     ring exchange plan.
     """
     if config.on_device_setup:
@@ -121,8 +136,9 @@ def distributed_setup(A, config: AMGConfig, mesh, dtype=torch.float32,
     from parallel_amg_tpu_torch.oracle.serial_amg import oracle_setup
 
     oh = oracle_setup(_host_scipy(A), config, seed=seed)
+    exchange.check_replicated(oracle_arrays(oh), mesh.home, "the host oracle")
     S = mesh.size
-    dev0 = mesh.device(0)
+    dev0 = mesh.home
 
     # first agglomerated level (never the finest)
     n_levels = len(oh.levels)
@@ -139,7 +155,7 @@ def distributed_setup(A, config: AMGConfig, mesh, dtype=torch.float32,
         part = parts[i]
         lam = float(torch.as_tensor(np.float64(ol.lam_max)).to(dtype))
         if i >= agg:
-            # agglomerated level: plain operators on part 0's device
+            # agglomerated level: plain operators on mesh.home
             P_r = R_r = None
             if ol.P is not None and i + 1 < n_levels:
                 P_r = _plain(ol.P, dtype, dev0)

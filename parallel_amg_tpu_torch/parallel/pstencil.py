@@ -6,8 +6,9 @@ p owns a slab of m0 grid planes and its weight planes (D, m0, *rest).  A
 matvec needs only the h = max |offset₀| boundary planes of each neighbor:
 the left halo of part p is part p−1's last h planes, the right halo part
 p+1's first h planes, and the two ends of the grid get zeros.  The JAX
-package moves them with two ``ppermute`` shifts; here they are tensor copies
-(on one card, device-to-device copies between the parts' allocations).
+package moves them with two ``ppermute`` shifts; here ``exchange.halos``
+moves them (on one card the halos are views of the neighbours' slabs; across
+processes, point-to-point messages).
 
 The matvec is the JAX package's interior + boundary formulation: the
 interior contribution reads the local slab alone (zero halo), and only the
@@ -16,8 +17,9 @@ O(h·surface) boundary-row corrections read the halo planes.
 ``boundary_plain``, shared with kernel B8's CPU path);
 ``halo_mode="pallas_async"`` runs kernel B8 (``parallel/phalo_async.py``):
 one launch for every part on one card, reading the halo planes in place, or
-halo copies overlapped with the interior kernels for parts on several
-cards.  The mode names are the JAX package's, so configs carry over.
+the halo exchange overlapped with the interior kernels where parts lie on
+several cards or processes.  The mode names are the JAX package's, so
+configs carry over.
 
 Transfers stay part-local: the grid is padded so every part owns whole
 aggregation blocks (``parallel/pstructured.py``).
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from parallel_amg_tpu_torch.ops.stencil import _pad_nd
+from parallel_amg_tpu_torch.parallel import exchange
 from parallel_amg_tpu_torch.parallel.pgrid import PGrid
 
 HALO_MODES = ("xla", "pallas_async")
@@ -81,15 +84,6 @@ def boundary_plain(y, W, left, right, offsets, h: int):
     return y
 
 
-def halo_planes(parts, p: int, h: int):
-    """(left, right) halos of part p on its device: part p−1's last h planes
-    and part p+1's first h planes, None at the grid's two ends."""
-    dev = parts[p].device
-    left = None if p == 0 else parts[p - 1][-h:].to(dev)
-    right = None if p == len(parts) - 1 else parts[p + 1][:h].to(dev)
-    return left, right
-
-
 def apply_halo_mode(levels, mode: str):
     """Re-tag every ShardedStencil level operator with ``mode``: how
     ``AMGConfig.halo_mode`` reaches the solve path.  Other levels pass
@@ -104,8 +98,8 @@ def apply_halo_mode(levels, mode: str):
 class ShardedStencil:
     """Stencil operator on a grid split along axis 0 over a row mesh.
 
-    weights: one (D, m0, *rest) tensor per part, on the part's device;
-    dims: the padded global dims (dims[0] = S·m0).  Padding planes carry an
+    weights: one (D, m0, *rest) tensor per local part (``mesh.local``), on
+    the part's device; dims: the padded global dims (dims[0] = S·m0).  Padding planes carry an
     identity diagonal so smoothers stay inert there.
     """
 
@@ -121,7 +115,7 @@ class ShardedStencil:
         # kernel B8's one-card part table, built at its first launch
         # (parallel/phalo_async.py)
         self.launch_table = None
-        if len(self.weights) != mesh.size or self.dims[0] % mesh.size:
+        if len(self.weights) != mesh.n_local or self.dims[0] % mesh.size:
             raise ValueError(f"{len(self.weights)} weight parts and dims "
                              f"{self.dims} do not fit a mesh of {mesh.size}")
 
@@ -148,7 +142,7 @@ class ShardedStencil:
 
     @property
     def nnz(self) -> int:
-        return sum(int((W != 0).sum()) for W in self.weights)
+        return int(exchange.psum([(W != 0).sum() for W in self.weights]))
 
     @property
     def halo(self) -> int:
@@ -162,11 +156,12 @@ class ShardedStencil:
     # -- construction -----------------------------------------------------
     @classmethod
     def from_global(cls, W, offsets, dims, mesh, halo_mode="xla"):
-        """Split (D, d0p, *rest) global weight planes over the mesh."""
+        """Split (D, d0p, *rest) global weight planes over the mesh (this
+        process keeps its parts)."""
         S = mesh.size
         m0 = int(dims[0]) // S
         parts = [W[:, p * m0:(p + 1) * m0].to(mesh.device(p)).contiguous()
-                 for p in range(S)]
+                 for p in mesh.local]
         return cls(parts, offsets, dims, mesh, halo_mode)
 
     @classmethod
@@ -185,10 +180,11 @@ class ShardedStencil:
         return cls.from_global(Wp, st.offsets, (d0p,) + st.dims[1:], mesh)
 
     def global_weights(self, device=None):
-        """(D, d0p, *rest) planes gathered on ``device`` (part 0's when
-        None)."""
+        """(D, d0p, *rest) planes gathered on ``device`` (the first local
+        part's when None), on every process."""
         dev = self.weights[0].device if device is None else torch.device(device)
-        return torch.cat([W.to(dev) for W in self.weights], dim=1)
+        return torch.cat([W.to(dev) for W in exchange.all_gather(self.weights)],
+                         dim=1)
 
     # -- distributed matvec ------------------------------------------------
     def matvec(self, x: PGrid) -> PGrid:
@@ -201,12 +197,12 @@ class ShardedStencil:
         h = self.halo
         if h > self.m0:
             raise ValueError(f"halo {h} exceeds the {self.m0}-plane part slab")
+        halos = exchange.halos(x.parts, h) if h else None
         out = []
-        for p, (W, xl) in enumerate(zip(self.weights, x.parts)):
+        for i, (W, xl) in enumerate(zip(self.weights, x.parts)):
             y = interior_plain(W, xl, self.offsets, h)
             if h:
-                left, right = halo_planes(x.parts, p, h)
-                y = boundary_plain(y, W, left, right, self.offsets, h)
+                y = boundary_plain(y, W, *halos[i], self.offsets, h)
             out.append(y)
         return PGrid(out, self.mesh)
 

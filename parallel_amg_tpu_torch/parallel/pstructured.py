@@ -5,7 +5,7 @@ Counterpart of ``parallel_amg_tpu/parallel/pstructured.py``.  The grid's
 axis 0 is padded to S·b^(L−1)·k before it is split, so every part owns a
 whole number of aggregation blocks at every level.  Then:
 
-- the A-matvec needs only an h-plane halo copy (``parallel/pstencil.py``);
+- the A-matvec needs only an h-plane halo exchange (``parallel/pstencil.py``);
 - P and R (block upsample, sum-pool) are part-local: no copies at all;
 - dots and norms reduce the per-part partials (``parallel/pgrid.py``).
 
@@ -25,6 +25,7 @@ from parallel_amg_tpu_torch.amg.transfers import downsample_sum_nd, upsample_nd
 from parallel_amg_tpu_torch.config import AMGConfig
 from parallel_amg_tpu_torch.ops.csr import CSR
 from parallel_amg_tpu_torch.ops.stencil import Stencil
+from parallel_amg_tpu_torch.parallel import exchange
 from parallel_amg_tpu_torch.parallel.pgrid import PGrid
 from parallel_amg_tpu_torch.parallel.pstencil import ShardedStencil, apply_halo_mode
 
@@ -73,13 +74,13 @@ class SBlockProlongator(_SBlockTransfer):
         m0c = self.cdims[0] // self.mesh.size
         return PGrid([torch.zeros((m0c,) + self.cdims[1:], dtype=dtype,
                                   device=self.mesh.device(p))
-                      for p in range(self.mesh.size)], self.mesh)
+                      for p in self.mesh.local], self.mesh)
 
     def matvec_linked(self, A, d_inv, xc):
         m0 = self.dims[0] // self.mesh.size
         local_fine = (m0,) + self.dims[1:]
         parts = []
-        for p, (xl, sl) in enumerate(zip(xc.parts, self.scale.parts)):
+        for p, xl, sl in zip(self.mesh.local, xc.parts, self.scale.parts):
             t = upsample_nd(xl * sl, local_fine, self.block)
             if self.true_d0 is not None:
                 gi = p * m0 + torch.arange(m0, device=t.device)
@@ -124,8 +125,10 @@ def structured_distributed_setup(A, config: AMGConfig, mesh, dims,
                                  dtype=torch.float32, seed: int = 0) -> Hierarchy:
     """Host setup (the float64 oracle) → sharded all-stencil hierarchy over
     ``mesh``: ShardedStencil levels with SBlock transfers, and the dense
-    coarse inverse over the padded coarse grid on part 0's device."""
+    coarse inverse over the padded coarse grid on every process's
+    ``mesh.home``.  Each process runs the oracle and keeps its parts."""
     from parallel_amg_tpu_torch.oracle.serial_amg import oracle_setup
+    from parallel_amg_tpu_torch.parallel.psetup import oracle_arrays
 
     if isinstance(A, CSR):
         A_sp = A.to_scipy()
@@ -137,6 +140,7 @@ def structured_distributed_setup(A, config: AMGConfig, mesh, dims,
         raise ValueError("structured_distributed_setup requires the block-SA "
                          "configuration")
     oh = oracle_setup(A_sp, config, seed=seed, dims=dims)
+    exchange.check_replicated(oracle_arrays(oh), mesh.home, "the host oracle")
     S = mesh.size
     b = config.block_size
     # every level's grid must be block- and part-aligned
@@ -191,7 +195,7 @@ def structured_distributed_setup(A, config: AMGConfig, mesh, dims,
     tidx = _embed_indices(tdims, cdims_pad)
     dense[np.ix_(tidx, tidx)] = oh.levels[-1].A.toarray()
     coarse_inv = torch.from_numpy(coarse_inverse_np(dense)).to(
-        torch.float32).to(mesh.device(0))
+        torch.float32).to(mesh.home)
     return Hierarchy(apply_halo_mode(levels, config.halo_mode), coarse_inv,
                      config)
 

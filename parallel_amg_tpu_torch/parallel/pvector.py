@@ -3,9 +3,10 @@
 Counterpart of ``parallel_amg_tpu/parallel/pvector.py``.  A distributed
 vector of the algebraic path is a 1-D :class:`PGrid`: part p holds rows
 [p·m, (p+1)·m) of the padded global vector (``Partition.n_padded`` rows) on
-``mesh.device(p)``, so elementwise arithmetic runs part by part and ``dot``
-and ``norm`` reduce the per-part partials on part 0's device.  These helpers
-handle the host boundary (padding, splitting, unpadding).
+``mesh.device(p)``, in the process that holds part p, so elementwise
+arithmetic runs part by part and ``dot`` and ``norm`` reduce the per-part
+partials through ``exchange.psum``, the same value on every process.  These
+helpers handle the host boundary (padding, splitting, unpadding).
 """
 
 from __future__ import annotations
@@ -35,12 +36,13 @@ def pvector(x_host, partition: Partition, mesh, dtype=torch.float32) -> PGrid:
 
 
 def to_global(x: PGrid, partition: Partition) -> np.ndarray:
-    """Fetch a split padded vector to the host and strip the padding."""
+    """Fetch a split padded vector to the host (on every process) and strip
+    the padding."""
     return x.to_global("cpu").numpy()[: partition.n_global]
 
 
 def dot(x: PGrid, y: PGrid):
-    """Distributed dot product: per-part partials summed on part 0."""
+    """Distributed dot product: per-part partials summed in part order."""
     return x.dot(y)
 
 

@@ -5,8 +5,11 @@ on its CPU backend.  ``index_add_`` on a CUDA tensor adds them with atomics in
 no fixed order, so a setup run twice would differ in its last bits.  Here a
 float segment sum sorts the ids stably and reduces each segment's values
 left to right with ``torch.segment_reduce``: the same sum on every call and
-on every device, equal to the sequential sum.  Maxima and minima are exact
-in any order and use ``scatter_reduce``.
+on every device, equal to the sequential sum.  The values go in as one
+(N, 1) column: for 1-D values torch's CUDA ``segment_reduce`` takes cub's
+segmented tree reduction, whose order is not the sequential one; for 2-D
+values it runs one thread per segment that adds left to right, as the CPU
+does.  Maxima and minima are exact in any order and use ``scatter_reduce``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ def segment_sum(vals, ids, n: int, sorted_ids: bool = False):
         raise ValueError(f"segment ids reach {lengths.numel() - 1} ≥ {n}")
     if vals.numel() == 0:
         return torch.zeros(n, dtype=vals.dtype, device=vals.device)
-    return torch.segment_reduce(vals, "sum", lengths=lengths, unsafe=True)
+    return torch.segment_reduce(vals[:, None], "sum", lengths=lengths,
+                                unsafe=True)[:, 0]
 
 
 def segment_max(vals, ids, n: int, fill):

@@ -157,3 +157,77 @@ def test_pallas_spgemm_cuda_matches_plain():
     assert torch.equal(C.cols, Cp.cols) and torch.equal(C.row_nnz, Cp.row_nnz)
     np.testing.assert_allclose(C.vals.cpu().numpy(), Cp.vals.cpu().numpy(), rtol=1e-5,
                                atol=1e-6)
+
+
+# -- the merge's order of summation (the plain versions and B4) -------------------
+
+def _slot_order_sums(cc, cv, sent):
+    """Each row's column sums at its leader slots, added one after another in
+    ascending slot order with float32 rounding at every step."""
+    cc, cv = cc.numpy(), cv.numpy()
+    out = np.zeros(cc.shape, np.float32)
+    for r in range(cc.shape[0]):
+        lead = {}
+        for k in range(cc.shape[1]):
+            c = int(cc[r, k])
+            if c == sent:
+                continue
+            j = lead.setdefault(c, k)
+            out[r, j] = np.float32(out[r, j] + cv[r, k])
+    return out
+
+
+def _cancelling_candidates():
+    """50 rows of K = 40 candidates over 5 columns, magnitudes spread over
+    eight decades, so that sums in different orders round differently."""
+    rng = np.random.default_rng(40)
+    sent = 5
+    cc = rng.integers(0, sent + 1, size=(50, 40)).astype(np.int32)
+    cv = (rng.normal(size=cc.shape)
+          * 10.0 ** rng.integers(-4, 5, size=cc.shape)).astype(np.float32)
+    return torch.from_numpy(cc), torch.from_numpy(cv), sent
+
+
+def test_merge_sums_in_slot_order():
+    """The plain merge adds each column's values in ascending slot order, as
+    merge_kernel does, bit for bit; a torch reduction over the equality
+    matrix (the order torch picks) rounds differently on this case."""
+    cc, cv, sent = _cancelling_candidates()
+    leader, sums = pspgemm.merge_rows_plain(cc, cv, sent)
+    want = _slot_order_sums(cc, cv, sent)
+    lead = leader.numpy()
+    np.testing.assert_array_equal(sums.numpy()[lead].view(np.int32),
+                                  want[lead].view(np.int32))
+    valid = cc != sent
+    E = (cc[:, :, None] == cc[:, None, :]) & valid[:, :, None]
+    torch_order = (cv[:, :, None] * E).sum(1).numpy()
+    assert (torch_order[lead] != want[lead]).any()
+    _, ov, _ = pspgemm.dedup(cc, cv, sent)
+    np.testing.assert_array_equal(ov.numpy()[lead], want[lead])
+    _, cvals, counts = gspgemm.dedup_compact(cc, cv, sent, 5)
+    for r in range(cc.shape[0]):
+        np.testing.assert_array_equal(cvals[r, :int(counts[r])].numpy(),
+                                      want[r][lead[r]])
+
+
+@pytest.mark.cuda
+def test_b4_bit_equal_to_plain_64():
+    """B4 (and B5 in place) bit-equal to the plain merge at 64²: the
+    candidates of R·A for the classical-AMG R of poisson2d(64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernels B3, B5 and B4 are CUDA C++ and need a CUDA card")
+    from parallel_amg_tpu_torch.oracle.serial_amg import oracle_setup
+
+    A_sp = poisson2d(64).to_csr().to_scipy()
+    oh = oracle_setup(A_sp, ptt.AMGConfig(coarsening="rs", n_coarse_max=64))
+    R, A = _ell(oh.levels[0].R).to("cuda"), _ell(A_sp).to("cuda")
+    sent = A.n_cols
+    cc, cv = gspgemm.gather_candidates(R, A)
+    qc, qv, qn = pspgemm._dedup_plain(cc, cv, sent)
+    oc, ov, on = pspgemm.dedup(cc, cv, sent)
+    assert torch.equal(oc, qc) and torch.equal(on, qn) and torch.equal(ov, qv)
+    w = int(qn.max())
+    oc, ov, on = gspgemm.dedup_compact(cc, cv, sent, w)
+    qc, qv, qn = gspgemm._dedup_compact_plain(cc, cv, sent, w)
+    torch.cuda.synchronize()
+    assert torch.equal(oc, qc) and torch.equal(on, qn) and torch.equal(ov, qv)

@@ -33,11 +33,14 @@ except ImportError:  # a machine without JAX runs the cuda cases only
     jax = None
 
 import parallel_amg_tpu_torch as ptt
+from parallel_amg_tpu_torch.parallel import launch
 from parallel_amg_tpu_torch.parallel import mesh as pmesh
 from parallel_amg_tpu_torch.parallel import phalo_async, pgrid
 from parallel_amg_tpu_torch.parallel.pgrid import PGrid
 from parallel_amg_tpu_torch.parallel.pstencil import ShardedStencil
 from parallel_amg_tpu_torch.problems import poisson_stencil
+
+import torch_ranks
 
 torch.set_num_threads(2)
 
@@ -180,8 +183,9 @@ def test_row_mesh_devices_and_errors(monkeypatch):
     assert [str(d) for d in mesh.devices] == ["cuda:0", "cuda:1", "cuda:2", "cuda:0"]
     assert ptt.make_row_mesh().size == 3
     pmesh.runtime_init()  # single process: nothing to do
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        pmesh.runtime_init("localhost:1234", num_processes=2, process_id=0)
+    # two processes join through a FileStore and split the mesh's parts
+    views = launch.spawn(torch_ranks.process_view, 2, args=(4,), timeout_s=60)
+    assert views == [(0, 2, [0, 1]), (1, 2, [2, 3])]
 
 
 def test_kernel_layout_helpers():
