@@ -13,11 +13,15 @@ shapes (one width read per product, one read per PMIS round):
 - Galerkin: R = ell_transpose(P), RA = ell_spgemm(R, A),
   A_c = ell_prune(ell_spgemm(RA, P)), on kernels B3, B5 and B4 on the card.
 
-Every float sum is taken in a fixed order, so a second setup on the card is
-bit-equal to the first: ``index_add_`` on CUDA adds duplicates with atomics
-in no fixed order, so duplicate merges add sorted runs left to right instead;
-ties in ``top_k`` go to the lower index, as ``lax.top_k`` does; maxima
-scatter with ``amax``, which is exact in any order.
+Every float sum is taken in the JAX package's CPU order, so a second setup
+on the card is bit-equal to the first and to the JAX package's: row sums go
+through ``ops/ordered_sum.row_sum`` (XLA's order; LLVM's vectorised one for
+extended+i's weak couplings, ``ordered_sum.weak_lanes``); ``ell_spgemm`` adds
+each product's terms in the order of the JAX package's ESC product;
+``index_add_`` on CUDA adds duplicates with atomics in no fixed order, so
+duplicate merges add sorted runs left to right instead; ties in ``top_k`` go
+to the lower index, as ``lax.top_k`` does; maxima scatter with ``amax``,
+which is exact in any order.
 
 The JAX package's fused driver, its shape-schedule replay and its dispatch
 probe work around a remote TPU's dispatch latency and are not ported;
@@ -43,13 +47,14 @@ from parallel_amg_tpu_torch.amg.hierarchy import (
 )
 from parallel_amg_tpu_torch.config import AMGConfig
 from parallel_amg_tpu_torch.device import resolve_device
-from parallel_amg_tpu_torch.ops import prng
+from parallel_amg_tpu_torch.ops import ordered_sum, prng
 from parallel_amg_tpu_torch.ops.ell import ELL
 from parallel_amg_tpu_torch.ops.ell_setup import (
     ell_prune,
     ell_spgemm,
     ell_transpose,
 )
+from parallel_amg_tpu_torch.ops.ordered_sum import row_sum
 
 UNDECIDED, FINE, COARSE = 0, 1, 2
 
@@ -72,8 +77,8 @@ def _truncate(w, cols, p_max: int):
     topv, topi = topk_stable(w.abs(), min(p_max, w.shape[1]))
     pv = w.gather(1, topi)
     kept = topv > 0
-    keptsum = torch.where(kept, pv, 0.0).sum(1)
-    scale = torch.where(keptsum != 0, w.sum(1) / torch.where(
+    keptsum = row_sum(torch.where(kept, pv, 0.0))
+    scale = torch.where(keptsum != 0, row_sum(w) / torch.where(
         keptsum == 0, 1.0, keptsum), 1.0)
     return (torch.where(kept, pv * scale[:, None], 0.0),
             torch.where(kept, cols.gather(1, topi), 0), kept)
@@ -154,11 +159,11 @@ def direct_interpolation_device(A: ELL, S, state, p_max: int) -> ELL:
 
     neg = offd & (a < 0)
     pos = offd & (a > 0)
-    sum_n_neg = torch.where(neg, a, 0.0).sum(1)
-    sum_n_pos = torch.where(pos, a, 0.0).sum(1)
-    sum_c_neg = torch.where(strong_c & neg, a, 0.0).sum(1)
-    sum_c_pos = torch.where(strong_c & pos, a, 0.0).sum(1)
-    diag = torch.where(A.cols == r_iota, a, 0.0).sum(1)
+    sum_n_neg = row_sum(torch.where(neg, a, 0.0))
+    sum_n_pos = row_sum(torch.where(pos, a, 0.0))
+    sum_c_neg = row_sum(torch.where(strong_c & neg, a, 0.0))
+    sum_c_pos = row_sum(torch.where(strong_c & pos, a, 0.0))
+    diag = row_sum(torch.where(A.cols == r_iota, a, 0.0))
     diag = diag + torch.where(sum_c_pos == 0.0, sum_n_pos, 0.0)
     alpha = torch.where(sum_c_neg != 0, sum_n_neg / torch.where(
         sum_c_neg == 0, 1.0, sum_c_neg), 0.0)
@@ -244,6 +249,8 @@ def extended_i_interpolation_device(A: ELL, S, state, p_max: int,
     cmap, nc = _coarse_map(state)
     if row_chunk is None:
         row_chunk = _ext_i_row_chunk(f_max, W, K, dev)
+    weak_lanes = ordered_sum.weak_lanes(
+        W, ordered_sum.jax_row_chunks(n, f_max, W, K) > 1)
     SENT = n
     pcs, pvs, rns = [], [], []
     for r0 in range(0, n, row_chunk):
@@ -264,8 +271,9 @@ def extended_i_interpolation_device(A: ELL, S, state, p_max: int,
         in_chat = ((ac[:, :, None] == chat[:, None, :])
                    & chat_ok[:, None, :]).any(2)
         own_num = torch.where(am & in_chat & ~isdiag, av, 0.0)
-        diag = torch.where(isdiag, av, 0.0).sum(1)
-        diag = diag + torch.where(am & ~isdiag & ~in_chat & ~sf, av, 0.0).sum(1)
+        diag = row_sum(torch.where(isdiag, av, 0.0))
+        diag = diag + row_sum(torch.where(am & ~isdiag & ~in_chat & ~sf, av, 0.0),
+                              lanes=weak_lanes)
 
         # strong-F distribution
         kr_c = colsl[fF]                                    # (ch, f_max, W)
@@ -276,14 +284,14 @@ def extended_i_interpolation_device(A: ELL, S, state, p_max: int,
         m_in_chat = ((kr_c[..., None] == chat[:, None, None, :])
                      & chat_ok[:, None, None, :]).any(3)
         dist_m = kr_m & sign_ok & (m_in_chat | m_is_i)
-        denom = torch.where(dist_m, kr_v, 0.0).sum(2)
+        denom = row_sum(torch.where(dist_m, kr_v, 0.0))
         has_d = denom != 0
         share = torch.where(
             dist_m & has_d[..., None],
             fFa[..., None] * kr_v / torch.where(denom == 0, 1.0,
                                                 denom)[..., None], 0.0)
-        diag = diag + torch.where(fFm & ~has_d, fFa, 0.0).sum(1)
-        diag = diag + torch.where(m_is_i, share, 0.0).sum((1, 2))
+        diag = diag + row_sum(torch.where(fFm & ~has_d, fFa, 0.0))
+        diag = diag + row_sum(torch.where(m_is_i, share, 0.0), 2)
 
         cand_c = torch.cat([
             torch.where(own_num != 0, ac, SENT),
@@ -313,6 +321,8 @@ def extended_i_interpolation_device(A: ELL, S, state, p_max: int,
         rns.append(torch.where(is_c, 1, kept.sum(1)).to(torch.int32))
     if stats is not None:
         stats["interp_chunks"] = len(pcs)
+        stats["ext_i"] = {"W": W, "f_max": f_max, "c_max": c_max,
+                          "candidates": W * (1 + f_max)}
     return ELL(torch.cat(pcs), torch.cat(pvs), torch.cat(rns), (n, nc))
 
 
@@ -443,7 +453,7 @@ def device_rs_setup(A, config: AMGConfig, dtype=torch.float32, seed: int = 0,
         clock.lap("transpose")
         RA = ell_spgemm(R, A_ell)
         info["RA"] = {"K": R.width * A_ell.width, "w": RA.width}
-        A_c = ell_spgemm(RA, P)
+        A_c = ell_spgemm(RA, P, sort=False)  # ell_prune sorts the rows
         info["RAP"] = {"K": RA.width * P.width, "w": A_c.width}
         A_c = ell_prune(A_c, tol=0.0)
         clock.lap("products")

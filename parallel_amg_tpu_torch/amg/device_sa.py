@@ -180,7 +180,8 @@ def device_sa_setup(A, config: AMGConfig, dtype=torch.float32, seed: int = 0,
         P = _ell_add(ell_spgemm(DA, T), T)
         R = ell_transpose(P)
         RA = ell_spgemm(R, A_ell)
-        A_c = ell_spgemm(RA, P)
+        # ell_prune sorts the rows; the lumped sparsify sums them first
+        A_c = ell_spgemm(RA, P, sort=config.coarse_drop_tol > 0)
         if config.coarse_drop_tol > 0:
             A_c = _ell_sparsify_lumped(A_c, config.coarse_drop_tol)
         A_c = ell_prune(A_c, tol=0.0)

@@ -10,9 +10,11 @@ reads only output widths.
   this one takes any row count.
 - ``ell_prune``: drop small entries and re-sort each row by column.
 - ``ell_spgemm``: the rank-plane product of ``ops/gspgemm.py`` (kernels B3,
-  B5, B4 on the card, their plain versions on the CPU).
-- ``ell_spgemm_pairwise``: the same three steps always in plain torch
-  (expand, equality-matrix merge, first-occurrence compaction).
+  B5, B4 on the card, their plain versions on the CPU) in the JAX package's
+  ESC order of adds and sorted layout (``gspgemm.esc_spgemm``).
+- ``ell_spgemm_pairwise``: ``gspgemm.gather_spgemm``'s three steps always
+  in plain torch (expand, equality-matrix merge, first-occurrence
+  compaction).
 """
 
 from __future__ import annotations
@@ -65,18 +67,21 @@ def ell_prune(ell: ELL, tol: float = 0.0) -> ELL:
 
 
 def ell_spgemm(A: ELL, B: ELL, out_width: int | None = None,
-               strict: bool = True) -> ELL:
-    """C = A @ B in ELL (``gspgemm.gather_spgemm``); one host read for the
-    width unless ``out_width`` is given.  Columns come in first-occurrence
-    order; explicit zeros drop.  An explicit ``out_width`` below a row's
-    column count raises with ``strict=True`` and clamps the row otherwise."""
-    return gspgemm.gather_spgemm(A, B, out_width=out_width, strict=strict)
+               strict: bool = True, sort: bool = True) -> ELL:
+    """C = A @ B in ELL (``gspgemm.esc_spgemm``), bit-equal to the JAX
+    package's ``ell_spgemm`` on its CPU backend; one host read for the
+    width unless ``out_width`` is given.  Columns come sorted (in k-major
+    first-occurrence order with ``sort=False``); explicit zeros drop.  An
+    explicit ``out_width`` below a row's column count raises with
+    ``strict=True`` and clamps the row otherwise."""
+    return gspgemm.esc_spgemm(A, B, out_width=out_width, strict=strict,
+                              sort=sort)
 
 
 def ell_spgemm_pairwise(A: ELL, B: ELL, out_width: int | None = None,
                         strict: bool = True) -> ELL:
     """C = A @ B by the plain torch versions of the three steps on any
     device (``gspgemm.plain_spgemm``): gather, equality-matrix merge,
-    first-occurrence compaction.  Same result as ``ell_spgemm`` up to the
-    order of each leader's sum."""
+    first-occurrence compaction.  Same result as ``gspgemm.gather_spgemm``
+    up to the order of each leader's sum."""
     return gspgemm.plain_spgemm(A, B, out_width=out_width, strict=strict)

@@ -21,8 +21,11 @@ contiguous run per plane.
 
 Each wrapper launches its kernel from ``csrc/spgemm.cu`` on a CUDA tensor (or
 raises) and runs its plain torch version on a CPU tensor;
-``pspgemm.LAUNCHES`` counts the launches.  Column order in C is first
-occurrence; explicit zeros drop.
+``pspgemm.LAUNCHES`` counts the launches.  ``gather_spgemm`` leaves C's
+columns in first-occurrence order; ``esc_spgemm`` (the setups' product,
+``ell_setup.ell_spgemm``) reorders the candidates k-major first, so each
+entry adds its products in the JAX package's ESC order, and sorts each
+row.  Explicit zeros drop.
 """
 
 from __future__ import annotations
@@ -162,9 +165,11 @@ def dedup_compact(cand_cols, cand_vals, sent: int, out_width: int):
     return _dedup_compact_cuda(cand_cols, cand_vals, sent, out_width)
 
 
-def _product(A: ELL, B: ELL, out_width, strict, expand, count, compact) -> ELL:
+def _product(A: ELL, B: ELL, out_width, strict, expand, count, compact,
+             sort=False) -> ELL:
     """C = A @ B from its three steps: ``expand`` (B3), ``count`` (B5's
-    counts, for the width unless ``out_width`` is given), ``compact`` (B4)."""
+    counts, for the width unless ``out_width`` is given), ``compact`` (B4);
+    with ``sort``, each row's entries then sorted by column."""
     sent = B.n_cols
     cand_c, cand_v = expand(A, B)
     explicit = out_width is not None
@@ -179,7 +184,17 @@ def _product(A: ELL, B: ELL, out_width, strict, expand, count, compact) -> ELL:
                 f"gather_spgemm: out_width={out_width} < max distinct columns "
                 f"{worst}; entries would be dropped (pass strict=False to clamp)")
     nnz = torch.clamp(counts, max=out_width)
+    if sort:
+        cols, vals = sort_rows(cols, vals, nnz, sent)
     return ELL(cols, vals, nnz, (A.n_rows, B.n_cols))
+
+
+def sort_rows(cols, vals, nnz, sent: int):
+    """Each row's first ``nnz`` (distinct) columns sorted, values with
+    them; the padding stays (0, 0)."""
+    live = torch.arange(cols.shape[1], device=cols.device)[None, :] < nnz[:, None]
+    key, order = torch.sort(torch.where(live, cols, sent), dim=1)
+    return torch.where(live, key, 0), vals.gather(1, order)
 
 
 def gather_spgemm(A: ELL, B: ELL, out_width: int | None = None,
@@ -193,6 +208,33 @@ def gather_spgemm(A: ELL, B: ELL, out_width: int | None = None,
     """
     return _product(A, B, out_width, strict, gather_candidates, pspgemm.dedup,
                     dedup_compact)
+
+
+def k_major(cand_cols, cand_vals, Wa: int, Wb: int):
+    """B3's candidate table reordered from its slot order m·Wa + k to
+    k·Wb + m, A's entry first, as the JAX package's ESC products lay it
+    out; B4 then sums each column's products in the order of A's entries."""
+    perm = (torch.arange(Wb, device=cand_cols.device)[None, :] * Wa
+            + torch.arange(Wa, device=cand_cols.device)[:, None]).reshape(-1)
+    return cand_cols[:, perm].contiguous(), cand_vals[:, perm].contiguous()
+
+
+def _k_major_candidates(A: ELL, B: ELL):
+    return k_major(*gather_candidates(A, B), A.width, B.width)
+
+
+def esc_spgemm(A: ELL, B: ELL, out_width: int | None = None,
+               strict: bool = True, sort: bool = True) -> ELL:
+    """C = A @ B with each entry's products added in the order of the JAX
+    package's ESC ``ell_spgemm`` on its CPU backend, so bit-equal to it:
+    B3's candidates reordered ``k_major``, then B5's counts and B4's merge
+    as in ``gather_spgemm``; with ``sort`` each row is then sorted by
+    column, that product's layout (a caller that re-sorts the rows itself,
+    as ``ell_prune`` does, skips it).  ``out_width`` and ``strict`` as in
+    ``gather_spgemm``: a clamped row keeps its first columns in k-major
+    order."""
+    return _product(A, B, out_width, strict, _k_major_candidates,
+                    pspgemm.dedup, dedup_compact, sort)
 
 
 def plain_spgemm(A: ELL, B: ELL, out_width: int | None = None,

@@ -35,8 +35,11 @@ FINE at the next level, and are left out of ``Level.true_n``.  Diagonal-only
 rows are FINE here (inert under the smoother), as in the JAX package.
 
 No operator value is summed through float atomics: duplicate runs add left
-to right (``segment.segment_sum``) or in B4's slot order, so a rerun on the
-card is bit-equal.  The PMIS weights and the λ_max start vector are
+to right (``segment.segment_sum``) or in B4's slot order, and every float32
+row sum of the interpolation goes through ``ops/ordered_sum.row_sum``, in
+the order of ``jnp.sum`` on the JAX package's CPU backend.  So a rerun on
+the card is bit-equal, and the card and the CPU give the JAX package's
+levels bit for bit.  The PMIS weights and the λ_max start vector are
 ``ops/prng.uniform``, the JAX package's draws.
 """
 
@@ -52,6 +55,7 @@ from parallel_amg_tpu_torch.amg.hierarchy import Hierarchy, Level, coarse_invers
 from parallel_amg_tpu_torch.config import AMGConfig
 from parallel_amg_tpu_torch.ops import gspgemm, prng, pspgemm
 from parallel_amg_tpu_torch.ops.ell import ELL
+from parallel_amg_tpu_torch.ops.ordered_sum import row_sum
 from parallel_amg_tpu_torch.parallel import exchange
 from parallel_amg_tpu_torch.parallel.passembly_device import pcsr_from_coo_device
 from parallel_amg_tpu_torch.parallel.pcsr import PCSR
@@ -125,8 +129,8 @@ def _topk_rescale(cols, vals, row_nnz, p_max: int, sentinel: int):
     pv = vals.gather(1, topi)
     pc = cols.gather(1, topi)
     kept = topv > 0
-    total = torch.where(live, vals, 0.0).sum(1)
-    keptsum = torch.where(kept, pv, 0.0).sum(1)
+    total = row_sum(torch.where(live, vals, 0.0))
+    keptsum = row_sum(torch.where(kept, pv, 0.0))
     scale = torch.where(keptsum != 0,
                         total / torch.where(keptsum == 0, 1.0, keptsum), 1.0)
     pv = torch.where(kept, pv * scale[:, None], 0.0)
@@ -275,14 +279,14 @@ def _interp_direct_part(i, A: PCSR, sd, so, st_g, cm_g, state, cmap, *, m,
     neg_o, pos_o = omask & (a_o < 0), omask & (a_o > 0)
 
     def rsum(mask_d, mask_o):
-        return (torch.where(mask_d, a_d, 0.0).sum(1)
-                + torch.where(mask_o, a_o, 0.0).sum(1))
+        return (row_sum(torch.where(mask_d, a_d, 0.0))
+                + row_sum(torch.where(mask_o, a_o, 0.0)))
 
     sum_n_neg = rsum(neg_d, neg_o)
     sum_n_pos = rsum(pos_d, pos_o)
     sum_c_neg = rsum(strong_c_d & neg_d, strong_c_o & neg_o)
     sum_c_pos = rsum(strong_c_d & pos_d, strong_c_o & pos_o)
-    diag = torch.where(dc == _r_iota(dc), a_d, 0.0).sum(1)
+    diag = row_sum(torch.where(dc == _r_iota(dc), a_d, 0.0))
     diag = diag + torch.where(sum_c_pos == 0.0, sum_n_pos, 0.0)
     alpha = torch.where(sum_c_neg != 0, sum_n_neg / torch.where(
         sum_c_neg == 0, 1.0, sum_c_neg), 0.0)
@@ -304,8 +308,8 @@ def _interp_direct_part(i, A: PCSR, sd, so, st_g, cm_g, state, cmap, *, m,
     pv = cand_v.gather(1, topi)
     pc = cand_c.gather(1, topi)
     kept = topv > 0
-    total = torch.where(ok, cand_v, 0.0).sum(1)
-    keptsum = torch.where(kept, pv, 0.0).sum(1)
+    total = row_sum(torch.where(ok, cand_v, 0.0))
+    keptsum = row_sum(torch.where(kept, pv, 0.0))
     scale = torch.where(keptsum != 0,
                         total / torch.where(keptsum == 0, 1.0, keptsum), 1.0)
     pv = torch.where(kept, pv * scale[:, None], 0.0)
@@ -402,8 +406,8 @@ def _xi_chunk(rid, gid, rc, rv, sf_mask, oscf, osccid, osfe, osfa, st, cm, tabs,
     cid_own = torch.where(match2, chat_c[:, None, :], -1).amax(2)
     in_chat = cid_own >= 0
     own_num = torch.where(am & in_chat & ~isdiag, rv, 0.0)
-    diag = torch.where(isdiag, rv, 0.0).sum(1)
-    diag = diag + torch.where(am & ~isdiag & ~in_chat & ~sf_mask, rv, 0.0).sum(1)
+    diag = row_sum(torch.where(isdiag, rv, 0.0))
+    diag = diag + row_sum(torch.where(am & ~isdiag & ~in_chat & ~sf_mask, rv, 0.0))
 
     # strong-F distribution pass
     sfvm = osfe < ext
@@ -417,14 +421,14 @@ def _xi_chunk(rid, gid, rc, rv, sf_mask, oscf, osccid, osfe, osfa, st, cm, tabs,
     cid4 = torch.where(match4, chat_c[:, None, None, :], -1).amax(3)
     m_in_chat = cid4 >= 0
     dist_m = kr_m & sign_ok & (m_in_chat | m_is_i)
-    denom = torch.where(dist_m, kr_v, 0.0).sum(2)
+    denom = row_sum(torch.where(dist_m, kr_v, 0.0))
     has_d = denom != 0
     share = torch.where(
         dist_m & has_d[..., None],
         osfa[..., None] * kr_v / torch.where(denom == 0, 1.0, denom)[..., None],
         0.0)
-    diag = diag + torch.where(sfvm & ~has_d, osfa, 0.0).sum(1)
-    diag = diag + torch.where(m_is_i, share, 0.0).sum((1, 2))
+    diag = diag + row_sum(torch.where(sfvm & ~has_d, osfa, 0.0))
+    diag = diag + row_sum(torch.where(m_is_i, share, 0.0), 2)
 
     # candidates in global coarse-id space, dedup, w = -num/diag
     cand_c = torch.cat([
@@ -449,7 +453,7 @@ def _xi_chunk(rid, gid, rc, rv, sf_mask, oscf, osccid, osfe, osfa, st, cm, tabs,
 
 
 def pcsr_extended_i(A: PCSR, Sd, So, state: PGrid, cmap: PGrid, mc_pad: int,
-                    config: AMGConfig) -> PCSR:
+                    config: AMGConfig, stats: dict | None = None) -> PCSR:
     """Distributed TRUE distance-two extended+i interpolation → PCSR P.
 
     Same algorithm as the single-device
@@ -481,6 +485,9 @@ def pcsr_extended_i(A: PCSR, Sd, So, state: PGrid, cmap: PGrid, mc_pad: int,
     W = rowc[0].shape[1]
     K = c_max * (1 + f_max)
     ext = m + G
+    if stats is not None:  # the widths of the tables and of their row sums
+        stats["ext_i"] = {"W": W, "f_max": f_max, "c_max": c_max,
+                          "candidates": W * (1 + f_max)}
     R, Cc, V = [], [], []
     for i, p in enumerate(A.mesh.local):
         dev = rowc[i].device
@@ -519,15 +526,17 @@ def pcsr_extended_i(A: PCSR, Sd, So, state: PGrid, cmap: PGrid, mc_pad: int,
 
 
 def pcsr_interpolation(A: PCSR, Sd, So, state: PGrid, cmap: PGrid,
-                       mc_pad: int, config: AMGConfig) -> PCSR:
+                       mc_pad: int, config: AMGConfig,
+                       stats: dict | None = None) -> PCSR:
     """Classical interpolation → PCSR P, three tiers (config.interpolation):
     "extended_i" (TRUE distance-two, the default — ``pcsr_extended_i``),
     "smoothed_direct" (direct + one Jacobi pass), "direct".
 
     P: rows on A's fine partition, cols on the part-padded coarse numbering
-    (n_cols = S·mc_pad)."""
+    (n_cols = S·mc_pad).  ``stats``, where given, receives extended+i's
+    table widths."""
     if config.interpolation == "extended_i":
-        return pcsr_extended_i(A, Sd, So, state, cmap, mc_pad, config)
+        return pcsr_extended_i(A, Sd, So, state, cmap, mc_pad, config, stats)
     S = A.n_shards
     m = A.row_partition.rows_per_shard
     G = A.G
@@ -652,15 +661,8 @@ def part_candidates(Ap: ELL, Bp: ELL, plain: bool = False):
     order m·Wa + k to k·Wb + m (A's entry first, as the JAX package's
     ``_spgemm_kernel`` lays them out).  ``plain=True`` runs B3's plain
     version."""
-    if plain:
-        cand_c, cand_v = gspgemm._gather_candidates_plain(Ap, Bp)
-    else:
-        cand_c, cand_v = gspgemm.gather_candidates(Ap, Bp)
-    Wa, Wb = Ap.width, Bp.width
-    dev = cand_c.device
-    perm = (torch.arange(Wb, device=dev)[None, :] * Wa
-            + torch.arange(Wa, device=dev)[:, None]).reshape(-1)
-    return cand_c[:, perm].contiguous(), cand_v[:, perm].contiguous()
+    gather = gspgemm._gather_candidates_plain if plain else gspgemm.gather_candidates
+    return gspgemm.k_major(*gather(Ap, Bp), Ap.width, Bp.width)
 
 
 def part_product(Ap: ELL, Bp: ELL, plain: bool = False) -> ELL:
@@ -846,7 +848,7 @@ def distributed_rs_setup(A: PCSR, config: AMGConfig, dtype=torch.float32,
         if nc_true >= true_n or nc_true == 0:
             levels.append(Level(A, None, None, d_inv, lam, true_n=true_n))
             break
-        Pm = pcsr_interpolation(A, Sd, So, state, cmap, mc_pad, config)
+        Pm = pcsr_interpolation(A, Sd, So, state, cmap, mc_pad, config, info)
         clock.lap("interpolation")
         R = pcsr_transpose(Pm, rows_per_shard=mc_pad)
         clock.lap("transpose")

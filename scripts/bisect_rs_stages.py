@@ -13,9 +13,9 @@ product (the CPU runs the kernels' plain versions).  Each stage's output is
 compared bit for bit; the first stage that differs is printed per level with
 the count of differing entries, then the card's A_{ℓ+1} feeds level ℓ+1.  Beside it the whole setup runs on the
 CPU alone from A_0 (its own A_{ℓ+1} feeding level ℓ+1), and its level rows
-are printed: the CPU path equals the JAX package's 8-shard setup at 128² and
-256² (tests/test_torch_prs_setup.py), so the two chains' rows say whether
-the card's departure is what moves its rows from the JAX package's.  JSON
+are printed: the CPU path equals the JAX package's 8-shard setup bit for bit
+at every level of config #2 (scripts/bisect_rs_vs_jax.py), so a stage that
+departs here is a departure of the card's from the JAX package's.  JSON
 lines on stdout.
 """
 

@@ -7,8 +7,10 @@ its threefry uniform, its transposes keep its slot order and ``argmax``
 takes the first maximum as ``jnp.argmax`` does).  A whole setup at 32² must
 give the same level rows, the same P, R and coarse operators as per-row
 (col, val) sets to float32 tolerance (same columns; values to rtol 1e-5,
-atol 1e-6·max|entry|: the SpGEMM sums the same float32 products in another
-order) and the same PCG iteration count; and, as
+atol 1e-6·max|entry|: the products add in the JAX package's ESC order, but
+P's smoothing weight ω/λ_max comes from power-iteration dots and norms in
+torch's order, which may differ in the last bit) and the same PCG
+iteration count; and, as
 ``tests/test_device_sa.py`` holds the JAX package, a valid cover and the
 oracle's greedy-SA band.  The 3D case is ``test_torch_device_sa_3d.py``.
 """

@@ -9,11 +9,11 @@ Both packages get the same PCSR (``PCSR.from_csr``, whose planes are held
 equal in test_torch_pcsr.py); a stage's inputs are the port's own outputs
 of the stage before, which the tests hold equal first.  PMIS weights are
 ``ops/prng.uniform``, the JAX package's draw.
-Tolerances:
-- strength masks, PMIS states, coarse numbering, transposed planes and
-  halo plans: equal;
-- interpolation P (direct, smoothed direct, extended+i), entrywise: rtol
-  1e-5, atol 1e-6 (float32 row sums taken in another order);
+Everything is held equal: strength masks, PMIS states, coarse numbering,
+halo plans and the interpolation P (direct, smoothed direct, extended+i),
+plane by plane and bit for bit: the port's float32 row sums add in the
+order of the JAX package's ``jnp.sum`` on its CPU backend
+(``ops/ordered_sum.py``).
 """
 
 import functools
@@ -37,12 +37,10 @@ import parallel_amg_tpu_torch as ptt
 from parallel_amg_tpu_torch.parallel import prs_setup as prs
 from parallel_amg_tpu_torch.parallel.mesh import make_row_mesh
 from parallel_amg_tpu_torch.parallel.pcsr import PCSR
-from parallel_amg_tpu_torch.parallel.pgrid import PGrid
 from parallel_amg_tpu_torch.problems import poisson2d
 
 torch.set_num_threads(2)
 
-P_RTOL, P_ATOL = 1e-5, 1e-6
 FIELDS = ("diag_cols", "diag_vals", "off_cols", "off_vals", "send_idx",
           "recv_map")
 
@@ -77,14 +75,14 @@ def _stack(parts):
     return np.stack([t.numpy() for t in parts])
 
 
-def _dense(M):
-    """Dense (true rows × padded cols) matrix of a PCSR from its triplets."""
-    r, c, v = (np.asarray(t).reshape(-1) if not isinstance(t, PGrid)
-               else t.to_global().numpy() for t in M.to_triplets())
-    keep = r >= 0
-    out = np.zeros((M.true_shape[0], M.col_partition.n_padded))
-    np.add.at(out, (r[keep], c[keep]), v[keep])
-    return out
+def assert_planes_equal(Mt, Mj):
+    """A port PCSR's planes and plans equal to a JAX PCSR's, floats bit for
+    bit."""
+    for f in FIELDS:
+        a, b = _stack(getattr(Mt, f)), np.asarray(getattr(Mj, f))
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b, err_msg=f)
 
 
 @pytest.mark.parametrize("S", [8, 3])
@@ -109,8 +107,4 @@ def test_interpolation_entrywise(interp, p_max, S):
     Pj = jprs.pcsr_interpolation(lv["Aj"], *lv["Sj"], lv["stj"], cmj, mcj, lv["cj"])
     Pt = prs.pcsr_interpolation(lv["At"], *lv["St"], lv["stt"], cmt, mct, lv["ct"])
     assert tuple(Pj.true_shape) == Pt.true_shape
-    np.testing.assert_allclose(_dense(Pt), _dense(Pj), rtol=P_RTOL, atol=P_ATOL)
-    # the same sparsity, so the same halo plan
-    for f in ("send_idx", "recv_map", "diag_cols", "off_cols"):
-        np.testing.assert_array_equal(np.asarray(getattr(Pj, f)),
-                                      _stack(getattr(Pt, f)), err_msg=f)
+    assert_planes_equal(Pt, Pj)

@@ -3,17 +3,13 @@
 ``pcsr_spgemm``) against the JAX package's on its CPU mesh, on the first
 level of test_torch_prs_setup.py (2D Poisson 16², extended+i).
 
-Tolerances:
-- R = Pᵀ: planes to the interpolation's rtol 1e-5, atol 1e-6 (copies of
-  P's values), plans equal;
+Everything is held equal, floats bit for bit:
+- R = Pᵀ: planes and plans;
 - the per-part product (B3 + B5 + B4, their plain versions here) against the
   JAX package's ``_spgemm_kernel``, fed the JAX package's own R through
-  ``interop.pcsr_from_numpy``: the same column set in every row, values
-  rtol 1e-5, atol 1e-6·max|C| (the same float32 products; the plain merge
-  sums them as one tensor reduction, the kernels and the JAX package in
-  candidate order);
-- R·A and (R·A)·P after reassembly: entrywise, rtol 1e-5 and 1e-4, atol
-  1e-6·max|C|; partitions equal.
+  ``interop.pcsr_from_numpy``: the same columns in every row and the same
+  values (both sum each column's float32 products in candidate order);
+- R·A and (R·A)·P after reassembly: planes, plans and partitions.
 The CUDA case holds the kernels' per-part product against the plain
 versions' on the card.
 """
@@ -41,7 +37,7 @@ from parallel_amg_tpu_torch.parallel import prs_setup as prs
 from parallel_amg_tpu_torch.parallel.mesh import make_row_mesh
 from parallel_amg_tpu_torch.parallel.pcsr import PCSR
 from parallel_amg_tpu_torch.problems import poisson2d
-from test_torch_prs_setup import FIELDS, P_ATOL, P_RTOL, _dense, _level, _stack
+from test_torch_prs_setup import FIELDS, _level, assert_planes_equal
 
 torch.set_num_threads(2)
 
@@ -84,17 +80,13 @@ def test_part_product_vs_spgemm_kernel():
     from parallel_amg_tpu_torch.interop import pcsr_from_numpy
 
     lv, Pj, Pt, Rj, Rt = _rap_operands(8)
-    for f in FIELDS:  # R = Pᵀ: the same planes (exact copies of P's values)
-        np.testing.assert_allclose(_stack(getattr(Rt, f)),
-                                   np.asarray(getattr(Rj, f)), rtol=P_RTOL,
-                                   atol=P_ATOL, err_msg=f)
+    assert_planes_equal(Rt, Rj)  # R = Pᵀ: exact copies of P's values
     arrays = {f: np.asarray(getattr(Rj, f)) for f in FIELDS}
     arrays.update(row_partition=Rj.row_partition, col_partition=Rj.col_partition,
                   true_shape=Rj.true_shape)
     R_from_jax = pcsr_from_numpy(arrays, lv["At"].mesh)
     cols, vals, nnz = _jax_part_products(Rj, lv["Aj"])
     ours = _port_part_products(R_from_jax, lv["At"])
-    scale = np.abs(vals).max()
     for p, C in enumerate(ours):
         cc, cv, cn = C.cols.numpy(), C.vals.numpy(), C.row_nnz.numpy()
         np.testing.assert_array_equal(cn, nnz[p])
@@ -103,8 +95,9 @@ def test_part_product_vs_spgemm_kernel():
             ref = dict(zip(cols[p, r, :nnz[p, r]].tolist(),
                            vals[p, r, :nnz[p, r]].tolist()))
             assert set(mine) == set(ref), (p, r)
-            np.testing.assert_allclose([mine[k] for k in ref], list(ref.values()),
-                                       rtol=P_RTOL, atol=P_ATOL * scale)
+            np.testing.assert_array_equal(
+                np.float32([mine[k] for k in ref]).view(np.int32),
+                np.float32(list(ref.values())).view(np.int32))
 
 
 @pytest.mark.parametrize("S", [8, 3])
@@ -112,14 +105,10 @@ def test_galerkin_products_vs_jax(S):
     lv, Pj, Pt, Rj, Rt = _rap_operands(S)
     RAj = jprs.pcsr_spgemm(Rj, lv["Aj"])
     RAt = prs.pcsr_spgemm(Rt, lv["At"])
-    scale = np.abs(_dense(RAt)).max()
-    np.testing.assert_allclose(_dense(RAt), _dense(RAj), rtol=P_RTOL,
-                               atol=P_ATOL * scale)
+    assert_planes_equal(RAt, RAj)
     Acj = jprs._ensure_diag(jprs.pcsr_spgemm(RAj, Pj, pad_identity=True))
     Act = prs._ensure_diag(prs.pcsr_spgemm(RAt, Pt, pad_identity=True))
-    scale = np.abs(_dense(Act)).max()
-    np.testing.assert_allclose(_dense(Act), _dense(Acj), rtol=1e-4,
-                               atol=P_ATOL * scale)
+    assert_planes_equal(Act, Acj)
     assert tuple(Acj.true_shape) == Act.true_shape
     for name in ("row_partition", "col_partition"):
         a, b = getattr(Acj, name), getattr(Act, name)

@@ -26,7 +26,11 @@ import torch
 from parallel_amg_tpu_torch.ops import gspgemm, pspgemm
 from parallel_amg_tpu_torch.ops.csr import CSR
 from parallel_amg_tpu_torch.ops.ell import ELL
-from parallel_amg_tpu_torch.ops.ell_setup import ell_spgemm, ell_spgemm_pairwise
+from parallel_amg_tpu_torch.ops.ell_setup import (
+    ell_prune,
+    ell_spgemm,
+    ell_spgemm_pairwise,
+)
 from parallel_amg_tpu_torch.problems import poisson2d
 
 torch.set_num_threads(2)
@@ -244,10 +248,31 @@ def test_spgemm_matches_scipy(name):
     for C in (gspgemm.gather_spgemm(_ell(a), _ell(b)), ell_spgemm(_ell(a), _ell(b)),
               ell_spgemm_pairwise(_ell(a), _ell(b))):
         _assert_same_sets(C, ref)
-    # the pairwise formulation is the same three steps: same layout
-    C1 = ell_spgemm(_ell(a), _ell(b))
+    # the pairwise formulation is gather_spgemm's three steps: same layout
+    C1 = gspgemm.gather_spgemm(_ell(a), _ell(b))
     C2 = ell_spgemm_pairwise(_ell(a), _ell(b))
     assert torch.equal(C1.cols, C2.cols) and torch.equal(C1.row_nnz, C2.row_nnz)
+
+
+@pytest.mark.parametrize("name", ["square_poisson", "rect_AP", "rect_RAP"])
+def test_ell_spgemm_bit_equal_to_jax_esc(name):
+    """``ell_spgemm`` against the JAX package's ESC ``ell_spgemm`` on its
+    CPU backend, on products with no zero terms: the same planes bit for
+    bit; with ``sort=False`` the same operator once ``ell_prune`` has
+    sorted the rows."""
+    jnp, JCSR, JELL, _, _ = _jax()
+    from parallel_amg_tpu.ops import ell_setup as jell
+
+    a, b = CASES[name]()
+    J = jell.ell_spgemm(*(JELL.from_csr(JCSR.from_scipy(m), dtype=jnp.float32)
+                          for m in (a, b)))
+    Jp = jell.ell_prune(J, tol=0.0)
+    for C, ref in ((ell_spgemm(_ell(a), _ell(b)), J),
+                   (ell_prune(ell_spgemm(_ell(a), _ell(b), sort=False)), Jp)):
+        for mine, theirs in ((C.cols, ref.cols), (C.row_nnz, ref.row_nnz),
+                             (C.vals.view(torch.int32),
+                              np.asarray(ref.vals).view(np.int32))):
+            np.testing.assert_array_equal(mine.numpy(), np.asarray(theirs))
 
 
 def test_strict_out_width():
