@@ -17,7 +17,8 @@
    kernel, plain, bound and library-CSR times, and y bit-equal over 20
    calls.
 5. setup3d: acceptance config #3 at its full size (3D Poisson 128³,
-   block SA b=3, Chebyshev, n_coarse_max=512) set up on the card.
+   block SA b=3, Chebyshev, n_coarse_max=512) set up on the card; every
+   level's λ_max held equal to the same power iteration on the CPU.
 6. Kernel B2 (flatdia_spmv) against its plain version on a random 7-point
    128³ stencil, config #3's level-1 coarse stencil, config #2's widest DIA
    level and a tiny grid whose flattened planes alias, in float32 and
@@ -36,10 +37,13 @@
     Ruge–Stüben setup of amg/device_rs.py), twice: seconds, levels, the K and
     w of every product, rows and complexities held equal to the JAX
     package's CPU run, the launches of B3, B4, B5 and the three ordered-sum
-    kernels, peak memory, and bit-equality of the two runs; then a third
-    setup with one input of every row-sum shape captured, each held
-    bit-equal to the plain version through the ordered-sum kernels, and
-    ``ordered_sum_lanes`` timed on the largest.
+    kernels, peak memory, and bit-equality of the two runs; every level's
+    λ_max held equal to the same power iteration on the CPU; then a third
+    setup with one input of every ordered-sum shape captured (the row sums
+    and the power iterations' rows and norms), each held bit-equal to the
+    plain version through the ordered-sum kernels; ``ordered_sum_lanes``
+    timed on the weak couplings, on 2^20 rows and on the power iteration's
+    rows, ``ordered_sum_windows`` on level 0's norm.
 11. Kernels B3 (spgemm_expand), B5 (spgemm_dedup) and B4
     (spgemm_dedup_compact) against their plain versions on config #2's
     level-0 R·A and (R·A)·P and level-1 to level-3 R·A (B5 and B4 on the
@@ -165,8 +169,9 @@
     bit-equal, rows equal and complexities to three digits equal to the JAX
     package's 8-shard run, PMIS rounds, B3/B5/B4 and ordered-sum launches,
     their per-part product at level 0 held bit-equal to the plain versions
-    (values too), PCG the JAX package's 7, V-cycle ms and launches; a third
-    setup with one input of every row-sum shape captured, each held
+    (values too), every level's λ_max held equal to the CPU's, PCG the JAX
+    package's 7, V-cycle ms and launches; a third
+    setup with one input of every ordered-sum shape captured, each held
     bit-equal to the plain version through the ordered-sum kernels,
     ``ordered_sum_staged`` and ``ordered_sum_windows`` timed on their
     largest, and level 0's P on the card held bit-equal to the CPU's; 12 W-cycles
@@ -200,6 +205,7 @@ limit.  It needs no JAX and exits non-zero where torch finds no CUDA card.
 
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -268,22 +274,30 @@ KERNELS = {
                   "shared memory, __fadd_rn left to right"},
     "ordered_sum_windows": {
         "source": ORDERED_SUM_SOURCE, "replaces": ORDERED_SUM_REPLACES,
-        "design": "one thread per window of 32 (XLA's CPU tree-reduction "
-                  "windows, padding split before and after), __fadd_rn in "
-                  "row-major order; a second launch sums the partials"},
+        "design": "the whole tree of XLA's windows of a row in one block: a span "
+                  "of 32-float windows staged in shared memory with coalesced "
+                  "loads (skewed a float every 32), a thread a window, each "
+                  "further level in shared memory, __fadd_rn; a one-axis row of "
+                  "more than 32,768 floats first takes a warp per second-level "
+                  "window (ordered_sum_windows_span): two launches"},
     "ordered_sum_lanes": {
         "source": ORDERED_SUM_SOURCE,
         "replaces": "none (jnp.sum's LLVM-vectorised CPU order in "
-                    "parallel_amg_tpu/amg/device_rs.py:265-266)",
-        "design": "one thread per row of up to 32 floats, __fadd_rn in LLVM's "
-                  "vectorised order (vf lanes × ic accumulators, halving)"},
+                    "parallel_amg_tpu/amg/device_rs.py:265-266, and the fused "
+                    "multiply-add rows of its power iterations, :1002-1015)",
+        "design": "LLVM's vectorised schedule (vf lanes × ic accumulators, "
+                  "halving, epilogue) as template arguments, so the "
+                  "accumulators stay in registers; rows of up to 32 staged in "
+                  "shared memory, planes read coalesced; __fadd_rn or "
+                  "__fmaf_rn"},
 }
 # the __global__ functions of csrc/, as the profiler names them
 PORT_KERNEL_NAMES = ("twell_stream_kernel", "flatdia_spmv_kernel",
                      "flatdia_spmm_kernel", "bsr_spmv_kernel", "expand_kernel",
                      "merge_kernel", "matvec_kernel", "interior_kernel",
                      "boundary_kernel", "ordered_sum_staged",
-                     "ordered_sum_windows", "ordered_sum_lanes")
+                     "ordered_sum_windows", "ordered_sum_windows_span",
+                     "ordered_sum_lanes")
 LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm", "bsr_spmv",
              "flatdia_spmm", "halo_stencil", "ordered_sum")  # csrc/<name>.cu
 CONFIG3_ROWS = [2_097_152, 79_507, 3_375, 125]
@@ -678,79 +692,149 @@ ORDERED_SUM_KERNELS = ("ordered_sum_staged", "ordered_sum_windows",
                        "ordered_sum_lanes")
 
 
+ORDERED_PLAIN = {"row_sum": "row_sum_plain", "row_dot": "row_dot_plain",
+                 "planes_dot": "planes_dot_plain"}
+
+
 def capture_row_sums(fn):
-    """fn() with the RS setups' ``row_sum`` (parallel/prs_setup.py and
-    amg/device_rs.py) wrapped: of the inputs of each distinct (reduced
-    shape, dims, lanes) it keeps a copy of the one with the most rows.
-    Returns (fn's result, the list of kept (x, dims, lanes))."""
+    """fn() with every ordered sum wrapped: the RS setups' ``row_sum``
+    (parallel/prs_setup.py and amg/device_rs.py) and the power iterations'
+    ``row_sum``, ``row_dot`` and ``planes_dot`` (ops/ordered_sum.py, which
+    ``norm`` and ``sumsq`` call).  Of the inputs of each distinct (function,
+    reduced shape, dims or lanes) it keeps a copy of the one with the most
+    elements.  Returns (fn's result, the list of kept (function, args))."""
+    import torch
+
     from parallel_amg_tpu_torch.amg import device_rs
+    from parallel_amg_tpu_torch.ops import ordered_sum
     from parallel_amg_tpu_torch.parallel import prs_setup
 
     kept = {}
-    modules = (prs_setup, device_rs)
-    row_sums = [m.row_sum for m in modules]
+    orig = {name: getattr(ordered_sum, name) for name in ORDERED_PLAIN}
 
-    def capture(x, dims=1, lanes=None):
-        key = (tuple(x.shape[x.dim() - dims:]), dims, lanes)
-        if key not in kept or x.numel() > kept[key][0].numel():
-            kept[key] = (x.clone(), dims, lanes)
-        return row_sums[0](x, dims, lanes)
+    def keep(name, key, args):
+        size = args[0].numel()
+        if key not in kept or size > kept[key][2]:
+            kept[key] = (name, tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args), size)
 
-    for m in modules:
-        m.row_sum = capture
+    def row_sum(x, dims=1, lanes=None):
+        keep("row_sum", ("row_sum", tuple(x.shape[x.dim() - dims:]), dims, lanes),
+             (x, dims, lanes))
+        return orig["row_sum"](x, dims, lanes)
+
+    def row_dot(a, b, lanes=None):
+        if lanes is not None:  # without lanes: row_sum of the products
+            keep("row_dot", ("row_dot", a.shape[-1], tuple(lanes)), (a, b, lanes))
+        return orig["row_dot"](a, b, lanes)
+
+    def planes_dot(a, b):
+        keep("planes_dot", ("planes_dot", a.shape[0]), (a, b))
+        return orig["planes_dot"](a, b)
+
+    wrapped = {"row_sum": row_sum, "row_dot": row_dot, "planes_dot": planes_dot}
+    setups = (prs_setup, device_rs)
+    for name, f in wrapped.items():
+        setattr(ordered_sum, name, f)
+    for m in setups:
+        m.row_sum = row_sum
     try:
         out = fn()
     finally:
-        for m, f in zip(modules, row_sums):
-            m.row_sum = f
-    return out, list(kept.values())
+        for name, f in orig.items():
+            setattr(ordered_sum, name, f)
+        for m in setups:
+            m.row_sum = orig["row_sum"]
+    return out, [(name, args) for name, args, _ in kept.values()]
+
+
+def _describe(name, args):
+    x = args[0]
+    if name == "row_sum":
+        return {"fn": name, "shape": list(x.shape), "dims": args[1], "lanes": args[2]}
+    if name == "row_dot":
+        return {"fn": name, "shape": list(x.shape), "lanes": list(args[2])}
+    return {"fn": name, "shape": list(x.shape)}
 
 
 def ordered_sum_check(c, captured, label):
-    """Each captured row-sum input through the kernels (csrc/ordered_sum.cu)
-    and the plain version on the card, bit for bit.  Returns the inputs by
-    the kernel that reads them ({kernel: [(x, dims, lanes), ...]}: a
-    windowed input's partials go through the staged kernel after it) and
-    whether all were equal."""
+    """Each captured ordered-sum input through the kernels
+    (csrc/ordered_sum.cu) and the plain version on the card, bit for bit.
+    Returns the inputs by the kernel that reads them first ({kernel:
+    [(function, args), ...]}) and whether all were equal."""
     from parallel_amg_tpu_torch.ops import ordered_sum
 
     by_kernel = {k: [] for k in ORDERED_SUM_KERNELS}
     equal, shapes = True, []
-    for x, dims, lanes in captured:
+    for name, args in captured:
         before = dict(ordered_sum.LAUNCHES)
-        got = ordered_sum.row_sum(x, dims, lanes)
+        got = getattr(ordered_sum, name)(*args)
         ran = [k for k in ORDERED_SUM_KERNELS if ordered_sum.LAUNCHES[k] > before[k]]
-        ok = bits_equal(got, ordered_sum.row_sum_plain(x, dims, lanes))
+        ok = bits_equal(got, getattr(ordered_sum, ORDERED_PLAIN[name])(*args))
         equal &= ok
         first = next((k for k in ("ordered_sum_lanes", "ordered_sum_windows")
                       if k in ran), "ordered_sum_staged")
-        by_kernel[first].append((x, dims, lanes))
-        shapes.append({"shape": list(x.shape), "dims": dims, "lanes": lanes,
-                       "kernels": ran, "bit_equal": ok})
+        by_kernel[first].append((name, args))
+        shapes.append({**_describe(name, args), "kernels": ran, "bit_equal": ok})
     c.emit("ordered_sum_inputs", path=label, inputs=len(captured), shapes=shapes,
            inputs_by_kernel={k: len(v) for k, v in by_kernel.items()},
            kernel_bit_equal_plain=equal)
     return by_kernel, equal
 
 
-def time_ordered_sum(c, name, x, dims, lanes, main_case):
-    """``row_sum`` on x against its plain version and torch.sum (another
-    order, a time only), into c.results[name]."""
+def time_ordered_sum(c, kernel, name, args, main_case, key=None):
+    """The ordered sum ``name`` on args against its plain version and one
+    torch call (``torch.sum``, or ``linalg.vecdot`` for a product; another
+    order, a time only), into c.results[kernel]; with ``key`` as that
+    kernel's extra case ms_<key>, bound_ms_<key>, ...  An add is one float32
+    operation, a fused multiply-add two."""
+    import torch
+
     from parallel_amg_tpu_torch.ops import ordered_sum
 
-    red = tuple(range(x.dim() - dims, x.dim()))
-    n_bytes = 4 * (x.numel() + x.shape[: x.dim() - dims].numel())
-    b_ms, b_by = c.bound_ms(n_bytes, x.numel())
-    r = c.results.setdefault(name, {"max_abs_err": 0.0})
-    r.update(ms=c.device_ms(lambda: ordered_sum.row_sum(x, dims, lanes)),
-             plain_ms=c.device_ms(lambda: ordered_sum.row_sum_plain(x, dims, lanes),
-                                  reps=2, samples=7),
-             library_ms=c.device_ms(lambda: x.sum(red)), bound_ms=b_ms,
-             bound_by=b_by, copy_bound_ms=c.copy_bound_ms(n_bytes),
-             main_case=main_case)
-    c.emit("kernel", name=name, case=main_case, ms=r["ms"], plain_ms=r["plain_ms"],
-           library_ms_torch_sum=r["library_ms"], bound_ms=b_ms, bound_by=b_by,
-           share_of_bound=b_ms / r["ms"], bytes=n_bytes)
+    x = args[0]
+    if name == "row_sum":
+        dims = args[1]
+        red = tuple(range(x.dim() - dims, x.dim()))
+        n_out, flops = x.shape[: x.dim() - dims].numel(), x.numel()
+        library = lambda: x.sum(red)  # noqa: E731
+    else:
+        n_out, flops = x.numel() // x.shape[-1 if name == "row_dot" else 0], 2 * x.numel()
+        library = (lambda: torch.linalg.vecdot(x, args[1])) if name == "row_dot" else (
+            lambda: torch.linalg.vecdot(x, args[1], dim=0))
+    n_bytes = 4 * (sum(a.numel() for a in args if torch.is_tensor(a)) + n_out)
+    b_ms, b_by = c.bound_ms(n_bytes, flops)
+    fn, plain = getattr(ordered_sum, name), getattr(ordered_sum, ORDERED_PLAIN[name])
+    ms = c.device_ms(lambda: fn(*args))
+    plain_ms = c.device_ms(lambda: plain(*args), reps=1, samples=3, warmup=1)
+    lib_ms = c.device_ms(library)
+    r = c.results.setdefault(kernel, {"max_abs_err": 0.0})
+    if key is None:
+        r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by, copy_bound_ms=c.copy_bound_ms(n_bytes),
+                 main_case=main_case)
+    else:
+        r.update({f"ms_{key}": ms, f"plain_ms_{key}": plain_ms,
+                  f"library_ms_{key}": lib_ms, f"bound_ms_{key}": b_ms,
+                  f"case_{key}": main_case})
+    c.emit("kernel", name=kernel, case=main_case, ms=ms, plain_ms=plain_ms,
+           library_ms_torch=lib_ms, bound_ms=b_ms, bound_by=b_by,
+           share_of_bound=b_ms / ms, bytes=n_bytes)
+
+
+def lambda_cpu_check(c, label, lams_card, lam_cpu_fns):
+    """Each level's λ_max from the card against the same power iteration on
+    the CPU (the same operator copied over, the kernels' plain versions),
+    bit for bit.  Returns whether all were equal."""
+    import torch
+
+    t0 = time.perf_counter()
+    lams_cpu = [float(f()) for f in lam_cpu_fns]
+    equal = [torch.tensor(a, dtype=torch.float32).item() == b
+             for a, b in zip(lams_card, lams_cpu)]
+    c.emit("lambda_max_vs_cpu", path=label, lam_card=lams_card, lam_cpu=lams_cpu,
+           bit_equal=equal, cpu_seconds=time.perf_counter() - t0)
+    return all(equal) and len(lams_card) == len(lams_cpu)
 
 
 def ordered_sum_phase(c, A0, cfg, mesh):
@@ -786,21 +870,22 @@ def ordered_sum_phase(c, A0, cfg, mesh):
     p_equal = all(len(getattr(P_card, f)) == len(getattr(P_cpu, f)) and all(
         bits_equal(a, b) for a, b in zip(getattr(P_card, f), getattr(P_cpu, f)))
         for f in PCSR_FIELDS)
-    staged, windowed = by_kernel["ordered_sum_staged"], by_kernel["ordered_sum_windows"]
+    staged = [t for t in by_kernel["ordered_sum_staged"] if t[0] == "row_sum"]
+    windowed = [t for t in by_kernel["ordered_sum_windows"]
+                if t[0] == "row_sum" and t[1][0].dim() > t[1][1]]
     if staged and windowed:
-        x, dims, lanes = max(staged, key=lambda t: t[0].numel())
-        time_ordered_sum(c, "ordered_sum_staged", x, dims, lanes,
+        name, args = max(staged, key=lambda t: t[1][0].numel())
+        time_ordered_sum(c, "ordered_sum_staged", name, args,
                          f"config #2 1024² in 8 parts, the largest row-sum input "
-                         f"of at most 64 floats a row, {list(x.shape)} over {dims} "
-                         f"axes")
-        # the widest row: one windows launch, then the staged sum of the
-        # window partials
-        x, dims, lanes = max(windowed, key=lambda t: (t[0].shape[t[0].dim() - t[1]:].numel(),
-                                                      t[0].numel()))
-        time_ordered_sum(c, "ordered_sum_windows", x, dims, lanes,
+                         f"of at most 64 floats a row, {list(args[0].shape)} over "
+                         f"{args[1]} axes")
+        # the widest row of the setup's rows (a norm's vector is one row)
+        name, args = max(windowed, key=lambda t: (
+            t[1][0].shape[t[1][0].dim() - t[1][1]:].numel(), t[1][0].numel()))
+        time_ordered_sum(c, "ordered_sum_windows", name, args,
                          f"config #2 1024² in 8 parts, the widest windowed row-sum "
-                         f"input {list(x.shape)} over {dims} axes (windows, then "
-                         f"the staged sum of their partials)")
+                         f"input {list(args[0].shape)} over {args[1]} axes (the "
+                         f"whole tree of windows in one launch)")
     c.emit("ordered_sum", path="dist_config2_8parts_rs_setup",
            kernel_bit_equal_plain=kernel_equal, level0_P_bit_equal_cpu=p_equal,
            level0_P_cpu_seconds=cpu_s,
@@ -830,6 +915,7 @@ def dist_algebraic_phases(c):
     from parallel_amg_tpu_torch.oracle import oracle_pcg, oracle_setup
     from parallel_amg_tpu_torch.parallel import prs_setup as prs
     from parallel_amg_tpu_torch.parallel.pcsr import PCSR
+    from parallel_amg_tpu_torch.parallel.pgrid import PGrid
     from parallel_amg_tpu_torch.problems import poisson2d
     from parallel_amg_tpu_torch.utils import roofline
 
@@ -1105,6 +1191,17 @@ def dist_algebraic_phases(c):
     w_main = w_history(h1, b)
     w_one = w_history(c.one_device_rs, torch.from_numpy(b_np).float().to(c.dev))
     lam_main = [l.lam_max for l in h1.levels]
+    mesh_cpu = ptt.make_row_mesh(S, device="cpu")
+
+    def lam_cpu(lvl):
+        A_cpu = PCSR(mesh=mesh_cpu, row_partition=lvl.A.row_partition,
+                     col_partition=lvl.A.col_partition, true_shape=lvl.A.true_shape,
+                     **{f: [t.cpu() for t in getattr(lvl.A, f)] for f in PCSR_FIELDS})
+        d_cpu = PGrid([p.cpu() for p in lvl.d_inv.parts], mesh_cpu)
+        return prs._pcsr_lambda_max(A_cpu, d_cpu, cfg_rs.lambda_power_iters, 0)
+
+    lam_equal = lambda_cpu_check(c, "dist_config2_8parts_rs_setup", lam_main,
+                                 [functools.partial(lam_cpu, l) for l in h1.levels])
     del h1
     cfg_w = dataclasses.replace(cfg_rs, cycle="W", lambda_power_iters=100)
     hw = ptt.distributed_setup(Ap, cfg_w, mesh)
@@ -1149,12 +1246,13 @@ def dist_algebraic_phases(c):
          f"prs_setup complexities {cx}, the JAX package's {DIST_RS_JAX8['complexity']}")
     hold(r.iters == DIST_RS_JAX8["pcg_iters"],
          f"prs_setup PCG {r.iters}, the JAX package's {DIST_RS_JAX8['pcg_iters']}")
-    # the 8-part setup's rows are at most 64 floats wide or two windows and
-    # more; LLVM's vectorised order is the one-device setup's
-    launched = (min(setup_launches[k] for k in ("twell_spmv", *pspgemm.LAUNCHES,
-                                                 "ordered_sum_staged",
-                                                 "ordered_sum_windows")) > 0
+    # the setup's row sums take the staged and windows kernels, its power
+    # iterations the lanes kernel (the PCSR planes' fused multiply-adds);
+    # the solve takes B1
+    launched = (min(setup_launches[k] for k in (*pspgemm.LAUNCHES,
+                                                 *ORDERED_SUM_KERNELS)) > 0
                 and pcg_launches["twell_spmv"] > 0)
+    hold(lam_equal, "prs_setup: a level's λ_max differs from the CPU's")
     hold(bit_equal and r.converged and tr <= limit and w_tr <= w_limit
          and launched,
          "prs_setup: a hold failed (see the prs_setup line)")
@@ -1473,6 +1571,15 @@ def main():
     rows3 = [l.A.n_rows for l in h3.levels]
     if rows3 != CONFIG3_ROWS:
         raise AssertionError(f"config #3 levels {rows3}, want {CONFIG3_ROWS}")
+    # λ_max(D⁻¹A) of every level: the same power iteration on the CPU, from
+    # the level's operator copied over, gives the card's bits
+    if not lambda_cpu_check(
+            types.SimpleNamespace(emit=emit), "config3_128^3",
+            [l.lam_max for l in h3.levels],
+            [functools.partial(device_setup.power_iteration_lambda_max, l.A.to("cpu"),
+                               l.d_inv.cpu(), cfg3.lambda_power_iters, seed=0)
+             for l in h3.levels]):
+        raise AssertionError("config #3: a level's λ_max differs from the CPU's")
 
     # -- kernel B2: flatdia_spmv ---------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -2053,17 +2160,42 @@ def main():
     ctx = types.SimpleNamespace(results=results, device_ms=device_ms,
                                 bound_ms=bound_ms, copy_bound_ms=copy_bound_ms,
                                 emit=emit)
+    if not lambda_cpu_check(
+            ctx, "config2_device_rs_setup", [l.lam_max for l in h_rs.levels],
+            [functools.partial(device_rs._ell_lambda_max, l.A.to("cpu"), l.d_inv.cpu(),
+                               cfg_rs.lambda_power_iters, 0) for l in h_rs.levels]):
+        raise AssertionError("config #2 device setup: a level's λ_max differs from "
+                             "the CPU's")
     _, captured = capture_row_sums(lambda: ptt.setup(A_csr, cfg_rs))
     by_kernel, sums_equal = ordered_sum_check(ctx, captured, "config2_device_rs_setup")
     if not (sums_equal and all(by_kernel.values())):
         raise AssertionError(f"config #2 device setup: ordered-sum kernels bit-equal "
                              f"to their plain version {sums_equal}, inputs by kernel "
                              f"{ {k: len(v) for k, v in by_kernel.items()} }")
-    x, dims, lanes = max(by_kernel["ordered_sum_lanes"], key=lambda t: t[0].numel())
-    time_ordered_sum(ctx, "ordered_sum_lanes", x, dims, lanes,
+    weak = [t for t in by_kernel["ordered_sum_lanes"] if t[0] == "row_sum"]
+    name, args = max(weak, key=lambda t: t[1][0].numel())
+    time_ordered_sum(ctx, "ordered_sum_lanes", name, args,
                      f"config #2 1024² one-device setup, extended+i's weak couplings "
-                     f"{list(x.shape)} in LLVM's order lanes={lanes}")
-    del captured, by_kernel, x
+                     f"{list(args[0].shape)} in LLVM's order lanes={args[2]}")
+    # the same schedule over 1,048,576 rows (its bound above one launch)
+    big = torch.randn((1 << 20, args[0].shape[1]), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    time_ordered_sum(ctx, "ordered_sum_lanes", "row_sum", (big, 1, args[2]),
+                     f"synthetic {list(big.shape)}, lanes={args[2]}", key="1m_rows")
+    # the power iteration's level-0 ELL rows (fused multiply-adds, one chain)
+    name, args = max((t for t in by_kernel["ordered_sum_lanes"] if t[0] == "row_dot"),
+                     key=lambda t: t[1][0].numel())
+    time_ordered_sum(ctx, "ordered_sum_lanes", name, args,
+                     f"config #2 1024² power iteration, the largest ELL rows "
+                     f"{list(args[0].shape)}, fma lanes={list(args[2])}",
+                     key="ell_fma")
+    # the power iteration's norm at level 0: 1,048,576 squares, two launches
+    name, args = max((t for t in by_kernel["ordered_sum_windows"] if t[0] == "row_sum"),
+                     key=lambda t: t[1][0].shape[-1])
+    time_ordered_sum(ctx, "ordered_sum_windows", name, args,
+                     f"config #2 1024² power iteration, level 0's norm over "
+                     f"{list(args[0].shape)} (one span launch)", key="norm_1m")
+    del captured, by_kernel, big, args
 
     # -- kernels B3, B5, B4: spgemm against the plain versions -----------------
     def random_ell(n_rows, n_cols, width, zero_frac=0.0, empty_frac=0.0):
@@ -3172,7 +3304,8 @@ def main():
     for name, meta in KERNELS.items():
         r = results[name]
         extra = {k: v for k, v in r.items()
-                 if k.startswith(("ms_", "bound_ms_", "plain_ms_", "copy_path_ms"))
+                 if k.startswith(("ms_", "bound_ms_", "plain_ms_", "library_ms_",
+                                  "case_", "copy_path_ms"))
                  or k in ("product_ms", "product_library_ms", "library_kind",
                           "auto_width_ms", "device_ms_per_matvec",
                           "device_ms_per_vcycle_config2", "bit_equal_20_calls",

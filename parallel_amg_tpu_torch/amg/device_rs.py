@@ -367,13 +367,24 @@ def smooth_interpolation(A: ELL, P: ELL, omega: float, p_max: int) -> ELL:
 
 def _ell_lambda_max(A: ELL, d_inv, iters: int, seed: int = 0):
     """λ_max(D⁻¹A) estimate (1.1 safety factor) as a 0-d tensor; the start
-    vector is ``device_setup.start_vector``."""
+    vector is ``device_setup.start_vector``.  The matvec's row sums and the
+    norm add in the JAX package's CPU order (``ordered_sum.ell_dot_lanes``,
+    ``ordered_sum.sumsq``), so a float32 λ is its value bit for bit (other
+    types take torch's order); the solve path's ``ELL.matvec`` keeps
+    torch's order."""
     x = device_setup.start_vector((A.n_rows,), A.vals.dtype, A.vals.device,
                                   seed)
+    ordered = A.vals.dtype == torch.float32
+    lanes = ordered_sum.ell_dot_lanes(A.vals.shape[1])
+    cols = A.cols.long()
     lam = torch.ones((), dtype=x.dtype, device=x.device)
     for _ in range(iters):
-        y = d_inv * A.matvec(x)
-        nrm = torch.linalg.norm(y)
+        if ordered:
+            y = d_inv * ordered_sum.row_dot(A.vals, x[cols], lanes)
+            nrm = ordered_sum.norm(y)
+        else:
+            y = d_inv * A.matvec(x)
+            nrm = torch.linalg.norm(y)
         lam = torch.where(nrm > 0, nrm, lam)
         x = y / torch.clamp(nrm, min=1e-30)
     return 1.1 * lam

@@ -41,7 +41,7 @@ from parallel_amg_tpu_torch.amg.transfers import (
     downsample_sum_nd,
 )
 from parallel_amg_tpu_torch.config import AMGConfig
-from parallel_amg_tpu_torch.ops import prng
+from parallel_amg_tpu_torch.ops import ordered_sum, prng
 from parallel_amg_tpu_torch.ops.stencil import Stencil, bucket_add, shift_nd
 
 
@@ -53,12 +53,27 @@ def start_vector(dims, dtype, device, seed: int = 0):
 
 def power_iteration_lambda_max(A: Stencil, d_inv, iters: int, seed: int = 0):
     """λ_max(D⁻¹A) estimate as a 0-d tensor (1.1 safety factor, as the
-    oracle); no host read."""
+    oracle); no host read.  The matvec adds its products in the JAX
+    package's CPU order (one fma chain over the offsets, the first two taken
+    as ``ordered_sum.STENCIL_FIRST``) and the norm's sum is
+    ``ordered_sum.sumsq``, so a float32 λ is the JAX package's bit for bit
+    (other types take torch's order); the solve path's ``Stencil.matvec``
+    keeps torch's order."""
     x = start_vector(A.dims, A.weights.dtype, A.weights.device, seed)
+    ordered = A.weights.dtype == torch.float32
+    K = len(A.offsets)
+    order = list(ordered_sum.STENCIL_FIRST) + list(range(2, K)) if K > 1 else [0]
+    planes = A.weights[order]
     lam = torch.ones((), dtype=x.dtype, device=x.device)
     for _ in range(iters):
-        y = d_inv * A.matvec(x)
-        nrm = torch.linalg.norm(y)
+        if ordered:
+            shifted = A.shifted(x)
+            y = d_inv * ordered_sum.planes_dot(
+                planes, torch.stack([shifted[d] for d in order]))
+            nrm = ordered_sum.norm(y)
+        else:
+            y = d_inv * A.matvec(x)
+            nrm = torch.linalg.norm(y)
         lam = torch.where(nrm > 0, nrm, lam)
         x = y / torch.clamp(nrm, min=1e-30)
     return 1.1 * lam

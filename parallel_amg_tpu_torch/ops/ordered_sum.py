@@ -8,6 +8,10 @@ last-bit change near θ flips a strength test on a coarse level and the
 hierarchy drifts.  torch's own ``sum`` takes other orders (vectorised lanes
 on the CPU, a tree on the card).
 
+The power iterations' matvecs and norms (λ_max(D⁻¹A), which sets the
+Chebyshev interval) take XLA's order too, so that the smoother is the JAX
+package's.
+
 The order (XLA's CPU pipeline: ``TreeReductionRewriter`` with a window of 32,
 then loops that add one element at a time from an accumulator of +0.0):
 
@@ -34,21 +38,47 @@ and reorder it.  Where it does, the sum follows LLVM's loop vectoriser
 instead, given as ``lanes=(vf, ic, evf)`` (one axis of at most 32): the row's
 first ⌊w/(vf·ic)⌋·vf·ic elements go to ic accumulators of vf lanes (element
 j to accumulator (j mod vf·ic) // vf, lane j mod vf, added one block of
-vf·ic after another); the accumulators are added lanewise in order, and the
-vf lanes reduced by halving (lane l + lane l + vf/2, ...); then, where evf
+vf·ic after another; lane 0 of accumulator 0 starts at +0.0, every other
+lane at −0.0, LLVM's neutral element); the accumulators are added lanewise
+in order, and the vf lanes reduced by halving (lane l + lane l + vf/2, ...); then, where evf
 > 0 and evf elements remain, a vector of evf lanes starting from that sum in
-lane 0 takes whole blocks of evf elements and is reduced the same way; the
+lane 0 (−0.0 in the others) takes whole blocks of evf elements and is reduced the same way; the
 last elements are added one at a time.  Which reductions LLVM vectorises,
 and how, depends on the fused loop body and the row's width.  Of the RS
 setups' sums only one is vectorised: the one-device extended+i's weak
 couplings, whose schedule ``weak_lanes`` gives.
 
-``row_sum`` runs the plain version (``row_sum_plain``, one elementwise add
-per element position: IEEE adds are exact, so it gives the same bits on
-every device) on a CPU tensor, and launches ``csrc/ordered_sum.cu`` (one
-thread per output, ``__fadd_rn``) on a CUDA tensor, once per level of
-windows.  Each launch runs one of three kernels, chosen as the C entry
-point chooses it (``_kernel_name``), and ``LAUNCHES`` counts them by name.
+Products.  XLA's CPU backend lets LLVM contract a product and the sum it
+feeds into one fused multiply-add (``fma``): Σ_k a_k·b_k over a row of at
+most 32, with the product fused into the reduction, adds ``fma(a_k, b_k,
+acc)``, in the same kind of schedule (``row_dot``'s ``lanes``).  A reduction
+over windows (``reduce-window``) does not fuse its product: above 32 the
+products are rounded first and summed by the windows rule.  The orders the
+power iterations need were read off the JAX package's own functions inside
+a loop of two or more iterations (a loop of one is compiled otherwise), and
+``tests/test_torch_ordered_sum.py`` holds them:
+
+- the ELL matvec's row sums Σ v·x[c] (one-device ``_ell_lambda_max``) and the
+  two planes of the PCSR matvec (own and ghost, added after):
+  ``ell_dot_lanes``;
+- a Stencil matvec Σ_d w_d·x_d: one fma chain over the offsets, except that
+  the first two products are taken in the order (1, 0): XLA's first add of
+  two products contracts the first operand's product (``STENCIL_FIRST``);
+- a norm's Σ y² (``sumsq``): one fma chain in row-major order where no axis
+  is longer than 32, otherwise the windows rule on the rounded squares (on
+  a grid of three axes: blocks of up to 32 per axis, then the partials in
+  row-major order); over parts (``pgrid.ordered_norm``) each part's Σ y²,
+  then the parts' sums left to right; then the correctly rounded square
+  root (``sqrt``).
+
+``row_sum`` and ``row_dot`` run the plain version (``row_sum_plain``,
+``row_dot_plain``: torch ops, one IEEE add or one fused multiply-add, emulated
+exactly in float64 by ``fma_plain``, per element position; so they give the
+same bits on every device) on a CPU tensor, and launch ``csrc/ordered_sum.cu``
+on a CUDA tensor: the whole tree of windows in one launch (a row of more
+than 32,768 floats through the span kernel, whose last block finishes the
+tree); a lanes schedule in one.
+``LAUNCHES`` counts the launches by kernel name.
 """
 
 from __future__ import annotations
@@ -56,17 +86,27 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import struct
 
+import numpy as np
 import torch
 
 from parallel_amg_tpu_torch.ops import _build
 
 WINDOW = 32
 MAX_STAGED_ROW = 64  # csrc/ordered_sum.cu's kMaxStagedRow
+MAX_PARTS = 1024     # csrc/ordered_sum.cu's kMaxParts
+CHAIN = (1, 1, 0)    # lanes of one chain, left to right (any row length)
+# the first two products of a Stencil matvec in XLA's order (see the module)
+STENCIL_FIRST = (1, 0)
 
-# kernel launches by kernel, counted in ``_launch``; callers may reset them
+# kernel launches by kernel, counted in ``_launch_*``; callers may reset them
 LAUNCHES = {"ordered_sum_staged": 0, "ordered_sum_windows": 0,
             "ordered_sum_lanes": 0}
+
+# lanes schedules with a kernel instance in csrc/ordered_sum.cu, besides CHAIN
+_ADD_LANES = {(4, 2, 0), (4, 4, 4), (8, 2, 0)}
+_FMA_LANES = {(8, 1, 4), (8, 1, 0)}
 
 
 def windows(d: int):
@@ -101,6 +141,27 @@ def weak_lanes(W: int, several_chunks: bool):
     return None
 
 
+def ell_dot_lanes(W: int, plane: str = "ell"):
+    """``row_dot``'s lanes for the JAX package's ELL product row sums
+    ``jnp.sum(vals * x[cols], axis=1)`` over width W inside its power
+    iterations (None: W > 32, the rounded products by the windows rule).
+
+    ``plane`` "ell", the one-device ``_ell_lambda_max`` (``parallel_amg_tpu/
+    amg/device_rs.py:1002``): one fma chain up to W 22, 8 lanes over the
+    whole blocks of 8 with a 4-lane epilogue at 23, 8 lanes at 24–32.
+    "own", the own-part plane of the PCSR matvec (``parallel_amg_tpu/
+    parallel/pcsr.py:272``): one chain up to W 27, 8 lanes at 28–32.
+    "ghost", its ghost plane: one chain at every W up to 32.  Read with jax
+    and jaxlib 0.9.0 on an x86-64 CPU with AVX-512, as ``weak_lanes``;
+    ``tests/test_torch_ordered_sum.py`` holds each width."""
+    if W > WINDOW:
+        return None
+    last_chain = {"ell": 22, "own": 27, "ghost": WINDOW}[plane]
+    if W <= last_chain:
+        return CHAIN
+    return (8, 1, 4) if W == 23 else (8, 1, 0)
+
+
 def jax_row_chunks(n: int, f_max: int, W: int, K: int) -> int:
     """The row chunks the JAX package's one-device extended+i maps over
     (its default ``row_chunk``, ``parallel_amg_tpu/amg/device_rs.py:236``)
@@ -117,13 +178,13 @@ def _check(x, dims: int):
         raise TypeError(f"row_sum takes float32, not {x.dtype}")
 
 
-def _check_lanes(x, dims: int, lanes) -> None:
-    if lanes is None:
-        return
+def _check_lanes(width: int, lanes) -> None:
     vf, ic, evf = lanes
-    if dims != 1 or x.shape[-1] > WINDOW:
-        raise ValueError(f"lanes order one axis of at most {WINDOW}, not "
-                         f"{tuple(x.shape[x.dim() - dims:])}")
+    if tuple(lanes) == CHAIN:
+        return
+    if width > WINDOW:
+        raise ValueError(f"lanes {lanes} order a row of at most {WINDOW}, "
+                         f"not {width}")
     if not (vf in (2, 4, 8, 16) and 1 <= ic and vf * ic <= 32
             and evf in (0, 2, 4, 8, 16)):
         raise ValueError(f"lanes {lanes}: vf and evf powers of 2 to 16, "
@@ -132,14 +193,112 @@ def _check_lanes(x, dims: int, lanes) -> None:
 
 def row_sum(x, dims: int = 1, lanes=None):
     """Σ over the last ``dims`` axes of float32 ``x``, in XLA's CPU order
-    (LLVM's vectorised order where ``lanes`` is given)."""
+    (LLVM's vectorised order where ``lanes`` is given; ``CHAIN``: one add
+    after another over a row of any length)."""
     _check(x, dims)
-    _check_lanes(x, dims, lanes)
+    if lanes is not None:
+        if dims != 1:
+            raise ValueError("lanes order one reduced axis")
+        _check_lanes(x.shape[-1], lanes)
     if x.device.type == "cpu":
         return row_sum_plain(x, dims, lanes)
     if x.device.type != "cuda":
         raise ValueError(f"row_sum runs on cpu or cuda, not {x.device}")
-    return _row_sum_cuda(x, dims, lanes)
+    if lanes is not None:
+        return _lanes_cuda(x, None, lanes)
+    return _row_sum_cuda(x, dims)
+
+
+def row_dot(a, b, lanes=None):
+    """Σ_k a[..., k]·b[..., k] over the last axis of float32 ``a`` and
+    ``b`` (same shape): with ``lanes`` each step a fused multiply-add in
+    that schedule (LLVM's contraction), without, the rounded products
+    summed by ``row_sum``'s windows rule."""
+    if a.shape != b.shape or a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"row_dot takes two float32 tensors of one shape, not "
+                        f"{a.dtype}{tuple(a.shape)} and {b.dtype}{tuple(b.shape)}")
+    if lanes is None:
+        return row_sum(a * b)
+    _check_lanes(a.shape[-1], lanes)
+    if a.device.type == "cpu":
+        return row_dot_plain(a, b, lanes)
+    if a.device.type != "cuda":
+        raise ValueError(f"row_dot runs on cpu or cuda, not {a.device}")
+    return _lanes_cuda(a, b, lanes)
+
+
+def planes_dot(a, b):
+    """Σ_k a[k]·b[k] over the planes of float32 (K, ...) ``a`` and ``b``: one
+    fma chain in plane order, from +0.0 (a Stencil matvec's products, in
+    XLA's order once the caller has put the planes in ``STENCIL_FIRST``
+    order)."""
+    if a.shape != b.shape or a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError("planes_dot takes two float32 tensors of one shape")
+    if a.device.type == "cpu":
+        return planes_dot_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"planes_dot runs on cpu or cuda, not {a.device}")
+    K = a.shape[0]
+    out = _lanes_cuda(a.reshape(K, -1), b.reshape(K, -1), CHAIN, planes=True)
+    return out.reshape(a.shape[1:])
+
+
+def planes_dot_plain(a, b):
+    """The plain version of ``planes_dot``."""
+    s = torch.zeros(a.shape[1:], dtype=a.dtype, device=a.device)
+    for k in range(a.shape[0]):
+        s = fma_plain(a[k], b[k], s)
+    return s
+
+
+def sumsq(y):
+    """Σ y² over every axis of float32 ``y`` (1 to 3 axes), in the order of
+    ``jnp.linalg.norm``'s sum on the JAX package's CPU backend inside its
+    power iterations: where no axis is longer than 32, one fma chain
+    fma(y, y, acc) in row-major order; otherwise the rounded squares by the
+    windows rule (three axes: blocks of up to 32 per axis, each summed in
+    row-major order, then the block partials in row-major order)."""
+    if y.dim() == 0 or y.dim() > 3:
+        raise ValueError(f"sumsq takes 1 to 3 axes, not {y.dim()}")
+    if max(y.shape) <= WINDOW:
+        flat = y.reshape(1, -1)
+        return row_dot(flat, flat, CHAIN)[0]
+    sq = y * y
+    if y.dim() < 3:
+        return row_sum(sq, y.dim())
+    parts = _block_sums(sq)
+    if max(parts.shape) > WINDOW:
+        raise ValueError(f"sumsq: a grid of {tuple(y.shape)} leaves partials "
+                         f"{tuple(parts.shape)} longer than {WINDOW}")
+    return row_sum(parts.reshape(1, -1), 1, CHAIN)[0]
+
+
+def sqrt(x):
+    """The correctly rounded float32 square root, on any device: taken in
+    float64 and rounded once more, which is exact for a square root.
+    torch's vectorised CPU ``sqrt`` is not always correctly rounded (it gave
+    2.4681997 for √6.0920105, whose float32 root is 2.4682), XLA's is."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def norm(y):
+    """``jnp.linalg.norm(y)`` of the JAX package's power iterations:
+    ``sqrt(sumsq(y))``."""
+    return sqrt(sumsq(y))
+
+
+def _block_sums(sq):
+    """The first level of windows over a three-axis grid: (n0, n1, n2)
+    block sums, each block added in row-major order (padding +0.0)."""
+    win = [windows(d) for d in sq.shape]
+    pads = []
+    for (w, n, lo), d in zip(reversed(win), reversed(sq.shape)):
+        pads += [lo, n * w - d - lo]
+    xp = torch.nn.functional.pad(sq, pads)
+    (w0, n0, _), (w1, n1, _), (w2, n2, _) = win
+    blocks = xp.reshape(n0, w0, n1, w1, n2, w2).permute(0, 2, 4, 1, 3, 5)
+    blocks = blocks.reshape(n0 * n1 * n2, w0 * w1 * w2).contiguous()
+    return row_sum(blocks, 1, CHAIN).reshape(n0, n1, n2)
 
 
 def _as_rows(x, dims: int):
@@ -150,6 +309,49 @@ def _as_rows(x, dims: int):
     return x.reshape(math.prod(lead), d1, d2), lead
 
 
+def fma_plain(a, b, c):
+    """float32 fma(a, b, c) = a·b + c rounded once, on any device: the
+    product is exact in float64, TwoSum gives the float64 sum and its exact
+    error, and rounding that sum to odd (its last bit set where the error is
+    not 0) makes the final rounding to float32 the correct one."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    bits = s.view(torch.int64)
+    away = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & ((bits & 1) == 0), bits + away, bits)
+    return bits.view(torch.float64).float()
+
+
+def _f32(v: float) -> float:
+    return struct.unpack("<f", struct.pack("<f", v))[0]
+
+
+def _fma_scalar(a: float, b: float, c: float) -> float:
+    """``fma_plain`` on Python floats holding float32 values."""
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    if err != 0:
+        bits = struct.unpack("<q", struct.pack("<d", s))[0]
+        if bits & 1 == 0:
+            bits += 1 if (err > 0) == (s > 0) else -1
+            s = struct.unpack("<d", struct.pack("<q", bits))[0]
+    return _f32(s)
+
+
+def _chain_scalar(a, b):
+    """One chain of fused multiply-adds over a single long row, in Python
+    floats (a torch loop of tiny ops would take seconds)."""
+    s = 0.0
+    for u, v in zip(a.tolist(), b.tolist()):
+        s = _fma_scalar(u, v, s)
+    return s
+
+
 def _halving(v):
     """LLVM's reduction of a (R, n) vector of lanes, n a power of 2."""
     while v.shape[1] > 1:
@@ -158,38 +360,66 @@ def _halving(v):
     return v[:, 0]
 
 
-def _lanes_plain(x2, vf: int, ic: int, evf: int):
-    R, W = x2.shape
-    step = vf * ic
-    j = W // step * step
-    s = torch.zeros(R, dtype=x2.dtype, device=x2.device)
+def _start(R: int, n: int, like, first=None):
+    """(R, n) lanes at −0.0, lane 0 at ``first`` (+0.0 when None)."""
+    v = torch.full((R, n), -0.0, dtype=like.dtype, device=like.device)
+    v[:, 0] = 0.0 if first is None else first
+    return v
+
+
+def _lanes_plain(a2, b2, lanes):
+    """Rows of (R, W) a2 in the lanes schedule: adds, or with b2 fused
+    multiply-adds."""
+    vf, ic, evf = lanes
+    R, W = a2.shape
+    if tuple(lanes) == CHAIN and b2 is None and W > WINDOW:
+        # numpy's accumulate adds left to right in float32, from a +0.0 column
+        acc = np.cumsum(np.concatenate([np.zeros((R, 1), np.float32), a2.cpu().numpy()], 1),
+                        axis=1, dtype=np.float32)
+        return torch.from_numpy(np.ascontiguousarray(acc[:, -1])).to(a2.device)
+    if tuple(lanes) == CHAIN and R == 1 and W > WINDOW:
+        s = _chain_scalar(a2[0].cpu(), b2[0].cpu())
+        return torch.tensor([s], dtype=a2.dtype, device=a2.device)
+
+    def step(acc, k0, k1):
+        if b2 is None:
+            return acc + a2[:, k0:k1]
+        return fma_plain(a2[:, k0:k1], b2[:, k0:k1], acc)
+
+    span = vf * ic
+    j = W // span * span
+    s = torch.zeros(R, dtype=a2.dtype, device=a2.device)
     if j:
-        acc = torch.zeros((R, ic, vf), dtype=x2.dtype, device=x2.device)
-        for b in range(0, j, step):
-            acc = acc + x2[:, b:b + step].reshape(R, ic, vf)
+        acc = torch.cat([_start(R, vf, a2)] + [
+            torch.full((R, vf), -0.0, dtype=a2.dtype, device=a2.device)
+        ] * (ic - 1), 1)
+        for k in range(0, j, span):
+            acc = step(acc, k, k + span)
+        acc = acc.reshape(R, ic, vf)
         comb = acc[:, 0]
         for p in range(1, ic):
             comb = comb + acc[:, p]
         s = _halving(comb)
     if evf and W - j >= evf:
-        lanes = torch.zeros((R, evf), dtype=x2.dtype, device=x2.device)
-        lanes[:, 0] = s
+        lanes_v = _start(R, evf, a2, s)
         end = j + (W - j) // evf * evf
-        for b in range(j, end, evf):
-            lanes = lanes + x2[:, b:b + evf]
-        s, j = _halving(lanes), end
+        for k in range(j, end, evf):
+            lanes_v = step(lanes_v, k, k + evf)
+        s, j = _halving(lanes_v), end
     for k in range(j, W):
-        s = s + x2[:, k]
+        s = step(s[:, None], k, k + 1)[:, 0]
     return s
 
 
 def row_sum_plain(x, dims: int = 1, lanes=None):
     """The plain version: one float32 add per element position, in order."""
     _check(x, dims)
-    _check_lanes(x, dims, lanes)
     if lanes is not None:
+        if dims != 1:
+            raise ValueError("lanes order one reduced axis")
+        _check_lanes(x.shape[-1], lanes)
         x3, lead = _as_rows(x, dims)
-        return _lanes_plain(x3[:, 0], *lanes).reshape(lead)
+        return _lanes_plain(x3[:, 0], None, lanes).reshape(lead)
     x3, lead = _as_rows(x, dims)
     while True:
         R, d1, d2 = x3.shape
@@ -211,52 +441,108 @@ def row_sum_plain(x, dims: int = 1, lanes=None):
         x3 = acc.reshape(R, n1, n2)
 
 
+def row_dot_plain(a, b, lanes=None):
+    """The plain version of ``row_dot``."""
+    if lanes is None:
+        return row_sum_plain(a * b)
+    _check_lanes(a.shape[-1], lanes)
+    lead = tuple(a.shape[:-1])
+    W = a.shape[-1]
+    out = _lanes_plain(a.reshape(-1, W), b.reshape(-1, W), lanes)
+    return out.reshape(lead)
+
+
 @functools.cache
-def _kernel():
-    fn = _build.load("ordered_sum").ordered_sum
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [
-        ctypes.c_int] * 11 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _kernels():
+    lib = _build.load("ordered_sum")
+    rows_fn, lanes_fn = lib.ordered_sum, lib.ordered_sum_lanes
+    rows_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lanes_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    rows_fn.restype = lanes_fn.restype = ctypes.c_int
+    return rows_fn, lanes_fn
 
 
-def _kernel_name(d1: int, d2: int, n, lanes) -> str:
-    """The kernel ``ordered_sum`` in csrc/ordered_sum.cu launches."""
-    if lanes[0] > 0:
-        return "ordered_sum_lanes"
-    if n == (1, 1) and 0 < d1 * d2 <= MAX_STAGED_ROW:
+def _kernel_name(d1: int, d2: int) -> str:
+    """The kernel ``ordered_sum`` in csrc/ordered_sum.cu launches for rows
+    of (d1, d2), by the name ``LAUNCHES`` counts it under (the span kernel
+    of rows past ``MAX_PARTS`` windows as ``ordered_sum_windows``)."""
+    if windows(d1)[1] * windows(d2)[1] == 1 and 0 < d1 * d2 <= MAX_STAGED_ROW:
         return "ordered_sum_staged"
     return "ordered_sum_windows"
 
 
-def _launch(x3, out, w, n, lo, lanes=(0, 0, 0)) -> None:
-    """One level: out (R, n1, n2) = the windows' sums of x3 (R, d1, d2)
-    (``lanes`` ≠ (0, 0, 0): one window, in LLVM's vectorised order)."""
-    R, d1, d2 = x3.shape
-    with torch.cuda.device(x3.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(x3.data_ptr(), out.data_ptr(), R, d1, d2, w[0], w[1],
-                        n[0], n[1], lo[0], lo[1], *lanes, stream)
+def _check_err(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"ordered_sum launch failed: cudaError {err}")
-    LAUNCHES[_kernel_name(d1, d2, tuple(n), lanes)] += 1
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
-def _row_sum_cuda(x, dims: int, lanes=None):
+_COUNTERS: dict = {}
+
+
+def _counter(device):
+    """The span kernel's completion counter on ``device`` (0 between
+    launches: the last block resets it), made once."""
+    c = _COUNTERS.get(device)
+    if c is None:
+        c = _COUNTERS[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return c
+
+
+def _row_sum_cuda(x, dims: int):
     x3, lead = _as_rows(x, dims)
     x3 = x3.contiguous()
-    if x3.shape[0] == 0:
-        return torch.zeros(lead, dtype=x.dtype, device=x.device)
-    if lanes is not None:
-        R, d1, d2 = x3.shape
-        out = torch.empty((R, 1, 1), dtype=x.dtype, device=x.device)
-        _launch(x3, out, (d1, d2), (1, 1), (0, 0), tuple(lanes))
+    R, d1, d2 = x3.shape
+    out = torch.empty(R, dtype=x.dtype, device=x.device)
+    if R == 0:
         return out.reshape(lead)
-    while True:
-        R, d1, d2 = x3.shape
-        (w1, n1, lo1), (w2, n2, lo2) = windows(d1), windows(d2)
-        out = torch.empty((R, n1, n2), dtype=x.dtype, device=x.device)
-        _launch(x3, out, (w1, w2), (n1, n2), (lo1, lo2))
-        if n1 == 1 and n2 == 1:
-            return out.reshape(lead)
-        x3 = out
+    n1, n2 = windows(d1)[1], windows(d2)[1]
+    scratch = counter = None
+    if d1 == 1 and n2 > MAX_PARTS:
+        n3 = windows(n2)[1]
+        if windows(n3)[1] > MAX_PARTS:
+            raise ValueError(f"row_sum on the card: a row of {d2} is too long")
+        scratch = torch.empty((R, n3), dtype=x.dtype, device=x.device)
+        counter = _counter(x.device)
+    elif n1 * n2 > MAX_PARTS:
+        raise ValueError(f"row_sum on the card: rows of ({d1}, {d2}) have "
+                         f"more than {MAX_PARTS} windows")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels()[0](x3.data_ptr(), out.data_ptr(),
+                            None if scratch is None else scratch.data_ptr(),
+                            None if counter is None else counter.data_ptr(),
+                            R, d1, d2, stream)
+    _check_err(err, "ordered_sum")
+    LAUNCHES[_kernel_name(d1, d2)] += 1
+    return out.reshape(lead)
+
+
+def _lanes_cuda(a, b, lanes, planes: bool = False):
+    """Rows of a (and b) in the lanes schedule on the card: row-major
+    (..., W), or with ``planes`` (W, R) planes."""
+    vf, ic, evf = lanes = tuple(lanes)
+    if lanes != CHAIN and lanes not in (_ADD_LANES if b is None else _FMA_LANES):
+        raise ValueError(f"lanes {lanes} ({'fma' if b is not None else 'add'}) "
+                         f"have no kernel instance in csrc/ordered_sum.cu")
+    if planes:
+        W, R = a.shape
+        lead = (R,)
+    else:
+        W = a.shape[-1]
+        lead = tuple(a.shape[:-1])
+        R = math.prod(lead)
+    a = a.contiguous()
+    b = None if b is None else b.contiguous()
+    out = torch.empty(R, dtype=a.dtype, device=a.device)
+    if R == 0:
+        return out.reshape(lead)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels()[1](a.data_ptr(), None if b is None else b.data_ptr(),
+                            out.data_ptr(), R, W, vf, ic, evf, int(planes),
+                            stream)
+    _check_err(err, "ordered_sum_lanes")
+    LAUNCHES["ordered_sum_lanes"] += 1
+    return out.reshape(lead)

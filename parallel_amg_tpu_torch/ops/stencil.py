@@ -145,15 +145,19 @@ class Stencil:
                  max(0, max(o[i] for o in self.offsets)))
                 for i in range(len(self.dims))]
 
-    def matvec(self, x):
-        """y = A @ x for an N-D grid x of shape dims."""
+    def shifted(self, x):
+        """x[p + offset] for each offset, zero outside the grid, in offset
+        order: views of one padded copy of the N-D grid x."""
         pads = self._pads()
         xp = _pad_nd(x, pads)
+        return [xp[tuple(slice(pads[i][0] + off[i], pads[i][0] + off[i] + n)
+                         for i, n in enumerate(self.dims))] for off in self.offsets]
+
+    def matvec(self, x):
+        """y = A @ x for an N-D grid x of shape dims."""
         y = torch.zeros_like(x)
-        for d, off in enumerate(self.offsets):
-            idx = tuple(slice(pads[i][0] + off[i], pads[i][0] + off[i] + n)
-                        for i, n in enumerate(self.dims))
-            y = y + self.weights[d] * xp[idx]
+        for w, xs in zip(self.weights, self.shifted(x)):
+            y = y + w * xs
         return y
 
     def matmat(self, X):

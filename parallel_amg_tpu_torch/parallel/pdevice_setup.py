@@ -35,7 +35,7 @@ from parallel_amg_tpu_torch.amg.transfers import downsample_sum_nd
 from parallel_amg_tpu_torch.config import AMGConfig
 from parallel_amg_tpu_torch.ops.stencil import Stencil
 from parallel_amg_tpu_torch.parallel import exchange
-from parallel_amg_tpu_torch.parallel.pgrid import PGrid, norm
+from parallel_amg_tpu_torch.parallel.pgrid import PGrid, ordered_norm
 from parallel_amg_tpu_torch.parallel.pstencil import ShardedStencil, apply_halo_mode
 from parallel_amg_tpu_torch.parallel.pstructured import (
     SBlockProlongator,
@@ -185,13 +185,15 @@ def _sharded_dinv(A: ShardedStencil) -> PGrid:
 def _sharded_power(A: ShardedStencil, d_inv: PGrid, iters: int, seed: int = 0):
     """λ_max(D⁻¹A) on a sharded operator (1.1 safety factor): the start
     vector is ``device_setup.start_vector`` over the padded global dims,
-    split into parts, so it is the single-device engine's draw."""
+    split into parts, so it is the single-device engine's draw.  The norm
+    is ``ordered_norm``'s (XLA's SPMD order); the matvec is the sharded
+    operator's own."""
     x = PGrid.from_global(ds.start_vector(A.dims, A.weights[0].dtype,
                                           A.mesh.home, seed), A.mesh)
     lam = torch.ones((), dtype=x.dtype, device=x.device)
     for _ in range(iters):
         y = d_inv * A.matvec(x)
-        nrm = norm(y)
+        nrm = ordered_norm(y)
         lam = torch.where(nrm > 0, nrm, lam)
         x = y / torch.clamp(nrm, min=1e-30)
     return 1.1 * lam

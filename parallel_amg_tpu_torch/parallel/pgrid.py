@@ -18,6 +18,7 @@ import numbers
 
 import torch
 
+from parallel_amg_tpu_torch.ops import ordered_sum
 from parallel_amg_tpu_torch.parallel import exchange
 
 
@@ -140,6 +141,16 @@ class PGrid:
         """2-norm: the norm of the per-part norms, gathered in part order."""
         return torch.linalg.norm(torch.stack(exchange.all_gather(
             [torch.linalg.norm(p) for p in self.parts])))
+
+
+def ordered_norm(v: PGrid):
+    """2-norm in the order of ``jnp.linalg.norm`` of a sharded array on the
+    JAX package's CPU backend (its power iterations): each part's Σ y² by
+    ``ordered_sum.sumsq``, the parts' sums gathered and added left to right
+    in part order, one square root.  ``PGrid.norm`` (the Krylov solvers')
+    keeps torch's order."""
+    sums = exchange.all_gather([ordered_sum.sumsq(p) for p in v.parts])
+    return ordered_sum.sqrt(ordered_sum.row_sum(torch.stack(sums), 1, ordered_sum.CHAIN))
 
 
 # -- helpers the solve path calls on tensors and PGrids alike -----------------

@@ -53,13 +53,13 @@ import torch
 from parallel_amg_tpu_torch.amg.device_rs import _Clock, _ext_i_row_chunk, topk_stable
 from parallel_amg_tpu_torch.amg.hierarchy import Hierarchy, Level, coarse_inverse_np
 from parallel_amg_tpu_torch.config import AMGConfig
-from parallel_amg_tpu_torch.ops import gspgemm, prng, pspgemm
+from parallel_amg_tpu_torch.ops import gspgemm, ordered_sum, prng, pspgemm
 from parallel_amg_tpu_torch.ops.ell import ELL
 from parallel_amg_tpu_torch.ops.ordered_sum import row_sum
 from parallel_amg_tpu_torch.parallel import exchange
 from parallel_amg_tpu_torch.parallel.passembly_device import pcsr_from_coo_device
 from parallel_amg_tpu_torch.parallel.pcsr import PCSR
-from parallel_amg_tpu_torch.parallel.pgrid import PGrid
+from parallel_amg_tpu_torch.parallel.pgrid import PGrid, ordered_norm
 from parallel_amg_tpu_torch.parallel.segment import segment_max, segment_sum
 
 UNDECIDED, FINE, COARSE = 0, 1, 2
@@ -774,14 +774,27 @@ def _ensure_diag(A: PCSR) -> PCSR:
 
 def _pcsr_lambda_max(A: PCSR, d_inv: PGrid, iters: int, seed: int = 0):
     """λ_max(D⁻¹A) estimate (1.1 safety factor) as a 0-d tensor on the first
-    local part's device; the start vector is the JAX package's uniform draw over the
-    padded columns, minus 0.5."""
+    local part's device; the start vector is the JAX package's uniform draw
+    over the padded columns, minus 0.5.  The matvec adds each part's own and
+    ghost planes in the JAX package's CPU order (``ordered_sum.
+    ell_dot_lanes``; own + ghost, as its ``PCSR.matvec``) and the norm is
+    ``pgrid.ordered_norm``, so λ is its float32 value bit for bit; the
+    solve path's ``PCSR.matvec`` (B1 on the card) keeps its own order."""
     n = A.col_partition.n_padded
     x = PGrid.from_global(prng.uniform((n,), seed, A.dtype) - 0.5, A.mesh)
+    own = ordered_sum.ell_dot_lanes(A.diag_vals[0].shape[1], "own")
+    ghost = ordered_sum.ell_dot_lanes(A.off_vals[0].shape[1], "ghost")
+    dcs = [c.long() for c in A.diag_cols]
+    ocs = [c.long() for c in A.off_cols]
     lam = torch.ones((), dtype=x.dtype, device=x.device)
     for _ in range(iters):
-        y = d_inv * A.matvec(x)
-        nrm = y.norm()
+        g = A.ghosts(x)
+        y = PGrid([di * (ordered_sum.row_dot(dv, xl[dc], own)
+                         + ordered_sum.row_dot(ov, gl[oc], ghost))
+                   for di, dv, dc, ov, oc, xl, gl in zip(
+                       d_inv.parts, A.diag_vals, dcs, A.off_vals, ocs, x.parts, g)],
+                  A.mesh)
+        nrm = ordered_norm(y)
         lam = torch.where(nrm > 0, nrm, lam)
         x = y / torch.clamp(nrm, min=1e-30)
     return 1.1 * lam

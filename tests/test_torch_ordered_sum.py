@@ -25,7 +25,15 @@ last bits of most rows.
   held against the JAX package's own function at one width of each order
   it takes (``scripts/probe_xla_weak_sum.py`` measures every width).
 
-The CUDA case holds the kernel (csrc/ordered_sum.cu) bit-equal to the plain
+- The power iterations' sums (``ordered_sum.ell_dot_lanes``, ``sumsq``,
+  ``norm``): 1-D norms against ``jnp.linalg.norm`` across the window levels;
+  the ELL product rows at every width to 34 and beyond against the JAX
+  package's power-iteration loop (two iterations: a loop of one compiles
+  otherwise), and its ``_ell_lambda_max``; the PCSR planes against its
+  ``_pcsr_lambda_max`` on 8 shards; the emulated fused multiply-add and
+  square root against exact arithmetic.
+
+The CUDA cases hold the kernels (csrc/ordered_sum.cu) bit-equal to the plain
 version on the card.
 """
 
@@ -39,6 +47,10 @@ try:
 except ImportError:  # a machine without JAX runs the cuda case only
     jax = None
 
+from fractions import Fraction
+import math
+
+from parallel_amg_tpu_torch.amg import device_rs, device_setup
 from parallel_amg_tpu_torch.ops import ordered_sum
 from parallel_amg_tpu_torch.ops.ordered_sum import row_sum, row_sum_plain, windows
 
@@ -165,13 +177,14 @@ def test_kernel_bit_equal_to_plain_cuda():
     rng = np.random.default_rng(4)
     for shape, dims, lanes, kernels in [
             ((1000, 7), 1, None, {"staged"}), ((100, 8, 8), 2, None, {"staged"}),
-            ((300, 64), 1, None, {"windows", "staged"}),
-            ((77, 65), 1, None, {"windows", "staged"}),
-            ((50, 1100), 1, None, {"windows", "staged"}),
+            ((300, 64), 1, None, {"windows"}),
+            ((77, 65), 1, None, {"windows"}),
+            ((50, 1100), 1, None, {"windows"}),
             ((40, 12, 20), 1, None, {"staged"}), ((40, 12, 20), 2, None, {"windows"}),
-            ((30, 40, 33), 2, None, {"windows", "staged"}),
+            ((30, 40, 33), 2, None, {"windows"}),
             ((3, 0), 1, None, {"windows"}), ((500, 21), 1, (4, 4, 4), {"lanes"}),
-            ((500, 30), 1, (4, 2, 0), {"lanes"}), ((500, 17), 1, (8, 1, 0), {"lanes"})]:
+            ((500, 30), 1, (4, 2, 0), {"lanes"}), ((500, 32), 1, (8, 2, 0), {"lanes"}),
+            ((500, 17), 1, (1, 1, 0), {"lanes"})]:
         x = torch.from_numpy(_draw(rng, shape)[0])
         before = dict(ordered_sum.LAUNCHES)
         got = row_sum(x.cuda(), dims, lanes).cpu()
@@ -180,3 +193,222 @@ def test_kernel_bit_equal_to_plain_cuda():
         assert ran == kernels, (shape, ran)
         assert torch.equal(got.view(torch.int32),
                            row_sum_plain(x, dims, lanes).view(torch.int32)), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [33, 47, 1023, 1024, 1025, 1248, 4097, 32767, 32768,
+                               32769, 40000, 1 << 20, (1 << 20) + 1, 3_000_001])
+def test_windows_kernel_lengths_cuda(d):
+    """The redesigned windows kernel: one launch a call at any length (past
+    32,768 floats a row the span kernel, whose last block finishes the
+    tree), at odd lengths and paddings (windows of the first, second and
+    third level each with padding split before and after), bit-equal to the
+    plain version, also with several rows of one shape, twice in a row (the
+    span kernel's counter resets itself)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the ordered-sum kernel is CUDA C++ and needs a CUDA card")
+    rows = 1 if d > 100_000 else 3
+    x = torch.from_numpy(_draw(np.random.default_rng(d), (rows, d))[0])
+    want = row_sum_plain(x).view(torch.int32)
+    for _ in range(2):
+        before = ordered_sum.LAUNCHES["ordered_sum_windows"]
+        got = row_sum(x.cuda()).cpu()
+        assert ordered_sum.LAUNCHES["ordered_sum_windows"] - before == 1
+        assert torch.equal(got.view(torch.int32), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 5, 18, 22, 23, 24, 27, 28, 31, 32])
+def test_lanes_kernel_fma_schedules_cuda(W):
+    """The redesigned lanes kernel's fused multiply-add schedules (every
+    ``ell_dot_lanes`` order, staged rows) and one chain over planes and over
+    a long row, bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("the ordered-sum kernel is CUDA C++ and needs a CUDA card")
+    rng = np.random.default_rng(W)
+    a = torch.from_numpy(_draw(rng, (777, W))[0])
+    b = torch.from_numpy(_draw(rng, (777, W))[0])
+    for plane in ("ell", "own", "ghost"):
+        lanes = ordered_sum.ell_dot_lanes(W, plane)
+        got = ordered_sum.row_dot(a.cuda(), b.cuda(), lanes).cpu()
+        assert torch.equal(got.view(torch.int32),
+                           ordered_sum.row_dot_plain(a, b, lanes).view(torch.int32))
+    got = ordered_sum.planes_dot(a.T.contiguous().cuda(), b.T.contiguous().cuda()).cpu()
+    want = ordered_sum.planes_dot(a.T.contiguous(), b.T.contiguous())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    long_row = torch.from_numpy(_draw(rng, (2, 5000 + W))[0])
+    got = ordered_sum.row_dot(long_row.cuda(), long_row.cuda(), ordered_sum.CHAIN).cpu()
+    want = ordered_sum.row_dot_plain(long_row, long_row, ordered_sum.CHAIN)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError):
+        ordered_sum.row_dot(a.cuda(), b.cuda(), (4, 4, 4))
+
+
+# -- the power iterations' sums ---------------------------------------------
+
+def _ell_probe(n, W, rng):
+    """A random ELL of n rows, W wide, rows of 1 to W entries (the rest
+    padding), a dominant diagonal; (cols, vals, row_nnz, d_inv)."""
+    cols = rng.integers(0, n, (n, W)).astype(np.int32)
+    vals = (rng.normal(size=(n, W)) * 10.0 ** rng.integers(-2, 3, (n, W))).astype(np.float32)
+    nnz = rng.integers(1, W + 1, n).astype(np.int32)
+    live = np.arange(W)[None] < nnz[:, None]
+    cols, vals = np.where(live, cols, 0).astype(np.int32), np.where(live, vals, 0).astype(np.float32)
+    cols[:, 0] = np.arange(n)
+    vals[:, 0] = np.abs(vals[:, 0]) + 1
+    return cols, vals, nnz, (1.0 / vals[:, 0]).astype(np.float32)
+
+
+def _port_power(x, step, iters):
+    """``iters`` steps of the port's power iteration from x; step(x) = y."""
+    for _ in range(iters):
+        y = step(x)
+        x = y / torch.clamp(ordered_sum.norm(y), min=1e-30)
+    return x
+
+
+@needs_jax
+@pytest.mark.parametrize("n", [33, 1024, 1025, 32769, 1 << 18])
+def test_norm_bit_equal_to_jnp_norm(n):
+    y = _draw(np.random.default_rng(n), (n,))[0]
+    want = jax.jit(jnp.linalg.norm)(y)
+    assert np.array_equal(_bits(want), _bits(ordered_sum.norm(torch.from_numpy(y))))
+
+
+ELL_WIDTHS = list(range(1, 35)) + [40, 48, 64, 80]
+
+
+@needs_jax
+@pytest.mark.parametrize("widths", [ELL_WIDTHS[i::3] for i in range(3)])
+def test_ell_power_iteration_bit_equal_to_jax(widths):
+    """The port's ELL power-iteration step (``ell_dot_lanes("ell")`` rows,
+    ``norm``) against the body of the JAX package's ``_ell_lambda_max`` run
+    eagerly in a loop of two iterations, iterate bit for bit, at every width
+    of ``ELL_WIDTHS``."""
+    from parallel_amg_tpu.ops.ell import ELL as JELL
+
+    def body(A, d_inv):
+        def f(i, carry):
+            x, lam = carry
+            y = d_inv * A.matvec(x)
+            nrm = jnp.linalg.norm(y)
+            return y / jnp.maximum(nrm, 1e-30), jnp.where(nrm > 0, nrm, lam)
+        return f
+
+    bad = []
+    for W in widths:
+        cols, vals, nnz, d_inv = _ell_probe(1500, W, np.random.default_rng(W))
+        A = JELL(jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(nnz), (1500, 1500))
+        x0 = device_setup.start_vector((1500,), torch.float32, "cpu", W)
+        xj, _ = jax.lax.fori_loop(0, 2, body(A, jnp.asarray(d_inv)),
+                                  (jnp.asarray(x0.numpy()), jnp.float32(1.0)))
+        c, v, d = torch.from_numpy(cols).long(), torch.from_numpy(vals), torch.from_numpy(d_inv)
+        lanes = ordered_sum.ell_dot_lanes(W)
+        x = _port_power(x0, lambda x: d * ordered_sum.row_dot(v, x[c], lanes), 2)
+        if not np.array_equal(_bits(xj), _bits(x)):
+            bad.append(W)
+    assert not bad, f"widths whose iterates differ: {bad}"
+
+
+@needs_jax
+@pytest.mark.parametrize("W", [5, 23, 28, 40])
+def test_ell_lambda_max_bit_equal_to_jax(W):
+    """``device_rs._ell_lambda_max`` against the JAX package's, 15 iterations."""
+    from parallel_amg_tpu.amg import device_rs as jrs
+    from parallel_amg_tpu.ops.ell import ELL as JELL
+    from parallel_amg_tpu_torch.ops.ell import ELL
+
+    cols, vals, nnz, d_inv = _ell_probe(900, W, np.random.default_rng(100 + W))
+    jA = JELL(jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(nnz), (900, 900))
+    A = ELL(torch.from_numpy(cols), torch.from_numpy(vals), torch.from_numpy(nnz), (900, 900))
+    want = jrs._ell_lambda_max(jA, jnp.asarray(d_inv), 15, seed=2)
+    got = device_rs._ell_lambda_max(A, torch.from_numpy(d_inv), 15, seed=2)
+    assert np.array_equal(_bits(want), _bits(got))
+
+
+@needs_jax
+@pytest.mark.parametrize("K", [10, 30])
+def test_pcsr_lambda_max_bit_equal_to_jax(K):
+    """``prs_setup._pcsr_lambda_max`` against the JAX package's on 8 shards
+    of a random banded matrix (own and ghost planes of K = 10: widths 11 and
+    9; K = 30: 30 and 21), after 2, 3 and 15 iterations."""
+    import scipy.sparse as sp
+
+    from parallel_amg_tpu.parallel import make_row_mesh as j_make_row_mesh
+    from parallel_amg_tpu.parallel import prs_setup as jprs
+    from parallel_amg_tpu.parallel.pcsr import PCSR as JPCSR
+    from parallel_amg_tpu_torch.parallel import prs_setup as prs
+    from parallel_amg_tpu_torch.parallel.mesh import make_row_mesh
+    from parallel_amg_tpu_torch.parallel.pcsr import PCSR
+
+    rng = np.random.default_rng(K)
+    n = 4096
+    rows, cols = [], []
+    for i in range(n):
+        c = np.unique(np.concatenate([[i], np.clip(i + rng.integers(-300, 301, rng.integers(1, K + 1)), 0, n - 1)]))
+        rows += [i] * len(c)
+        cols += list(c)
+    A = sp.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
+    A.data = (rng.normal(size=A.nnz) * 10.0 ** rng.integers(-2, 3, A.nnz)).astype(np.float32)
+    A.setdiag(np.abs(A.diagonal()) + 5)
+    A = A.tocsr()
+    Aj, At = JPCSR.from_csr(A, j_make_row_mesh(8)), PCSR.from_csr(A, make_row_mesh(8, device="cpu"))
+    d_inv = prs._d_inv(At, torch.float32)
+    dj = jnp.asarray(d_inv.to_global().numpy())
+    for iters in (2, 3, 15):
+        want = jprs._pcsr_lambda_max(Aj, dj, iters, 0)
+        got = prs._pcsr_lambda_max(At, d_inv, iters, 0)
+        assert np.array_equal(_bits(want), _bits(got)), iters
+
+
+def test_fma_and_sqrt_correctly_rounded():
+    """``fma_plain`` (float64 with round-to-odd) and ``sqrt`` against exact
+    rational arithmetic: each result is the float32 nearest the exact value."""
+    rng = np.random.default_rng(7)
+    a, b, c = (_draw(rng, (400,))[0] for _ in range(3))
+    got = ordered_sum.fma_plain(*(torch.from_numpy(t) for t in (a, b, c))).numpy()
+    roots = ordered_sum.sqrt(torch.from_numpy(np.abs(a))).numpy()
+
+    def nearest(g, exact):
+        d = abs(Fraction(float(g)) - exact)
+        return all(abs(Fraction(float(h)) - exact) >= d for h in
+                   (np.nextafter(g, np.float32(-np.inf)), np.nextafter(g, np.float32(np.inf))))
+
+    for i in range(400):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        assert nearest(got[i], exact), (a[i], b[i], c[i])
+        r = roots[i]
+        lo, hi = np.nextafter(r, np.float32(0)), np.nextafter(r, np.float32(np.inf))
+        x = Fraction(float(abs(a[i])))
+        # r is the float32 nearest √x: x lies between the squares of the midpoints
+        assert (Fraction(float(lo)) + Fraction(float(r))) ** 2 / 4 <= x <= (
+            Fraction(float(hi)) + Fraction(float(r))) ** 2 / 4
+    assert ordered_sum.sqrt(torch.tensor(6.092010498046875)).item() == float(np.float32(math.sqrt(6.092010498046875)))
+
+
+def test_sumsq_rules():
+    """``sumsq``: one fma chain where no axis passes 32 (a 1-D or 3-D grid),
+    the windows rule on the rounded squares otherwise, block by block on
+    three axes."""
+    rng = np.random.default_rng(9)
+    y = torch.from_numpy(_draw(rng, (20,))[0])
+    s = torch.zeros(())
+    for v in y:
+        s = ordered_sum.fma_plain(v, v, s)
+    assert ordered_sum.sumsq(y).item() == s.item()
+    y3 = torch.from_numpy(_draw(rng, (5, 6, 7))[0])
+    flat = y3.reshape(1, -1)
+    assert ordered_sum.sumsq(y3).item() == ordered_sum.row_dot(flat, flat, ordered_sum.CHAIN)[0].item()
+    y1 = torch.from_numpy(_draw(rng, (100,))[0])
+    assert ordered_sum.sumsq(y1).item() == row_sum(y1 * y1).item()
+    g = torch.from_numpy(_draw(rng, (40, 3, 33))[0])
+    sq = g * g
+    # blocks (windows of 32 with padding 12/12 on axis 0 and 15/16 on axis 2)
+    want = torch.zeros(())
+    for a0, a1 in ((0, 20), (20, 40)):
+        for b0, b1 in ((0, 17), (17, 33)):
+            blk = torch.zeros(())
+            for v in sq[a0:a1, :, b0:b1].reshape(-1):
+                blk = blk + v
+            want = want + blk
+    assert ordered_sum.sumsq(g).item() == want.item()

@@ -6,7 +6,8 @@ test_distributed_extended_i_pcg_parity).  The stages are held one by one in
 test_torch_prs_setup.py.
 
 Held: level rows and grid complexity equal; operator complexity to 1e-12
-(the same stored entries); PCG iteration counts equal; residual histories
+(the same stored entries); every level's λ_max bit for bit (the power
+iteration adds in XLA's order on 8 shards); PCG iteration counts equal; residual histories
 rtol 1e-4 over the first four entries (float32 sums in another order); a
 second setup bit-equal to the first; no host-global matrix in the setup's
 call graph.  The W-cycle counts sit in test_torch_prs_setup_wcycle.py, so
@@ -58,6 +59,13 @@ def test_rows_and_complexities(setups):
     gt, ot = ht.complexity()
     assert gt == gj
     assert ot == pytest.approx(oj, rel=1e-12)
+
+
+def test_lambda_max_bit_equal(setups):
+    hj, ht, _, _ = setups
+    assert len(ht.levels) == len(hj.levels)
+    for lt, lj in zip(ht.levels, hj.levels):
+        assert lt.lam_max == float(lj.lam_max)
 
 
 def check_pcg_counts(hj, ht, jm, tm, prob):

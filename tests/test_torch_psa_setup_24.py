@@ -6,9 +6,10 @@ test_distributed_sa_pcg_no_host_matrix).  The stages are held one by one in
 test_torch_psa_setup.py.
 
 Held: level rows and grid complexity equal, operator complexity to 1e-12,
-PCG iteration counts equal, residual histories rtol 1e-4 over the first
-four entries (float32 sums in another order), the true residual below
-5e-6·‖b‖; a second setup bit-equal.
+PCG iteration counts equal, λ_max bit for bit where the level's operator
+is the JAX package's bit for bit (rtol 1e-5 elsewhere), residual histories
+rtol 1e-4 over the first four entries (float32 sums in another order), the
+true residual below 5e-6·‖b‖; a second setup bit-equal.
 """
 
 import numpy as np
@@ -60,6 +61,22 @@ def test_sa_setup_24_rows_and_pcg(setups24):
                                np.asarray(rj.residual_history)[:4], rtol=1e-4)
     x = ptt.to_global(rt.x, ht.levels[0].A.row_partition).astype(np.float64)
     assert np.linalg.norm(bh - A @ x) < 5e-6 * np.linalg.norm(bh)
+
+
+def test_sa_lambda_max(setups24):
+    """λ_max bit for bit wherever the level's operator is the JAX package's
+    bit for bit (its planes); the coarse SA operators add their products in
+    another order, and their λ_max is held to rtol 1e-5."""
+    _, hj, ht, _, _ = setups24
+    assert len(ht.levels) == len(hj.levels)
+    for lt, lj in zip(ht.levels, hj.levels):
+        same = all(np.array_equal(np.stack([t.numpy() for t in getattr(lt.A, f)]).view(np.int32),
+                                  np.asarray(getattr(lj.A, f)).view(np.int32))
+                   for f in ("diag_cols", "diag_vals", "off_cols", "off_vals"))
+        if same:
+            assert lt.lam_max == float(lj.lam_max)
+        else:
+            np.testing.assert_allclose(lt.lam_max, float(lj.lam_max), rtol=1e-5)
 
 
 def test_sa_setup_rerun_bit_equal(setups24):
