@@ -95,11 +95,15 @@
     with m0 ≤ h that must not launch.  The one-launch path
     (halo_stencil_matvec, parts on one card: one launch per matvec) with
     kernel, plain, bound and library-CSR times and bit-equality over 20
-    calls; the exchange path of parts on several cards or processes
-    (halo_stencil_interior + halo_stencil_boundary, the halos through
-    parallel/exchange.py; run on one card) bit-equal too, with its
-    whole-matvec time and each entry's own; launches and device busy share
-    per matvec of both paths (torch.profiler).
+    calls; the exchange route of parts on several cards or processes (one
+    halo_stencil_interior launch, the halos through parallel/exchange.py,
+    one halo_stencil_boundary launch; run on one card) bit-equal to the
+    plain path and to the one-launch entry and over 20 calls, with its
+    whole-matvec time beside cuSPARSE's, and each entry's own time over
+    every part in one call, its share of its bound, its plain version's
+    time and, for the interior, cuSPARSE CSR of the zero-halo operator;
+    launches and device busy share per matvec of both paths
+    (torch.profiler).
 21. slice_dist3d: the 4-part V-cycle (18 B8 launches per cycle: 9 matvecs
     on each of the 2 sharded levels) and amg_pcg to 1e-6 with the float64
     true residual, held within 2 iterations of slice3d's single-device
@@ -190,7 +194,8 @@
     bit-equal to phase 34's; the Ruge–Stüben setup on the card, its levels'
     planes and plans bit-equal to phase 35's, PCG count equal), config #3 in
     4 parts ("pallas_async", residual history bit-equal to phase 21's, B8's
-    interior and boundary kernels launched on the exchange route) and SA at
+    interior and boundary kernels launched on the exchange route, one of
+    each a rank a level-0 matvec) and SA at
     256² in 8 parts (rows and PCG held as in phase 36).  Per rank: setup and
     solve seconds, V-cycle wall and CUDA-event ms, the exchange's host ms per
     V-cycle and per matvec and its share, peak memory, and the launches of
@@ -294,8 +299,7 @@ KERNELS = {
 # the __global__ functions of csrc/, as the profiler names them
 PORT_KERNEL_NAMES = ("twell_stream_kernel", "flatdia_spmv_kernel",
                      "flatdia_spmm_kernel", "bsr_spmv_kernel", "expand_kernel",
-                     "merge_kernel", "matvec_kernel", "interior_kernel",
-                     "boundary_kernel", "ordered_sum_staged",
+                     "merge_kernel", "matvec_kernel", "boundary_kernel", "ordered_sum_staged",
                      "ordered_sum_windows", "ordered_sum_windows_span",
                      "ordered_sum_lanes")
 LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm", "bsr_spmv",
@@ -356,16 +360,21 @@ def device_ms(fn, reps=10, samples=25, warmup=5):
     """Median device time of one fn() call in ms, over `samples` CUDA-event
     windows of `reps` back-to-back calls.  A sleep kernel queued ahead of
     each window keeps the stream busy while the host enqueues it, so the
-    window holds device time only."""
+    window holds device time only: ~1 ms, or twice the host time of the
+    window's calls as the last warm-up call took it, up to ~10 ms."""
     import torch
 
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host_s = time.perf_counter() - t0
+    # ~2e9 cycles a second on the H100
+    sleep_cycles = int(min(max(2_000_000, 2 * reps * host_s * 2e9), 20_000_000))
     times = []
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(reps):
             fn()
@@ -373,6 +382,20 @@ def device_ms(fn, reps=10, samples=25, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def host_ms(fn, n=50):
+    """Host ms to enqueue one fn() call, with no synchronize between calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return t
 
 
 def wall_ms(fn, n=20, warmup=3):
@@ -422,10 +445,10 @@ def profile_cycles(fn, n=5):
     kernels = [e for e in prof.events()
                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.device_time_total for e in kernels) / n
-    # B8's halo copies against its interior kernels: how much of the copies'
-    # device time ran while an interior kernel ran
+    # B8's halo copies against its interior launches (the matvec kernel's
+    # body): how much of the copies' device time ran while one ran
     copies = [e.time_range for e in kernels if "memcpy" in e.name.lower()]
-    interior = [e.time_range for e in kernels if "interior_kernel" in e.name]
+    interior = [e.time_range for e in kernels if "matvec_kernel" in e.name]
     overlap = sum(max(0.0, min(c.end, k.end) - max(c.start, k.start))
                   for c in copies for k in interior)
     # each of the port's kernels' device time per call, by its CUDA name
@@ -624,11 +647,17 @@ def multiprocess_rank(cfg2, cfg3, cfg_sa):
 
     h3, s = timed(setup3)
     b3 = ptt.distribute_grid(b3_np, dims3, h3, mesh4)
+    # kernel B8's launches for one level-0 matvec on this rank's route
+    h3.levels[0].A.matvec(b3)
+    reset()
+    h3.levels[0].A.matvec(b3)
+    b8_per_matvec = {k: v for k, v in counts().items() if k in phalo_async.LAUNCHES}
     reset()
     r, solve_s = timed(lambda: ptt.amg_pcg(None, h3, b3, tol=1e-6, maxiter=100))
     out["config3"] = dict(
         setup_s=s, solve_s=solve_s, iters=r.iters, converged=r.converged,
         history=r.residual_history[:r.iters + 1].cpu().tolist(), launches=counts(),
+        b8_per_matvec=b8_per_matvec,
         rows=[l.n for l in h3.levels], local_parts=list(mesh4.local),
         vcycle=cycle_times(lambda: ptt.vcycle(h3, b3.zeros_like(), b3)),
         matvec=cycle_times(lambda: h3.levels[0].A.matvec(b3), n=20))
@@ -1898,20 +1927,48 @@ def main():
         return 4 * (A_s.n_points + 2) * A_s.n
 
     def entry_bytes(A_s):
-        """(interior, boundary) entries' bytes over all parts: the interior
-        reads the weights of its in-slab terms, x and writes y; the boundary
-        reads its halo terms' weights, the 2h landing planes a part gets and
-        the boundary planes of y, and writes those planes."""
+        """(interior, boundary) entries' bytes over every part of the route
+        on one card, counted in (n1, n2) planes: the interior reads the
+        weights of its in-slab terms and x and writes y; the boundary, on
+        each side of a part that has a neighbour, reads the planes of its
+        landing buffer and of W that the halo terms read, and reads and
+        writes the planes of y they land on (phalo_async.boundary_planes)."""
         plane = int(np.prod(A_s.dims[1:]))
         S, m0, h = A_s.mesh.size, A_s.m0, A_s.halo
-        reach = sum(abs(o[0]) for o in A_s.offsets)
-        interior = S * (A_s.n_points * m0 - reach + 2 * m0)
-        boundary = (S - 1) * (reach + 2 * h) + 2 * S * min(2 * h, m0)
+        o0s = [o[0] for o in A_s.offsets]
+        reach = (max([-o for o in o0s if o < 0], default=0),
+                 max([o for o in o0s if o > 0], default=0))
+        interior = S * (sum(max(m0 - abs(o), 0) for o in o0s) + 2 * m0)
+        boundary = 0
+        for p in range(S):
+            sides = (p > 0, p < S - 1)
+            lo, hi = phalo_async.boundary_planes(*(1 if s else None for s in sides),
+                                                 reach, m0)
+            boundary += 2 * (lo + hi)
+            for o in o0s:
+                if o and sides[o > 0]:
+                    boundary += min(abs(o), m0)   # W planes of this term
+            if sides[0]:   # left landing planes h + o + i0 for i0 < -o
+                boundary += len({h + o + i for o in o0s if o < 0
+                                 for i in range(min(-o, m0))})
+            if sides[1]:   # right landing planes i0 + o - m0 for i0 >= m0 - o
+                boundary += len({i + o - m0 for o in o0s if o > 0
+                                 for i in range(max(m0 - o, 0), m0)})
         return 4 * plane * interior, 4 * plane * boundary
 
     def global_csr(A_s):
         return flat_csr(FlatDIA.from_stencil(
             Stencil(A_s.global_weights(), A_s.offsets, A_s.dims)))
+
+    def zero_halo_csr(A_s):
+        """The parts' zero-halo operator as one CSR: the global operator with
+        the couplings across parts dropped (the interior entry's function)."""
+        Wg = A_s.global_weights()
+        i0 = torch.arange(A_s.dims[0], device=dev) % A_s.m0
+        for d, off in enumerate(A_s.offsets):
+            if off[0]:
+                Wg[d, (i0 + off[0] < 0) | (i0 + off[0] >= A_s.m0)] = 0
+        return flat_csr(FlatDIA.from_stencil(Stencil(Wg, A_s.offsets, A_s.dims)))
 
     def bits_equal(a, b):
         return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -1926,6 +1983,9 @@ def main():
     ONE_CARD = {"halo_stencil_matvec": 1, "halo_stencil_interior": 0,
                 "halo_stencil_boundary": 0}
     NO_B8 = dict.fromkeys(ONE_CARD, 0)
+    # the exchange route on one card: one interior and one boundary launch
+    ROUTE = {"halo_stencil_matvec": 0, "halo_stencil_interior": 1,
+             "halo_stencil_boundary": 1}
 
     reach2 = poisson_stencil(dims3)
     reach2 = reach2.matmul(reach2)
@@ -1965,20 +2025,36 @@ def main():
         bit_equal_20 = all(bits_equal(A_k.matvec(x).to_global(), y_g) for _ in range(20))
         copy_extra = {}
         if want_launch:
-            # the several-card path, run on one card: the same sums
-            copy_launched, yc = b8_launches(
-                lambda: phalo_async.matvec_copy_streams(A_s, x))
-            copy_equal = bits_equal(yc.to_global(), ref_g)
-            copy_ms = device_ms(lambda: phalo_async.matvec_copy_streams(A_s, x))
+            # the exchange route, run on one card (the halos are views of the
+            # neighbours' slabs): the same sums in one interior and one
+            # boundary launch
+            def route_fn():
+                return phalo_async.matvec_copy_streams(A_s, x)
+
+            copy_launched, yc = b8_launches(route_fn)
+            yc_g = yc.to_global()
+            copy_equal = bits_equal(yc_g, ref_g)
+            copy_equal_one = bits_equal(yc_g, y_g)
+            copy_equal_20 = all(bits_equal(route_fn().to_global(), yc_g)
+                                for _ in range(20))
+            copy_ms = device_ms(route_fn)
             copy_extra = dict(copy_path_launches=copy_launched,
-                              copy_path_bit_equal=copy_equal, copy_path_ms=copy_ms,
-                              copy_path_max_abs_err=float(
-                                  (yc.to_global() - ref_g).abs().max()))
-            if copy_launched != {"halo_stencil_matvec": 0, "halo_stencil_interior": S,
-                                 "halo_stencil_boundary": S} or not copy_equal:
-                raise AssertionError(f"halo_stencil {name}: the copy-stream path "
-                                     f"launched {copy_launched}, bit-equal {copy_equal}")
-            del yc
+                              copy_path_bit_equal=copy_equal,
+                              copy_path_bit_equal_to_one_launch=copy_equal_one,
+                              copy_path_bit_equal_20_calls=copy_equal_20,
+                              copy_path_ms=copy_ms,
+                              copy_path_host_ms=host_ms(route_fn),
+                              copy_path_below_library_csr=(
+                                  lib_ms is not None and copy_ms < lib_ms),
+                              copy_path_max_abs_err=float((yc_g - ref_g).abs().max()))
+            if copy_launched != ROUTE or not (copy_equal and copy_equal_one
+                                              and copy_equal_20):
+                raise AssertionError(f"halo_stencil {name}: the exchange route "
+                                     f"launched {copy_launched}, bit-equal to the "
+                                     f"plain path {copy_equal}, to the one-launch "
+                                     f"entry {copy_equal_one}, over 20 calls "
+                                     f"{copy_equal_20}")
+            del yc, yc_g
         err = check_kernel("halo_stencil_matvec", name, torch.float32, y_g, ref_g,
                            bound.to_global(), dict(
                                padded_dims=list(A_s.dims), parts=S, m0=A_s.m0,
@@ -2009,42 +2085,73 @@ def main():
                  b8_launches_per_matvec=copy_extra["copy_path_launches"],
                  event_window_ms=copy_extra["copy_path_ms"], **prof_copy)
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     share_of_bound=b_ms / ms,
                      copy_bound_ms=copy_bound_ms(n_bytes), library_ms=lib_ms,
                      main_case=f"{name} f32",
                      device_ms_per_matvec=prof_b8["device_ms_per_call"],
-                     copy_path_ms=copy_extra["copy_path_ms"])
-            # the several-card path's two entries, each over every part
+                     copy_path_ms=copy_extra["copy_path_ms"],
+                     copy_path_host_ms=copy_extra["copy_path_host_ms"])
+            # the exchange route's two entries, each one call over every part,
+            # each held bit-equal to its plain version over the parts
             offs = A_s.offsets
             lands = exchange.halos(x.parts, hw)
-            ys0 = [phalo_async.stencil_interior(W, xl, offs, hw)
-                   for W, xl in zip(A_s.weights, x.parts)]
-            yb = [yy.clone() for yy in ys0]
+            ys0 = phalo_async.stencil_interior(A_s, x)
+            ys_p = [interior_plain(W, xl, offs, hw) for W, xl in zip(A_s.weights, x.parts)]
+            int_err = max(float((a - b).abs().max()) for a, b in zip(ys0, ys_p))
+            int_equal = all(bits_equal(a, b) for a, b in zip(ys0, ys_p))
+            phalo_async.stencil_boundary(A_s, ys0, lands)
+            for yy, W, (lf, rt) in zip(ys_p, A_s.weights, lands):
+                boundary_plain(yy, W, lf, rt, offs, hw)
+            bnd_err = max(float((a - b).abs().max()) for a, b in zip(ys0, ys_p))
+            bnd_equal = all(bits_equal(a, b) for a, b in zip(ys0, ys_p))
+            # the interior's yardstick: cuSPARSE CSR of the zero-halo operator
+            zh = zero_halo_csr(A_s)
+            xg = x.to_global().reshape(-1)
+            zh_ms, zh_err = library_ms(zh, xg)
+            zh_diff = float(((zh @ xg).reshape(A_s.dims)
+                             - PGrid(phalo_async.stencil_interior(A_s, x),
+                                     A_s.mesh).to_global()).abs().max())
+            del zh, xg
             entries = {
                 "halo_stencil_interior": (
-                    lambda: [phalo_async.stencil_interior(W, xl, offs, hw)
-                             for W, xl in zip(A_s.weights, x.parts)],
+                    lambda: phalo_async.stencil_interior(A_s, x),
                     lambda: [interior_plain(W, xl, offs, hw)
-                             for W, xl in zip(A_s.weights, x.parts)]),
+                             for W, xl in zip(A_s.weights, x.parts)],
+                    int_err, int_equal, zh_ms, zh_err),
                 "halo_stencil_boundary": (
-                    lambda: [phalo_async.stencil_boundary(yy, W, lf, rt, offs, hw)
-                             for yy, W, (lf, rt) in zip(yb, A_s.weights, lands)],
+                    # in place on ys0, a scratch copy: each call adds the
+                    # halo terms again
+                    lambda: phalo_async.stencil_boundary(A_s, ys0, lands),
                     lambda: [boundary_plain(yy, W, lf, rt, offs, hw)
-                             for yy, W, (lf, rt) in zip(yb, A_s.weights, lands)]),
+                             for yy, W, (lf, rt) in zip(ys_p, A_s.weights, lands)],
+                    bnd_err, bnd_equal, None, None),
             }
             for entry, nb in zip(entries, entry_bytes(A_s)):
-                fn, plain_fn = entries[entry]
+                fn, plain_fn, e_err, e_equal, e_lib, e_lib_err = entries[entry]
+                e_launched, _ = b8_launches(fn)
                 e_ms = device_ms(fn)
+                e_host = host_ms(fn)
                 e_plain = device_ms(plain_fn, reps=2, samples=5)
                 eb_ms, eb_by = bound_ms(nb, 0)
                 results[entry].update(
                     ms=e_ms, plain_ms=e_plain, bound_ms=eb_ms, bound_by=eb_by,
-                    copy_bound_ms=copy_bound_ms(nb), library_ms=None,
-                    main_case=f"{name} f32, every part",
-                    max_abs_err=copy_extra["copy_path_max_abs_err"])
+                    share_of_bound=eb_ms / e_ms, host_ms=e_host,
+                    copy_bound_ms=copy_bound_ms(nb), library_ms=e_lib,
+                    main_case=f"{name} f32, every part in one call",
+                    max_abs_err=e_err)
                 emit("kernel", name=entry, case=name, ms=e_ms, plain_ms=e_plain,
-                     bound_ms=eb_ms, bound_by=eb_by, bytes=nb,
+                     bound_ms=eb_ms, bound_by=eb_by, share_of_bound=eb_ms / e_ms,
+                     host_ms=e_host, library_ms=e_lib, library_error=e_lib_err,
+                     library_kind=("cuSPARSE CSR of the zero-halo operator"
+                                   if e_lib is not None else None),
+                     library_max_abs_diff=(zh_diff if e_lib is not None else None),
+                     launches=e_launched, bytes=nb, max_abs_err=e_err,
+                     bit_equal_to_plain=e_equal,
                      bit_equal_via_copy_path=copy_extra["copy_path_bit_equal"])
-            del lands, ys0, yb, entries
+                if e_launched != {**NO_B8, entry: 1} or not e_equal:
+                    raise AssertionError(f"{entry} {name}: launches {e_launched}, "
+                                         f"bit-equal to its plain version {e_equal}")
+            del lands, ys0, ys_p, entries
         del A_k, A_p, A_abs, x, y, ref, bound
     del b8_cases
 
@@ -2785,6 +2892,7 @@ def main():
                                             / r["host"]["vcycle"]["wall_ms"]),
              rs_vcycle=r["rs"]["vcycle"],
              config3_vcycle=r["config3"]["vcycle"], config3_matvec=r["config3"]["matvec"],
+             config3_b8_launches_per_matvec=r["config3"]["b8_per_matvec"],
              config3_exchange_share_of_vcycle=(r["config3"]["vcycle"]["exchange_ms"]
                                                / r["config3"]["vcycle"]["wall_ms"]))
     mp_holds = {
@@ -2803,6 +2911,12 @@ def main():
         "config3_b8_interior_and_boundary_launched": min(
             mp_paths["mp_config3_4parts_pcg"]["halo_stencil_interior"],
             mp_paths["mp_config3_4parts_pcg"]["halo_stencil_boundary"]) > 0,
+        # the route: one interior and one boundary launch a rank a matvec
+        "config3_b8_two_launches_a_rank_a_matvec": all(
+            r["config3"]["b8_per_matvec"] == {"halo_stencil_matvec": 0,
+                                              "halo_stencil_interior": 1,
+                                              "halo_stencil_boundary": 1}
+            for r in ranks),
         "sa256_rows": all(r["sa256"]["rows"] == DIST_SA256_JAX8["rows"] for r in ranks),
         "sa256_pcg_iters": all(abs(r["sa256"]["iters"] - DIST_SA256_JAX8["pcg_iters"]) <= 1
                                for r in ranks),
@@ -3305,11 +3419,12 @@ def main():
         r = results[name]
         extra = {k: v for k, v in r.items()
                  if k.startswith(("ms_", "bound_ms_", "plain_ms_", "library_ms_",
-                                  "case_", "copy_path_ms"))
+                                  "case_", "copy_path_"))
                  or k in ("product_ms", "product_library_ms", "library_kind",
                           "auto_width_ms", "device_ms_per_matvec",
                           "device_ms_per_vcycle_config2", "bit_equal_20_calls",
-                          "full_mode_ms", "k_major_ms", "sort_ms")}
+                          "full_mode_ms", "k_major_ms", "sort_ms",
+                          "share_of_bound", "host_ms")}
         if "design" in meta:
             extra["design"] = meta["design"]
         if name in ("halo_stencil_interior", "halo_stencil_boundary"):

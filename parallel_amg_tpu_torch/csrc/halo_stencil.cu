@@ -14,39 +14,64 @@
 // planes are already in this card's memory, so the halo terms read them in
 // place: no landing buffers, copies, streams or events.  That is what the
 // TPU kernel's remote DMA becomes when the neighbor's memory is the card's
-// own.  Grid: (tile of the (n1, n2) plane, plane i0, part), so a thread finds
-// its point with one 32-bit division, not a 64-bit one per point.
-// Each thread owns V consecutive points of a row (V = 4 where n2 % 4 == 0 and
-// the pointers are 16-byte aligned, else 1).
+// own.
 //
-// halo_stencil_interior / halo_stencil_boundary: one part's interior (zero
-// halo) and its boundary corrections from landing buffers, for parts on
-// several cards, where parallel/phalo_async.py copies the halo planes on a
-// copy stream between the two launches.
+// The exchange route of parallel/phalo_async.py, where some parts' halos come
+// from another card or process, takes two launches a card:
 //
-// Terms, in every entry: first the interior terms, y[p] = sum_d W[d, p] *
-// x[p + off_d] over the offsets whose target stays inside the slab (reading
-// nothing outside the grid on the other axes), in offset order; then, on the
-// first and last h planes (h = max |off_d[0]|), the halo terms in offset
-// order: o0 < 0 and i0 < -o0 read the left neighbor's plane m0 + i0 + o0 (its
-// landing buffer's plane h + i0 + o0); o0 > 0 and i0 >= m0 - o0 read the right
-// neighbor's plane i0 + o0 - m0.  A null neighbor is the zero halo.  Products
-// and sums use __fmul_rn/__fadd_rn, with no FMA contraction: y is
-// bit-reproducible and equals the plain torch version's sums
-// (parallel/pstencil.py interior_plain, boundary_plain) term for term, and
-// the one-launch entry equals the two-launch pair bit for bit.
+// - the interior: halo_stencil_matvec again, over a table in which such a
+//   "split" part gets null on both sides, so it gets its interior terms only
+//   (a null neighbor is the zero halo); a part whose neighbors are on this
+//   card rides in the same launch with its real neighbors and comes out
+//   whole.  It runs before the halo exchange is waited for.
+// - halo_stencil_boundary: the boundary corrections of every split part on
+//   the card, after the exchange.  A part table holds each split part's W
+//   and y, its left and right landing buffers, (h, n1, n2) each or null at
+//   the grid's ends, and how many planes at the slab's start and end their
+//   halo terms reach (none on a null side), so the launch touches only the
+//   planes that get a term.  The offsets with o0 != 0 are compacted on the
+//   host, in offset order, with the plane of W each one reads, so the kernel
+//   never walks the in-plane offsets (most of a 27-point or Galerkin
+//   stencil).
+//
+// Grids: (tile of the (n1, n2) plane, plane, part).  The boundary's plane k
+// of a part that reaches lo planes at the start and hi at the end maps to
+// i0 = k for k < lo, else i0 = m0 - lo - hi + k (the host takes lo = m0,
+// hi = 0 where the two overlap, so no plane is counted twice); the grid's
+// plane extent is the largest lo + hi of the table, and a part's blocks past
+// its own return at once.  A thread finds its point with one 32-bit division
+// within a plane.  Each thread owns V consecutive points of a row (V = 4
+// where n2 % 4 == 0 and the pointers of W and y are 16-byte aligned, else
+// 1): 16-byte streaming loads of W, 16-byte stores of y (the boundary reads
+// and writes y back 16 bytes at a time).
+//
+// Terms: first the interior terms, y[p] = sum_d W[d, p] * x[p + off_d] over
+// the offsets whose target stays inside the slab (reading nothing outside
+// the grid on the other axes), in offset order; then, on the first and last
+// h planes (h = max |off_d[0]|), the halo terms in offset order: o0 < 0 and
+// i0 < -o0 read the left neighbor's plane m0 + i0 + o0 (its landing buffer's
+// plane h + i0 + o0); o0 > 0 and i0 >= m0 - o0 read the right neighbor's
+// plane i0 + o0 - m0.  The boundary entry starts from acc = y[p] and adds the
+// same halo terms in the same order.  Products and sums use
+// __fmul_rn/__fadd_rn, with no FMA contraction: y is bit-reproducible, equals
+// the plain torch version's sums (parallel/pstencil.py interior_plain, then
+// boundary_plain) term for term, and the route equals the one-launch entry
+// bit for bit.
 //
 // Layout: the slab is (m0, n1, n2) row-major in f32 (a 2-D grid is
 // (m0, 1, n2), a 1-D one (m0, 1, 1)); W is (D, m0, n1, n2).  The offsets
-// ride in a by-value kernel parameter (at most kMaxPoints), as in B2.
+// ride in by-value kernel parameters (at most kMaxPoints), as in B2.
 // Element indices are 64-bit where they can pass 2^31: D*m0*n1*n2 does at
 // the 102.5M-DOF grid.
 //
-// What bounds it: device-memory bytes.  W is D of the D + 2 arrays and is
-// read once, streamed (evict-first) in 128-bit loads along n2; x goes
-// through the read-only path and its D reads of each value hit L1/L2; y is
-// written once, with no second pass over it in the one-launch entry (the
-// two-launch pair rereads 2h planes of it).
+// What bounds it: device-memory bytes for the matvec and the interior.
+// W is D of the D + 2 arrays and is read once, streamed (evict-first) in
+// 128-bit loads along n2; x goes through the read-only path and its D reads
+// of each value hit L1/L2; y is written once.  The boundary entry moves the
+// h planes of y on each side that has a neighbor, the halo terms' planes of
+// W and the landing buffers: a few hundred kB at config #3's level 0, so one
+// launch's latency bounds it; one launch a card for every split part, no
+// walk over the in-plane offsets, no plane without a halo term.
 
 #include <cuda_runtime.h>
 
@@ -61,8 +86,18 @@ struct HaloOffsets {
   int o2[kMaxPoints];
 };
 
-// The parts of one launch: each one's (D, m0, n1, n2) weights, (m0, n1, n2)
-// x and y, and the x slabs of its axis-0 neighbors (null at the grid's ends).
+// The offsets with o0 != 0, in offset order, and the plane d of W each reads.
+struct HaloTerms {
+  int count;
+  int d[kMaxPoints];
+  int o0[kMaxPoints];
+  int o1[kMaxPoints];
+  int o2[kMaxPoints];
+};
+
+// The parts of one matvec or interior launch: each one's (D, m0, n1, n2)
+// weights, (m0, n1, n2) x and y, and the x slabs of its axis-0 neighbors
+// (null at the grid's ends, and on both sides of a split part).
 struct HaloParts {
   int count;
   const float* W[kMaxParts];
@@ -72,85 +107,23 @@ struct HaloParts {
   const float* right[kMaxParts];
 };
 
+// The split parts of one boundary launch: each one's weights and y, its
+// (h, n1, n2) left and right landing buffers (null at the grid's ends), and
+// the planes its halo terms reach: lo at the slab's start, hi at its end
+// (lo + hi <= m0; 0 on a null side).
+struct HaloBoundary {
+  int count;
+  const float* W[kMaxParts];
+  float* y[kMaxParts];
+  const float* left[kMaxParts];
+  const float* right[kMaxParts];
+  int lo[kMaxParts];
+  int hi[kMaxParts];
+};
+
 namespace {
 
 constexpr int kBlock = 256;
-constexpr long long kMaxBlocks = 65535;
-
-__global__ void __launch_bounds__(kBlock)
-    interior_kernel(const float* __restrict__ W, const float* __restrict__ x,
-                    float* __restrict__ y, long long m0, int n1, int n2,
-                    HaloOffsets offs) {
-  const long long plane = static_cast<long long>(n1) * n2;
-  const long long n = m0 * plane;
-  const long long stride = static_cast<long long>(gridDim.x) * kBlock;
-  for (long long p = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-       p < n; p += stride) {
-    const long long i0 = p / plane;
-    const long long r = p - i0 * plane;
-    const int i1 = static_cast<int>(r / n2);
-    const int i2 = static_cast<int>(r - static_cast<long long>(i1) * n2);
-    float acc = 0.f;
-    for (int d = 0; d < offs.count; ++d) {
-      const long long j0 = i0 + offs.o0[d];
-      const int j1 = i1 + offs.o1[d];
-      const int j2 = i2 + offs.o2[d];
-      if (j0 < 0 || j0 >= m0 || j1 < 0 || j1 >= n1 || j2 < 0 || j2 >= n2) {
-        continue;
-      }
-      const float xv = __ldg(x + j0 * plane + static_cast<long long>(j1) * n2 + j2);
-      acc = __fadd_rn(acc, __fmul_rn(W[d * n + p], xv));
-    }
-    y[p] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kBlock)
-    boundary_kernel(const float* __restrict__ W, const float* __restrict__ lh,
-                    const float* __restrict__ rh, float* __restrict__ y,
-                    long long m0, int n1, int n2, int h, HaloOffsets offs) {
-  const long long plane = static_cast<long long>(n1) * n2;
-  const long long n = m0 * plane;
-  const long long nb = (2LL * h < m0) ? 2LL * h : m0;  // boundary planes
-  const long long total = nb * plane;
-  const long long stride = static_cast<long long>(gridDim.x) * kBlock;
-  for (long long t = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-       t < total; t += stride) {
-    const long long k = t / plane;
-    const long long r = t - k * plane;
-    const long long i0 = (k < h) ? k : m0 - nb + k;
-    const int i1 = static_cast<int>(r / n2);
-    const int i2 = static_cast<int>(r - static_cast<long long>(i1) * n2);
-    const long long p = i0 * plane + r;
-    float acc = y[p];
-    for (int d = 0; d < offs.count; ++d) {
-      const int o0 = offs.o0[d];
-      if (o0 == 0) {
-        continue;
-      }
-      const int j1 = i1 + offs.o1[d];
-      const int j2 = i2 + offs.o2[d];
-      if (j1 < 0 || j1 >= n1 || j2 < 0 || j2 >= n2) {
-        continue;
-      }
-      const long long col = static_cast<long long>(j1) * n2 + j2;
-      float hv;
-      if (o0 < 0) {
-        if (lh == nullptr || i0 >= -o0) {
-          continue;
-        }
-        hv = lh[(h + o0 + i0) * plane + col];
-      } else {
-        if (rh == nullptr || i0 < m0 - o0) {
-          continue;
-        }
-        hv = rh[(i0 + o0 - m0) * plane + col];
-      }
-      acc = __fadd_rn(acc, __fmul_rn(W[d * n + p], hv));
-    }
-    y[p] = acc;
-  }
-}
 
 // acc[v] += w[v] * xr[j2 + v] for the points whose column j2 + v lies in
 // [0, n2); w points at V consecutive weights of one offset, read once.
@@ -175,6 +148,15 @@ __device__ __forceinline__ void add_terms(float (&acc)[V],
     if (j >= 0 && j < n2) {
       acc[v] = __fadd_rn(acc[v], __fmul_rn(wv[v], __ldg(xr + j)));
     }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* y, const float (&acc)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(y) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+    *y = acc[0];
   }
 }
 
@@ -214,9 +196,9 @@ __global__ void __launch_bounds__(kBlock)
                  i2 + offs.o2[d], n2);
   }
   // halo terms of the first and last h planes, read in the neighbors' slabs
-  if (i0 < h || i0 >= m0 - h) {
-    const float* __restrict__ lx = parts.left[part];
-    const float* __restrict__ rx = parts.right[part];
+  const float* __restrict__ lx = parts.left[part];
+  const float* __restrict__ rx = parts.right[part];
+  if ((lx != nullptr || rx != nullptr) && (i0 < h || i0 >= m0 - h)) {
     for (int d = 0; d < offs.count; ++d) {
       const int j0 = i0 + offs.o0[d];
       const int j1 = i1 + offs.o1[d];
@@ -235,65 +217,104 @@ __global__ void __launch_bounds__(kBlock)
                    i2 + offs.o2[d], n2);
     }
   }
-  float* y = parts.y[part] + static_cast<long long>(i0) * plane + q;
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(y) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  } else {
-    *y = acc[0];
+  store<V>(parts.y[part] + static_cast<long long>(i0) * plane + q, acc);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kBlock)
+    boundary_kernel(HaloBoundary parts, HaloTerms terms, int m0, int n1, int n2,
+                    int h) {
+  const int part = blockIdx.z;
+  const int k = blockIdx.y;
+  const int lo = parts.lo[part];
+  const int planes = lo + parts.hi[part];
+  if (k >= planes) {
+    return;
   }
+  const int i0 = k < lo ? k : m0 - planes + k;
+  const int plane = n1 * n2;
+  const int q = (static_cast<int>(blockIdx.x) * kBlock + threadIdx.x) * V;
+  if (q >= plane) {
+    return;
+  }
+  const int i1 = q / n2;
+  const int i2 = q - i1 * n2;
+  const long long n = static_cast<long long>(m0) * plane;
+  const long long at = static_cast<long long>(i0) * plane + q;
+  const float* __restrict__ w0 = parts.W[part] + at;
+  const float* __restrict__ lh = parts.left[part];
+  const float* __restrict__ rh = parts.right[part];
+  float* y = parts.y[part] + at;
+  float acc[V];
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(y);
+    acc[0] = t.x;
+    acc[1] = t.y;
+    acc[2] = t.z;
+    acc[3] = t.w;
+  } else {
+    acc[0] = *y;
+  }
+  for (int t = 0; t < terms.count; ++t) {
+    const int o0 = terms.o0[t];
+    const int j1 = i1 + terms.o1[t];
+    const float* src;
+    if (o0 < 0) {
+      if (lh == nullptr || i0 >= -o0) {
+        continue;
+      }
+      src = lh + static_cast<long long>(h + o0 + i0) * plane;
+    } else {
+      if (rh == nullptr || i0 < m0 - o0) {
+        continue;
+      }
+      src = rh + static_cast<long long>(i0 + o0 - m0) * plane;
+    }
+    if (j1 < 0 || j1 >= n1) {
+      continue;
+    }
+    add_terms<V>(acc, w0 + terms.d[t] * n, src + static_cast<long long>(j1) * n2,
+                 i2 + terms.o2[t], n2);
+  }
+  store<V>(y, acc);
 }
 
-unsigned blocks_for(long long work) {
-  long long blocks = (work + kBlock - 1) / kBlock;
-  return static_cast<unsigned>(blocks > kMaxBlocks ? kMaxBlocks : blocks);
+// The checks every entry shares: the plane's index math is 32-bit, the
+// grid's y extent holds the planes and its z extent the parts.
+bool bad_grid(int count, int m0, int n1, int n2, int h, int vec) {
+  return count < 0 || count > kMaxParts || m0 < 0 || m0 > 65535 || n1 <= 0 ||
+         n2 <= 0 || static_cast<long long>(n1) * n2 >= (1LL << 31) || h < 0 ||
+         (m0 > 0 && h >= m0) || (vec != 0 && n2 % 4 != 0);
 }
 
-bool bad_args(long long m0, int n1, int n2, const HaloOffsets& offs) {
-  return offs.count < 0 || offs.count > kMaxPoints || m0 < 0 || n1 <= 0 ||
-         n2 <= 0;
+dim3 grid_for(int count, int planes, int n1, int n2, int vec) {
+  const int per = vec != 0 ? 4 : 1;
+  const int groups = (n1 * n2 + per - 1) / per;
+  return dim3((groups + kBlock - 1) / kBlock, planes, count);
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes.  Each returns cudaGetLastError() after
-// the launch (0 on success); the launch is asynchronous on `stream`.
-extern "C" int halo_stencil_interior(const void* W, const void* x, void* y,
-                                     long long m0, int n1, int n2,
-                                     HaloOffsets offs, void* stream) {
-  if (bad_args(m0, n1, n2, offs)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long n = m0 * n1 * static_cast<long long>(n2);
-  if (n == 0) {
-    return static_cast<int>(cudaSuccess);
-  }
-  interior_kernel<<<blocks_for(n), kBlock, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(W), static_cast<const float*>(x),
-      static_cast<float*>(y), m0, n1, n2, offs);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// parts.count parts of m0 planes each on this card, in one launch; vec 1
+// the launch (0 on success); the launch is asynchronous on `stream`.  vec 1
 // takes four points a thread (the caller checks n2 % 4 == 0 and 16-byte
-// aligned W, x and y), vec 0 one.
+// aligned W and y pointers), vec 0 one.
+
+// parts.count parts of m0 planes each on this card in one launch: whole, or
+// (the exchange route's interior) a part with null neighbors on both sides
+// its interior terms only.
 extern "C" int halo_stencil_matvec(HaloParts parts, int m0, int n1, int n2,
                                    int h, HaloOffsets offs, int vec,
                                    void* stream) {
-  if (bad_args(m0, n1, n2, offs) || h < 0 || h >= m0 || parts.count < 0 ||
-      parts.count > kMaxParts || m0 > 65535 ||
-      static_cast<long long>(n1) * n2 >= (1LL << 31) ||
-      (vec != 0 && n2 % 4 != 0)) {
+  if (bad_grid(parts.count, m0, n1, n2, h, vec) || offs.count < 0 ||
+      offs.count > kMaxPoints) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int plane = n1 * n2;
   if (parts.count == 0 || m0 == 0) {
     return static_cast<int>(cudaSuccess);
   }
   const auto cs = static_cast<cudaStream_t>(stream);
-  const int per = vec != 0 ? 4 : 1;
-  const int groups = (plane + per - 1) / per;
-  const dim3 grid((groups + kBlock - 1) / kBlock, m0, parts.count);
+  const dim3 grid = grid_for(parts.count, m0, n1, n2, vec);
   if (vec != 0) {
     matvec_kernel<4><<<grid, kBlock, 0, cs>>>(parts, offs, m0, n1, n2, h);
   } else {
@@ -302,23 +323,33 @@ extern "C" int halo_stencil_matvec(HaloParts parts, int m0, int n1, int n2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// lh and rh are (h, n1, n2) halo planes or null (the zero halo).
-extern "C" int halo_stencil_boundary(const void* W, const void* lh,
-                                     const void* rh, void* y, long long m0,
-                                     int n1, int n2, int h, HaloOffsets offs,
+// The exchange route's second launch: every split part's halo terms added to
+// its y in place, from (h, n1, n2) landing buffers or null (the zero halo),
+// on the lo + hi planes of each part that they reach.
+extern "C" int halo_stencil_boundary(HaloBoundary parts, int m0, int n1,
+                                     int n2, int h, HaloTerms terms, int vec,
                                      void* stream) {
-  if (bad_args(m0, n1, n2, offs) || h < 0) {
+  if (bad_grid(parts.count, m0, n1, n2, h, vec) || terms.count < 0 ||
+      terms.count > kMaxPoints) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long nb = (2LL * h < m0) ? 2LL * h : m0;
-  const long long total = nb * n1 * static_cast<long long>(n2);
-  if (total == 0) {
+  int planes = 0;
+  for (int i = 0; i < parts.count; ++i) {
+    const int lo = parts.lo[i], hi = parts.hi[i];
+    if (lo < 0 || hi < 0 || lo + hi > m0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    planes = lo + hi > planes ? lo + hi : planes;
+  }
+  if (planes == 0) {
     return static_cast<int>(cudaSuccess);
   }
-  boundary_kernel<<<blocks_for(total), kBlock, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(W), static_cast<const float*>(lh),
-      static_cast<const float*>(rh), static_cast<float*>(y), m0, n1, n2, h,
-      offs);
+  const auto cs = static_cast<cudaStream_t>(stream);
+  const dim3 grid = grid_for(parts.count, planes, n1, n2, vec);
+  if (vec != 0) {
+    boundary_kernel<4><<<grid, kBlock, 0, cs>>>(parts, terms, m0, n1, n2, h);
+  } else {
+    boundary_kernel<1><<<grid, kBlock, 0, cs>>>(parts, terms, m0, n1, n2, h);
+  }
   return static_cast<int>(cudaGetLastError());
 }

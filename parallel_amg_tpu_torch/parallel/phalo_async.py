@@ -6,37 +6,50 @@ kernel enforces comm/compute overlap inside one Pallas call per chip:
 barrier, start remote DMAs of the h boundary planes, interior stencil, wait
 on the semaphores, boundary corrections.
 
-Where the parts lie picks the CUDA path, not a flag:
+Where the parts lie picks the CUDA path, not a flag.  A local part is
+*inner* when its neighbours on the grid lie in this process and on its own
+card (``inner_parts``), else *split*:
 
-- **All parts on one card in one process** (``make_row_mesh(S)`` with one
-  card): one launch of ``halo_stencil_matvec`` (``csrc/halo_stencil.cu``)
+- **Every part inner** (one process, one card: ``make_row_mesh(S)`` with
+  one card): one launch of ``halo_stencil_matvec`` (``csrc/halo_stencil.cu``)
   per matvec computes every part.  A part table passed by value holds each
   part's W, x and y and its neighbors' x slabs; the halo terms read the
   neighbor's boundary planes in place, so there are no copies, streams or
-  events.  The W pointers of the table are built once and kept on the
-  ShardedStencil; y is one buffer viewed per part.
-- **Parts on several cards or processes**: the exchange path
-  (``matvec_copy_streams``) keeps the JAX kernel's overlap:
+  events.
+- **Some part split** (parts on several cards or processes): the exchange
+  route (``matvec_copy_streams``) keeps the JAX kernel's overlap:
 
   1. ``exchange.start_halos`` starts the halo exchange: planes bound for
      another card are copied on its copy stream, and planes bound for
      another process are staged to the host on a side stream (gloo);
-  2. the compute stream launches the interior kernel
-     (``halo_stencil_interior``) of every part that has a halo to wait for;
+  2. ``stencil_interior``: one launch a card of ``halo_stencil_matvec``
+     over every local part on the card (counted as
+     ``halo_stencil_interior``): the inner parts whole, with their
+     neighbours' slabs, and the split parts with null on both sides, so
+     they get their interior terms only;
   3. the halos arrive (``wait``: the point-to-point messages between
-     processes, the copy streams' events) and each such part's boundary
-     kernel (``halo_stencil_boundary``) runs.
+     processes, the copy streams' events) and ``stencil_boundary`` adds
+     every split part's halo terms from its landing buffers in one
+     ``halo_stencil_boundary`` launch a card, on the planes they reach.
 
-  In a multi-process run the local parts whose neighbours all lie in the
-  same process and on one card take one ``halo_stencil_matvec`` launch
-  between steps 1 and 2, as on one card.  The parts at the grid's two ends
-  get the zero halo (a null pointer).
+  So a rank's route is two launches a matvec.  The parts at the grid's two
+  ends get the zero halo (a null pointer).
+
+The launch tables (``Route``: per card the part tables with their W
+pointers, the offsets and the halo terms, the offsets with o0 ≠ 0
+compacted in offset order) are built once and kept on the ShardedStencil;
+each matvec fills in the x, y and halo pointers, and each card's parts write
+one y buffer, viewed per part.  A card holds MAX_PARTS parts a launch.  The
+boundary launch reaches, per split part, the planes its halo terms land on:
+none on a side with no neighbour.
 
 Every sum is taken in a fixed order, so the result does not depend on timing,
 and both paths equal the "xla" path bit for bit.  On the CPU each part runs
 the kernels' plain version, the "xla" formulation of ``parallel/pstencil.py``
-(``interior_plain``, ``boundary_plain``); a CUDA part launches the kernels or
-raises.  ``LAUNCHES`` counts the launches of the three entry points.
+(``interior_plain``, then ``boundary_plain``: every part is split there); a
+CUDA part launches the kernels or raises.  ``LAUNCHES`` counts the launches
+of the one-launch matvec and the route's interior and boundary (launches,
+not parts).
 """
 
 from __future__ import annotations
@@ -70,6 +83,12 @@ class _Offsets(ctypes.Structure):
                 ("o2", ctypes.c_int * MAX_POINTS)]
 
 
+class _Terms(ctypes.Structure):
+    """``struct HaloTerms`` of csrc/halo_stencil.cu, passed by value."""
+    _fields_ = [("count", ctypes.c_int)] + [
+        (f, ctypes.c_int * MAX_POINTS) for f in ("d", "o0", "o1", "o2")]
+
+
 class _Parts(ctypes.Structure):
     """``struct HaloParts`` of csrc/halo_stencil.cu, passed by value."""
     _fields_ = [("count", ctypes.c_int)] + [
@@ -77,16 +96,19 @@ class _Parts(ctypes.Structure):
         for f in ("W", "x", "y", "left", "right")]
 
 
+class _Boundary(ctypes.Structure):
+    """``struct HaloBoundary`` of csrc/halo_stencil.cu, passed by value."""
+    _fields_ = [("count", ctypes.c_int)] + [
+        (f, ctypes.c_void_p * MAX_PARTS) for f in ("W", "y", "left", "right")] + [
+        (f, ctypes.c_int * MAX_PARTS) for f in ("lo", "hi")]
+
+
+_GRID = [ctypes.c_int] * 4  # m0, n1, n2, h
 _ARGTYPES = {
-    "halo_stencil_matvec": [_Parts, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_int, _Offsets, ctypes.c_int,
+    "halo_stencil_matvec": [_Parts, *_GRID, _Offsets, ctypes.c_int,
                             ctypes.c_void_p],
-    "halo_stencil_interior": [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _Offsets,
-        ctypes.c_void_p],
-    "halo_stencil_boundary": [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _Offsets,
-        ctypes.c_void_p],
+    "halo_stencil_boundary": [_Boundary, *_GRID, _Terms, ctypes.c_int,
+                              ctypes.c_void_p],
 }
 
 
@@ -110,6 +132,12 @@ def grid3(rest, offsets):
     return (int(n1), int(n2)), offs3
 
 
+def halo_terms(offs3):
+    """The boundary launch's terms: the offsets with o₀ ≠ 0, in offset
+    order, each as (d, o₀, o₁, o₂) with d the plane of W it reads."""
+    return tuple((d,) + tuple(o) for d, o in enumerate(offs3) if o[0] != 0)
+
+
 @functools.lru_cache(maxsize=256)
 def _offsets_struct(offs3) -> _Offsets:
     if len(offs3) > MAX_POINTS:
@@ -121,199 +149,307 @@ def _offsets_struct(offs3) -> _Offsets:
     return s
 
 
-def _launch(symbol: str, device, *args) -> None:
+@functools.lru_cache(maxsize=256)
+def _terms_struct(offs3) -> _Terms:
+    terms = halo_terms(offs3)
+    if len(terms) > MAX_POINTS:
+        raise ValueError(f"{len(terms)} halo terms exceed the kernel's {MAX_POINTS}")
+    s = _Terms()
+    s.count = len(terms)
+    for i, (d, a, b, c) in enumerate(terms):
+        s.d[i], s.o0[i], s.o1[i], s.o2[i] = d, a, b, c
+    return s
+
+
+def _launch(symbol: str, key: str, device, *args) -> None:
+    """One launch of the C entry ``symbol``, counted under ``key``."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel(symbol)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
-    LAUNCHES[symbol] += 1
+        raise RuntimeError(f"{key} launch failed: cudaError {err}")
+    LAUNCHES[key] += 1
 
 
-def _check_weights(W, slab, offsets, device):
-    """W as kernel B8 takes it for a slab of shape ``slab`` on ``device``."""
+def _check_weights(W, slab, offsets):
+    """W as kernel B8 takes it for a slab of shape ``slab``."""
     if W.dtype != torch.float32:
         raise TypeError(f"kernel B8 takes float32 weights, got {W.dtype}")
     if tuple(W.shape) != (len(offsets),) + tuple(slab):
         raise ValueError(f"weights {tuple(W.shape)} do not match the slab "
                          f"{tuple(slab)} and {len(offsets)} offsets")
-    if W.device != device or W.device.type != "cuda":
-        raise ValueError(f"weights on {W.device} and slab on {device}: "
-                         "kernel B8 needs both on one CUDA device")
     if not W.is_contiguous():
         raise ValueError("weights must be contiguous")
 
 
-def _check_part(W, xl, offsets):
-    if xl.dtype != torch.float32:
-        raise TypeError(f"kernel B8 takes float32, got {xl.dtype}")
-    _check_weights(W, xl.shape, offsets, xl.device)
-    if not xl.is_contiguous():
-        raise ValueError("the slab must be contiguous")
+def _check_slab(t, shape, device, what: str) -> int:
+    """The pointer of ``t``, a contiguous float32 ``shape`` tensor on
+    ``device`` (the card of its part's weights)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"kernel B8 takes float32, got {t.dtype} for {what}")
+    if tuple(t.shape) != tuple(shape) or t.device != device or not t.is_contiguous():
+        raise ValueError(f"kernel B8 takes a contiguous float32 {tuple(shape)} "
+                         f"{what} on {device}, got {tuple(t.shape)} on {t.device}")
+    return t.data_ptr()
 
 
-def stencil_interior(W, xl, offsets, h: int):
-    """Interior contribution of one part (zero halo): plain on the CPU,
-    ``halo_stencil_interior`` on a CUDA tensor."""
-    if xl.device.type == "cpu":
-        return interior_plain(W, xl, offsets, h)
-    _check_part(W, xl, offsets)
-    (n1, n2), offs3 = grid3(xl.shape[1:], offsets)
-    y = torch.empty_like(xl)
-    _launch("halo_stencil_interior", xl.device, W.data_ptr(), xl.data_ptr(),
-            y.data_ptr(), xl.shape[0], n1, n2, _offsets_struct(offs3))
-    return y
+def inner_parts(A: ShardedStencil):
+    """Positions of the local parts whose neighbours on the grid lie in this
+    process and on the part's own card: the parts that one launch computes
+    whole."""
+    local, S = list(A.mesh.local), A.mesh.size
+    devices = [W.device for W in A.weights]
+
+    def inner(i):
+        for q in (local[i] - 1, local[i] + 1):
+            j = q - local[0]
+            if 0 <= q < S and not (0 <= j < len(local) and devices[j] == devices[i]):
+                return False
+        return True
+
+    return tuple(i for i in range(len(local)) if inner(i))
 
 
-def stencil_boundary(y, W, left, right, offsets, h: int):
-    """Add one part's boundary corrections to y in place (halos None at the
-    grid's ends): plain on the CPU, ``halo_stencil_boundary`` on CUDA."""
-    if y.device.type == "cpu":
-        return boundary_plain(y, W, left, right, offsets, h)
-    _check_part(W, y, offsets)
-    halo_shape = (h,) + tuple(y.shape[1:])
-    for halo in (left, right):
-        if halo is not None and (tuple(halo.shape) != halo_shape
-                                 or halo.dtype != torch.float32
-                                 or halo.device != y.device
-                                 or not halo.is_contiguous()):
-            raise ValueError(f"a halo must be a contiguous float32 {halo_shape} "
-                             f"tensor on {y.device}")
-    (n1, n2), offs3 = grid3(y.shape[1:], offsets)
-    _launch("halo_stencil_boundary", y.device, W.data_ptr(),
-            None if left is None else left.data_ptr(),
-            None if right is None else right.data_ptr(), y.data_ptr(),
-            y.shape[0], n1, n2, h, _offsets_struct(offs3))
-    return y
+def route_plan(local, size: int, devices, inner):
+    """The launches of a process's parts, per card in order of first
+    appearance: (device, interior, split).  ``interior`` lists every local
+    part on the card as (position, left, right), the positions of the
+    neighbours whose slabs its interior launch reads in place: an inner
+    part's neighbours (None at the grid's ends), None on both sides of a
+    split part.  ``split`` lists the positions the boundary launch takes."""
+    local, inner = list(local), set(inner)
+    cards = {}
+    for i, p in enumerate(local):
+        interior, split = cards.setdefault(devices[i], ([], []))
+        if i not in inner:
+            interior.append((i, None, None))
+            split.append(i)
+            continue
+        sides = []
+        for q in (p - 1, p + 1):
+            j = q - local[0]
+            if not 0 <= q < size:
+                sides.append(None)
+            elif 0 <= j < len(local) and devices[j] == devices[i]:
+                sides.append(j)
+            else:
+                raise ValueError(f"part {p} is not inner: its neighbour {q} is "
+                                 "not on its card in this process")
+        interior.append((i, *sides))
+    return [(dev, tuple(a), tuple(b)) for dev, (a, b) in cards.items()]
 
 
-def matvec_copy_streams(A: ShardedStencil, x: PGrid, one_launch=()) -> PGrid:
-    """The exchange path, steps 1–3 of the module docstring: two launches
-    per part, the halo exchange between them.  The local parts at the
-    positions ``one_launch`` (neighbours all local, on one card) take one
-    ``halo_stencil_matvec`` launch instead.  It runs on one card too (the
-    halos are then views of the neighbours' slabs)."""
-    h, offsets, parts = A.halo, A.offsets, x.parts
-    pending = exchange.start_halos(parts, h)
-    ys = [None] * len(parts)
-    if one_launch:
-        for i, y in zip(one_launch, one_launch_parts(A, x, one_launch)):
-            ys[i] = y
-    split = [i for i in range(len(parts)) if ys[i] is None]
-    for i in split:
-        ys[i] = stencil_interior(A.weights[i], parts[i], offsets, h)
-    halos = pending.wait()
-    for i in split:
-        stencil_boundary(ys[i], A.weights[i], *halos[i], offsets, h)
-    return PGrid(ys, A.mesh)
-
-
-class _LaunchTable:
-    """What a one-card launch of A's local parts at the positions ``which``
-    needs that does not change between matvecs: the part tables (one per
-    group of MAX_PARTS parts) with their W pointers, the offsets, the (n1,
-    n2) plane and whether W allows the four-points-a-thread route.  Built
-    once and kept on A."""
-
-    def __init__(self, A: ShardedStencil, which):
-        self.which = tuple(which)
-        weights = [A.weights[i] for i in self.which]
-        self.device = weights[0].device
-        (self.n1, self.n2), offs3 = grid3(A.dims[1:], A.offsets)
-        self.offsets = _offsets_struct(offs3)
-        self.slab = (A.m0,) + tuple(A.dims[1:])
-        for W in weights:
-            _check_weights(W, self.slab, A.offsets, self.device)
-        self.tables = part_tables(weights)
-        self.vec = self.n2 % 4 == 0 and all(W.data_ptr() % 16 == 0
-                                            for W in weights)
-
-
-def part_tables(weights):
-    """[(first part, part table)] for groups of MAX_PARTS parts, with the
-    parts' W pointers filled."""
+def part_tables(struct, weights):
+    """[(first part, table)] of ``struct`` (``_Parts`` or ``_Boundary``)
+    for groups of MAX_PARTS parts, with the parts' W pointers filled."""
     tables = []
     for c0 in range(0, len(weights), MAX_PARTS):
-        t = _Parts()
+        t = struct()
         t.count = min(MAX_PARTS, len(weights) - c0)
         t.W[:t.count] = [W.data_ptr() for W in weights[c0:c0 + t.count]]
         tables.append((c0, t))
     return tables
 
 
-def fill_tables(tables, xs, y_ptr: int, step: int, lefts=None, rights=None):
-    """Fill the x, y and neighbor pointers of the part ``tables`` for the
-    slabs ``xs`` and the parts' y at ``y_ptr + p·step``: by default the
-    left neighbor of part p is part p − 1's slab, the right one part
-    p + 1's, null at the grid's ends; ``lefts`` and ``rights`` give them per
-    part instead.  Returns the slabs' pointers."""
-    ptrs = [xl.data_ptr() for xl in xs]
-    if lefts is None:
-        lefts = [None] + ptrs[:-1]
-        rights = ptrs[1:] + [None]
-    for c0, t in tables:
-        k = t.count
-        t.x[:k] = ptrs[c0:c0 + k]
-        t.y[:k] = [y_ptr + p * step for p in range(c0, c0 + k)]
-        t.left[:k] = lefts[c0:c0 + k]
-        t.right[:k] = rights[c0:c0 + k]
-    return ptrs
+class _Card:
+    """One card's launches: ``interior`` and ``split`` as ``route_plan``
+    gives them, their part tables with the W pointers, and whether W
+    allows four points a thread."""
+
+    def __init__(self, device, interior, split, weights, n2: int):
+        self.device, self.interior, self.split = device, interior, split
+        self.positions = [i for i, _, _ in interior]
+        self.interior_tables = part_tables(_Parts, [weights[i] for i in self.positions])
+        self.boundary_tables = part_tables(_Boundary, [weights[i] for i in split])
+        self.vec = n2 % 4 == 0 and all(weights[i].data_ptr() % 16 == 0
+                                       for i in self.positions)
+
+
+class Route:
+    """What B8's launches for A's local parts need that does not change
+    between matvecs, for the inner parts at the positions ``inner``: the
+    offsets, the compacted halo terms, how many planes the halo terms reach
+    from each side (``reach``: left, right), the (n1, n2) plane and per card
+    (``_Card``) the part tables with their W pointers.  Built once and kept
+    on A (``A.launch_table``): do not swap a part's weight tensor after
+    that."""
+
+    def __init__(self, A: ShardedStencil, inner):
+        self.inner = tuple(inner)
+        (self.n1, self.n2), offs3 = grid3(A.dims[1:], A.offsets)
+        self.offsets = _offsets_struct(offs3)
+        self.terms = _terms_struct(offs3)
+        o0 = [o[0] for o in offs3]
+        self.reach = (max([-o for o in o0 if o < 0], default=0),
+                      max([o for o in o0 if o > 0], default=0))
+        self.m0, self.h = A.m0, A.halo
+        self.slab = (A.m0,) + tuple(A.dims[1:])
+        for W in A.weights:
+            _check_weights(W, self.slab, A.offsets)
+        self.n_parts = len(A.weights)
+        self.cards = [_Card(dev, interior, split, A.weights, self.n2)
+                      for dev, interior, split in route_plan(
+                          A.mesh.local, A.mesh.size,
+                          [W.device for W in A.weights], self.inner)]
+
+    @property
+    def step(self) -> int:
+        """Bytes between two parts' y in a card's buffer."""
+        return 4 * self.m0 * self.n1 * self.n2
+
+
+def route(A: ShardedStencil, inner) -> Route:
+    """A's launch tables for the inner parts ``inner``, built at the first
+    call and kept on A while ``inner`` stays the same."""
+    r = A.launch_table
+    if r is None or r.inner != tuple(inner):
+        r = A.launch_table = Route(A, inner)
+    return r
+
+
+def interior_route(A: ShardedStencil, inner) -> Route:
+    """The launch tables of A's last interior launch, which must have been
+    for the inner parts ``inner``: a boundary launch for other inner parts
+    would add an inner part's halo terms twice or leave a split part's
+    out."""
+    r = A.launch_table
+    if r is None or r.inner != tuple(inner):
+        raise ValueError(f"a boundary launch for the inner parts {tuple(inner)} "
+                         "after an interior launch for "
+                         f"{'none' if r is None else r.inner}")
+    return r
+
+
+def fill_interior(card: _Card, ptrs, y_ptr: int, step: int) -> None:
+    """The x, y and neighbour pointers of a card's interior tables: ``ptrs``
+    maps a position to its x slab's pointer, part k of the card writes
+    ``y_ptr + k·step``."""
+    for c0, t in card.interior_tables:
+        rows = card.interior[c0:c0 + t.count]
+        t.x[:t.count] = [ptrs[i] for i, _, _ in rows]
+        t.y[:t.count] = [y_ptr + k * step for k in range(c0, c0 + t.count)]
+        t.left[:t.count] = [None if l is None else ptrs[l] for _, l, _ in rows]
+        t.right[:t.count] = [None if r is None else ptrs[r] for _, _, r in rows]
+
+
+def boundary_planes(left, right, reach, m0: int):
+    """(lo, hi): the planes at a slab's start and end that a split part's
+    halo terms reach, none on a side with no landing buffer (None), the
+    whole slab as (m0, 0) where the two sides overlap."""
+    lo = reach[0] if left is not None else 0
+    hi = reach[1] if right is not None else 0
+    return (m0, 0) if lo + hi > m0 else (lo, hi)
+
+
+def fill_boundary(card: _Card, y_ptrs, lefts, rights, reach, m0: int) -> None:
+    """The y and landing-buffer pointers of a card's boundary tables, one
+    of each per split part in ``card.split`` order (None: the zero halo),
+    and each part's planes (``boundary_planes``)."""
+    for c0, t in card.boundary_tables:
+        for k in range(t.count):
+            left, right = lefts[c0 + k], rights[c0 + k]
+            t.y[k], t.left[k], t.right[k] = y_ptrs[c0 + k], left, right
+            t.lo[k], t.hi[k] = boundary_planes(left, right, reach, m0)
+
+
+def _interior(r: Route, xs, key: str):
+    """y of every local part: one ``halo_stencil_matvec`` launch a card (and
+    MAX_PARTS parts), counted under ``key``, the inner parts whole, the
+    split ones their interior terms."""
+    if len(xs) != r.n_parts:
+        raise ValueError(f"{len(xs)} slabs for {r.n_parts} parts")
+    m0, step = r.m0, r.step
+    ys = [None] * len(xs)
+    for card in r.cards:
+        ptrs = {i: _check_slab(xs[i], r.slab, card.device, "slab")
+                for i in card.positions}
+        y = torch.empty((len(card.positions) * m0,) + r.slab[1:], device=card.device)
+        fill_interior(card, ptrs, y.data_ptr(), step)
+        vec = int(card.vec and y.data_ptr() % 16 == 0)
+        for _, t in card.interior_tables:
+            _launch("halo_stencil_matvec", key, card.device, t, m0, r.n1, r.n2, r.h,
+                    r.offsets, vec)
+        for i, yi in zip(card.positions, y.split(m0)):
+            ys[i] = yi
+    return ys
+
+
+def _boundary(r: Route, ys, halos) -> None:
+    """Add every split part's halo terms to its y in place: one
+    ``halo_stencil_boundary`` launch a card (and MAX_PARTS parts)."""
+    halo_shape = (r.h,) + r.slab[1:]
+
+    def landing(t, dev):
+        return None if t is None else _check_slab(t, halo_shape, dev, "halo")
+
+    for card in r.cards:
+        if not card.split:
+            continue
+        y_ptrs = [_check_slab(ys[i], r.slab, card.device, "y") for i in card.split]
+        fill_boundary(card, y_ptrs, [landing(halos[i][0], card.device) for i in card.split],
+                      [landing(halos[i][1], card.device) for i in card.split],
+                      r.reach, r.m0)
+        vec = int(card.vec and all(p % 16 == 0 for p in y_ptrs))
+        for _, t in card.boundary_tables:
+            _launch("halo_stencil_boundary", "halo_stencil_boundary", card.device, t,
+                    r.m0, r.n1, r.n2, r.h, r.terms, vec)
+
+
+def _on_cpu(tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def stencil_interior(A: ShardedStencil, x: PGrid, inner=()):
+    """Every local part's y before its halo terms, as a list: plain on the
+    CPU (each part's ``interior_plain``, zero halo); on CUDA one interior
+    launch a card, in which the parts at the positions ``inner`` come out
+    whole and the others with their interior terms.  A card's parts' y are
+    views of one buffer."""
+    if _on_cpu(x.parts):
+        return [interior_plain(W, xl, A.offsets, A.halo)
+                for W, xl in zip(A.weights, x.parts)]
+    return _interior(route(A, inner), x.parts, "halo_stencil_interior")
+
+
+def stencil_boundary(A: ShardedStencil, ys, halos, inner=()):
+    """Add the halo terms to ``ys`` in place (``halos``: per part (left,
+    right), None at the grid's ends), after ``stencil_interior``: plain on
+    the CPU (``boundary_plain`` for every part); on CUDA one
+    ``halo_stencil_boundary`` launch a card for the parts not in
+    ``inner``, which must be the ``inner`` of the ``stencil_interior`` call
+    that made ``ys`` (it raises otherwise: an inner part would get its halo
+    terms twice)."""
+    if _on_cpu(ys):
+        for y, W, (left, right) in zip(ys, A.weights, halos):
+            boundary_plain(y, W, left, right, A.offsets, A.halo)
+        return ys
+    _boundary(interior_route(A, inner), ys, halos)
+    return ys
+
+
+def matvec_copy_streams(A: ShardedStencil, x: PGrid, inner=()) -> PGrid:
+    """The exchange route, steps 1–3 of the module docstring: the halo
+    exchange started, one interior launch a card, the halos waited for,
+    one boundary launch a card.  The local parts at the positions ``inner``
+    (neighbours on their card in this process) come out of the interior
+    launch whole.  It runs on one card too (the halos are then views of the
+    neighbours' slabs)."""
+    pending = exchange.start_halos(x.parts, A.halo)
+    ys = stencil_interior(A, x, inner)
+    stencil_boundary(A, ys, pending.wait(), inner)
+    return PGrid(ys, A.mesh)
 
 
 def matvec_one_card(A: ShardedStencil, x: PGrid) -> PGrid:
-    """Every part of A on one card, one ``halo_stencil_matvec`` launch per
-    MAX_PARTS parts (one for every mesh up to 16 parts)."""
-    return PGrid(one_launch_parts(A, x, range(len(x.parts))), A.mesh)
-
-
-def one_launch_parts(A: ShardedStencil, x: PGrid, which):
-    """y of A's local parts at the positions ``which``, on one card with
-    their neighbours: one ``halo_stencil_matvec`` launch per MAX_PARTS of
-    them.  Returns their y, in the order of ``which``."""
-    which = tuple(which)
-    lt = A.launch_table
-    if lt is None or lt.which != which:
-        lt = A.launch_table = _LaunchTable(A, which)
-    dev, slab = lt.device, lt.slab
-    if len(x.parts) != len(A.weights):
-        raise ValueError(f"{len(x.parts)} slabs for {len(A.weights)} parts")
-    for xl in x.parts:
-        if (xl.dtype != torch.float32 or xl.device != dev
-                or xl.shape != slab or not xl.is_contiguous()):
-            raise ValueError(f"kernel B8 takes contiguous float32 {slab} slabs "
-                             f"on {dev}, got {xl.dtype} {tuple(xl.shape)} on "
-                             f"{xl.device}")
-    m0 = slab[0]
-    y = torch.empty((len(which) * m0,) + slab[1:], device=dev)
-    step = 4 * m0 * lt.n1 * lt.n2
-    local, S = list(A.mesh.local), A.mesh.size
-
-    def neighbour(i, d):
-        return None if not 0 <= local[i] + d < S else x.parts[i + d].data_ptr()
-
-    ptrs = fill_tables(lt.tables, [x.parts[i] for i in which], y.data_ptr(),
-                       step, [neighbour(i, -1) for i in which],
-                       [neighbour(i, 1) for i in which])
-    vec = int(lt.vec and all(p % 16 == 0 for p in ptrs)
-              and all(x.parts[i].data_ptr() % 16 == 0 for i in range(len(x.parts))))
-    for _, t in lt.tables:
-        _launch("halo_stencil_matvec", dev, t, m0, lt.n1, lt.n2, A.halo,
-                lt.offsets, vec)
-    return list(y.split(m0))
-
-
-def _inner_parts(A: ShardedStencil):
-    """Positions of the local parts whose neighbours are local too."""
-    local, S = list(A.mesh.local), A.mesh.size
-    return tuple(i for i, p in enumerate(local)
-                 if all(q in A.mesh.local or not 0 <= q < S
-                        for q in (p - 1, p + 1)))
+    """Every part of A on one card, whole: one ``halo_stencil_matvec``
+    launch per MAX_PARTS parts (one for every mesh up to 16 parts)."""
+    r = route(A, range(len(A.weights)))
+    return PGrid(_interior(r, x.parts, "halo_stencil_matvec"), A.mesh)
 
 
 def async_halo_matvec(A: ShardedStencil, x: PGrid) -> PGrid:
-    """y = A @ x by kernel B8: one launch for the parts on one card in one
-    process, the exchange path where parts lie on several cards or
-    processes (with one launch for the parts whose neighbours are local).
+    """y = A @ x by kernel B8: one launch where every local part is inner
+    (one process, one card), else the exchange route.
 
     The JAX package's rule stays: with no halo, one part, or a slab no
     thicker than the halo (m0 ≤ h: no interior to overlap with) the matvec
@@ -328,8 +464,7 @@ def async_halo_matvec(A: ShardedStencil, x: PGrid) -> PGrid:
         return matvec_copy_streams(A, x)
     if kinds != {"cuda"}:
         raise ValueError(f"async_halo_matvec runs on cpu or cuda parts, not {kinds}")
-    if len({W.device for W in A.weights}) > 1:
-        return matvec_copy_streams(A, x)
-    if A.mesh.world == 1:
+    inner = inner_parts(A)
+    if len(inner) == len(A.weights):
         return matvec_one_card(A, x)
-    return matvec_copy_streams(A, x, _inner_parts(A))
+    return matvec_copy_streams(A, x, inner)

@@ -17,8 +17,8 @@ O(h·surface) boundary-row corrections read the halo planes.
 ``boundary_plain``, shared with kernel B8's CPU path);
 ``halo_mode="pallas_async"`` runs kernel B8 (``parallel/phalo_async.py``):
 one launch for every part on one card, reading the halo planes in place, or
-the halo exchange overlapped with the interior kernels where parts lie on
-several cards or processes.  The mode names are the JAX package's, so
+the halo exchange overlapped with one interior launch a card where parts lie
+on several cards or processes.  The mode names are the JAX package's, so
 configs carry over.
 
 Transfers stay part-local: the grid is padded so every part owns whole
@@ -112,8 +112,8 @@ class ShardedStencil:
             raise ValueError(f"halo_mode must be one of {HALO_MODES}, got "
                              f"{halo_mode!r}")
         self.halo_mode = halo_mode
-        # kernel B8's one-card part table, built at its first launch
-        # (parallel/phalo_async.py)
+        # kernel B8's launch tables (parallel/phalo_async.py: Route), built
+        # at its first launch
         self.launch_table = None
         if len(self.weights) != mesh.n_local or self.dims[0] % mesh.size:
             raise ValueError(f"{len(self.weights)} weight parts and dims "

@@ -9,7 +9,8 @@ matvecs (float32 products summed in the same order; XLA may fuse a multiply
 and an add); within the port, B8's plain path and the "xla" path take the
 same sums and must be equal bit for bit.  The CUDA cases hold kernel B8
 against its plain version on the card: the one-launch path for parts on one
-card and the several-card copy-stream path, both bit-equal (all take unfused
+card and the exchange route of parts on several cards or processes (one
+interior and one boundary launch a card), both bit-equal (all take unfused
 float32 products and sums in offset order), bit-equal over 20 calls, one
 launch per matvec on one card and none where m0 ≤ h.
 """
@@ -35,9 +36,13 @@ except ImportError:  # a machine without JAX runs the cuda cases only
 import parallel_amg_tpu_torch as ptt
 from parallel_amg_tpu_torch.parallel import launch
 from parallel_amg_tpu_torch.parallel import mesh as pmesh
-from parallel_amg_tpu_torch.parallel import phalo_async, pgrid
+from parallel_amg_tpu_torch.parallel import exchange, phalo_async, pgrid
 from parallel_amg_tpu_torch.parallel.pgrid import PGrid
-from parallel_amg_tpu_torch.parallel.pstencil import ShardedStencil
+from parallel_amg_tpu_torch.parallel.pstencil import (
+    ShardedStencil,
+    boundary_plain,
+    interior_plain,
+)
 from parallel_amg_tpu_torch.problems import poisson_stencil
 
 import torch_ranks
@@ -45,6 +50,21 @@ import torch_ranks
 torch.set_num_threads(2)
 
 M_RTOL, M_ATOL = 1e-5, 1e-6
+
+# (dims, S, reach 2) of kernel B8's cases, on the CPU and on the card
+B8_SHAPES = [
+    ((20, 17, 13), 4, False),
+    ((40, 24), 4, True),
+    ((30, 11, 9), 3, True),
+    ((20, 17, 13), 2, False),   # 3-D, reach 1
+    ((8, 9, 12), 4, False),     # m0 2 = h + 1, four points a thread
+    ((40, 12, 16), 8, False),
+    ((10, 7), 2, False),        # 2-D, reach 1, one point a thread
+    ((12, 24), 4, True),        # 2-D, m0 3 = h + 1 < 2h: both halos per plane
+    ((80, 24), 8, True),
+    ((30, 11, 9), 2, True),     # 3-D, reach 2
+    ((24, 8, 8), 8, True),      # m0 3 < 2h
+]
 
 
 def _stencil_arrays(dims, seed, reach2=False):
@@ -76,6 +96,10 @@ def _jx(jA, x):
 
 def _px(A, x):
     return PGrid.from_global(torch.from_numpy(x), A.mesh)
+
+
+def _bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("dims,reach2", [((20, 20, 20), False), ((24, 24), True)],
@@ -114,9 +138,10 @@ def test_b8_plain_path_equals_xla_and_branch_rule(monkeypatch, dims, S, reach2,
     calls = []
     real = phalo_async.stencil_interior
     monkeypatch.setattr(phalo_async, "stencil_interior",
-                        lambda *a: calls.append(1) or real(*a))
+                        lambda A_, x_, *a: calls.append(len(x_.parts)) or real(A_, x_, *a))
     y = A.with_halo_mode("pallas_async").matvec(x)
-    assert bool(calls) == kernel_path
+    # the route's interior entry: one call over every part, or none
+    assert calls == ([S] if kernel_path else [])
     ref = A.matvec(x)
     for a, b in zip(y.parts, ref.parts):
         assert torch.equal(a, b)
@@ -125,6 +150,31 @@ def test_b8_plain_path_equals_xla_and_branch_rule(monkeypatch, dims, S, reach2,
     xt = x.to_global()[:dims[0]]
     np.testing.assert_allclose(y.to_global()[:dims[0]].numpy(),
                                st.matvec(xt).numpy(), rtol=M_RTOL, atol=M_ATOL)
+
+
+@pytest.mark.parametrize("dims,S,reach2", B8_SHAPES)
+def test_b8_route_entries_equal_plain_parts_and_xla(dims, S, reach2):
+    """The exchange route's two multi-part entries on the CPU, at the card
+    cases' shapes: bit for bit each part's plain interior then its plain
+    boundary, and the "xla" path, through the entries and through
+    ``matvec_copy_streams``."""
+    W, offsets = _stencil_arrays(dims, 16, reach2)
+    A = ShardedStencil.from_stencil(ptt.Stencil(torch.from_numpy(W), offsets, dims),
+                                    ptt.make_row_mesh(S, device="cpu"))
+    x = _px(A, np.random.default_rng(17).standard_normal(A.dims).astype(np.float32))
+    h = A.halo
+    assert A.m0 > h
+    halos = exchange.halos(x.parts, h)
+    ys = phalo_async.stencil_interior(A, x)
+    assert len(ys) == S
+    assert phalo_async.stencil_boundary(A, ys, halos) is ys
+    xla = A.matvec(x)
+    for i, (Wi, xi) in enumerate(zip(A.weights, x.parts)):
+        want = boundary_plain(interior_plain(Wi, xi, A.offsets, h), Wi, *halos[i],
+                              A.offsets, h)
+        assert _bits(ys[i], want) and _bits(ys[i], xla.parts[i])
+    route = phalo_async.matvec_copy_streams(A, x)
+    assert all(_bits(a, b) for a, b in zip(route.parts, xla.parts))
 
 
 def test_sharded_stencil_from_stencil_pads_identity():
@@ -205,20 +255,24 @@ def test_part_tables_link_neighbors(S):
     """The one-card launch's part tables: W, x and y of each part, its left
     neighbor part p − 1's slab and its right one part p + 1's, null at the
     grid's two ends, across groups of MAX_PARTS parts."""
-    Ws = [torch.zeros(3, 2, 4) for _ in range(S)]
+    A = ShardedStencil([torch.zeros(3, 2, 4) for _ in range(S)],
+                       ((-1, 0), (0, 0), (1, 0)), (2 * S, 4),
+                       ptt.make_row_mesh(S, device="cpu"))
     xs = [torch.zeros(2, 4) for _ in range(S)]
-    tables = phalo_async.part_tables(Ws)
-    assert [c0 for c0, _ in tables] == list(range(0, S, phalo_async.MAX_PARTS))
-    ptrs = phalo_async.fill_tables(tables, xs, 4096, 32)
-    assert ptrs == [x.data_ptr() for x in xs]
-    for c0, t in tables:
+    assert phalo_async.inner_parts(A) == tuple(range(S))
+    (card,) = phalo_async.route(A, range(S)).cards
+    assert card.split == () and card.boundary_tables == []
+    ptrs = {p: x.data_ptr() for p, x in enumerate(xs)}
+    phalo_async.fill_interior(card, ptrs, 4096, 32)
+    assert [c0 for c0, _ in card.interior_tables] == list(range(0, S, phalo_async.MAX_PARTS))
+    for c0, t in card.interior_tables:
         for i in range(t.count):
             p = c0 + i
-            assert t.W[i] == Ws[p].data_ptr() and t.x[i] == ptrs[p]
+            assert t.W[i] == A.weights[p].data_ptr() and t.x[i] == ptrs[p]
             assert t.y[i] == 4096 + 32 * p
             assert t.left[i] == (ptrs[p - 1] if p > 0 else None)
             assert t.right[i] == (ptrs[p + 1] if p < S - 1 else None)
-    assert sum(t.count for _, t in tables) == S
+    assert sum(t.count for _, t in card.interior_tables) == S
 
 
 # -- kernel B8 on the card ----------------------------------------------------
@@ -244,19 +298,7 @@ def _launches_since(before):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims,S,reach2", [
-    ((20, 17, 13), 4, False),
-    ((40, 24), 4, True),
-    ((30, 11, 9), 3, True),
-    ((20, 17, 13), 2, False),   # 3-D, reach 1
-    ((8, 9, 12), 4, False),     # m0 2 = h + 1, four points a thread
-    ((40, 12, 16), 8, False),
-    ((10, 7), 2, False),        # 2-D, reach 1, one point a thread
-    ((12, 24), 4, True),        # 2-D, m0 3 = h + 1 < 2h: both halos per plane
-    ((80, 24), 8, True),
-    ((30, 11, 9), 2, True),     # 3-D, reach 2
-    ((24, 8, 8), 8, True),      # m0 3 < 2h
-])
+@pytest.mark.parametrize("dims,S,reach2", B8_SHAPES)
 def test_halo_stencil_cuda_matches_plain(dims, S, reach2):
     _cuda()
     A, x = _cuda_case(dims, S, reach2)
@@ -274,13 +316,14 @@ def test_halo_stencil_cuda_matches_plain(dims, S, reach2):
     for _ in range(20):
         again = A_k.matvec(x)
         assert all(torch.equal(a, b) for a, b in zip(again.parts, y.parts))
-    # the several-card path, run on one card, takes the same sums
+    # the exchange route, run on one card, takes the same sums: one
+    # interior and one boundary launch for every part
     before = dict(phalo_async.LAUNCHES)
     copies = phalo_async.matvec_copy_streams(A, x)
     torch.cuda.synchronize()
     assert _launches_since(before) == {"halo_stencil_matvec": 0,
-                                       "halo_stencil_interior": S,
-                                       "halo_stencil_boundary": S}
+                                       "halo_stencil_interior": 1,
+                                       "halo_stencil_boundary": 1}
     for a, b in zip(copies.parts, ref.parts):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
@@ -301,7 +344,10 @@ def test_halo_stencil_cuda_no_launch_when_m0_le_h():
 @pytest.mark.cuda
 def test_halo_stencil_cuda_rejects_float64():
     dev = _cuda()
-    W = torch.ones((3, 4, 5), dtype=torch.float64, device=dev)
+    mesh = ptt.make_row_mesh(2)
+    A = ShardedStencil([torch.ones((3, 4, 5), dtype=torch.float64, device=dev)
+                        for _ in range(2)], ((-1, 0), (0, 0), (1, 0)), (8, 5), mesh)
+    x = PGrid([torch.ones((4, 5), dtype=torch.float64, device=dev)
+               for _ in range(2)], mesh)
     with pytest.raises(TypeError):
-        phalo_async.stencil_interior(W, torch.ones((4, 5), dtype=torch.float64,
-                                                   device=dev), ((-1, 0), (0, 0), (1, 0)), 1)
+        phalo_async.stencil_interior(A, x)
