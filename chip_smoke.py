@@ -17,8 +17,17 @@
    kernel, plain, bound and library-CSR times, and y bit-equal over 20
    calls.
 5. setup3d: acceptance config #3 at its full size (3D Poisson 128³,
-   block SA b=3, Chebyshev, n_coarse_max=512) set up on the card; every
-   level's λ_max held equal to the same power iteration on the CPU.
+   block SA b=3, Chebyshev, n_coarse_max=512) set up on the card, with its
+   ``ordered_fma`` launches; every level's λ_max held equal to the same
+   power iteration on the CPU.  Then galerkin_order: the dense, bucketed
+   and slab (4 slabs) Galerkin products of random 3-D stencils and the
+   whole sharded setup in 4 parts, on the card, each held bit-equal to the
+   port's CPU run of the same function on the same inputs; config #3 at
+   128³, the card's setup against a CPU run of the same setup level by
+   level, weights, D⁻¹ and λ; ``ordered_fma`` at config #3's level-1 smoother centre
+   against its plain version (kernel, plain and bound times); and the
+   device coarse inverse (A8) of config #3's coarsest operator against the
+   float64 host form.
 6. Kernel B2 (flatdia_spmv) against its plain version on a random 7-point
    128³ stencil, config #3's level-1 coarse stencil, config #2's widest DIA
    level and a tiny grid whose flattened planes alias, in float32 and
@@ -295,13 +304,22 @@ KERNELS = {
                   "accumulators stay in registers; rows of up to 32 staged in "
                   "shared memory, planes read coalesced; __fadd_rn or "
                   "__fmaf_rn"},
+    # not a TPU kernel: the fused multiply-add XLA's CPU backend contracts in
+    # the structured setups' smoothers (amg/device_setup.py)
+    "ordered_fma": {
+        "source": ORDERED_SUM_SOURCE,
+        "replaces": "none (XLA's contracted 1 + m·w in "
+                    "parallel_amg_tpu/amg/device_setup.py:68-84)",
+        "design": "elementwise __fmaf_rn, a grid-stride loop; an operand "
+                  "shorter than the result (a scalar, a grid under a box of "
+                  "planes) repeats"},
 }
 # the __global__ functions of csrc/, as the profiler names them
 PORT_KERNEL_NAMES = ("twell_stream_kernel", "flatdia_spmv_kernel",
                      "flatdia_spmm_kernel", "bsr_spmv_kernel", "expand_kernel",
                      "merge_kernel", "matvec_kernel", "boundary_kernel", "ordered_sum_staged",
                      "ordered_sum_windows", "ordered_sum_windows_span",
-                     "ordered_sum_lanes")
+                     "ordered_sum_lanes", "ordered_fma_kernel")
 LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm", "bsr_spmv",
              "flatdia_spmm", "halo_stencil", "ordered_sum")  # csrc/<name>.cu
 CONFIG3_ROWS = [2_097_152, 79_507, 3_375, 125]
@@ -925,6 +943,145 @@ def ordered_sum_phase(c, A0, cfg, mesh):
             f"the card's level-0 P bit-equal to the CPU's {p_equal}; staged and "
             f"windowed inputs {len(staged)}, {len(windowed)}")
     del captured, by_kernel, staged, windowed, P_card, P_cpu, A_cpu
+
+
+def galerkin_order_phase(c, h3):
+    """The structured setups' Galerkin products on the card against the
+    port's own CPU run of the same function on the same inputs, bit for bit:
+    the dense, bucketed and slab (at least 2 slabs) products on random 3-D
+    stencils, the whole sharded setup in 4 parts, and config #3 at 128³ (the
+    card's setup ``h3`` against a CPU run of the same setup, timed) level by
+    level (weights, D⁻¹, λ).
+    Times the ordered_fma kernel at config #3's level-1 smoother and checks
+    the device coarse inverse (A8) against the float64 host form."""
+    import numpy as np
+    import torch
+
+    import parallel_amg_tpu_torch as ptt
+    from parallel_amg_tpu_torch.amg import device_setup as ds
+    from parallel_amg_tpu_torch.amg.hierarchy import coarse_inverse, coarse_inverse_np
+    from parallel_amg_tpu_torch.amg.transfers import downsample_sum_nd
+    from parallel_amg_tpu_torch.ops import ordered_sum
+    from parallel_amg_tpu_torch.ops.stencil import Stencil
+    from parallel_amg_tpu_torch.problems import poisson_stencil
+
+    dev = torch.device("cuda", 0)
+    gen = np.random.default_rng(16)
+    checks = {}
+
+    def random_level(dims, kind):
+        st = poisson_stencil(dims, device="cpu")
+        if kind == 27:
+            offs = tuple((a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                         for c in (-1, 0, 1))
+            w = -gen.uniform(0.5, 1.5, size=(27,) + dims)
+            w[13] = 30.0
+            st = Stencil(torch.from_numpy(w.astype(np.float32)), offs, dims)
+        w = st.weights.numpy() * gen.uniform(0.7, 1.3, size=st.weights.shape)
+        return Stencil(torch.from_numpy(w.astype(np.float32)), st.offsets, dims)
+
+    def both(fn, A, *extra):
+        """fn on the card and on the CPU from the same inputs."""
+        b = 3
+        cdims = tuple(-(-n // b) for n in A.dims)
+        d_inv = ds.diag_inverse(A)
+        scale = ds.block_scale(downsample_sum_nd(torch.ones(A.dims), cdims, b))
+        coef = torch.tensor(0.55, dtype=torch.float32)
+        args = (d_inv, coef, cdims, b, scale)
+        cpu = fn(A, *args, *extra)
+        card = fn(A.to(dev), *(x.to(dev) if torch.is_tensor(x) else x
+                                 for x in args), *extra)
+        torch.cuda.synchronize()
+        return card, cpu
+
+    cfg_dense = ptt.AMGConfig(coarsening="sa", aggregate="block", block_size=3,
+                              setup_product_path="dense")
+    dense = lambda A, d, c, cd, b, s: ds.coarse_operator(A, d, c, cd, cfg_dense, s)  # noqa: E731
+    budget = 30 * 28 * 28 * 4 * 63
+    slab = lambda A, d, c, cd, b, s: ds.chunked_coarse_operator(  # noqa: E731
+        A, d, c, cd, b, s, 5e-3, budget)
+    cases = {"dense_7pt_30^3": (dense, random_level((30, 29, 28), 7)),
+             "dense_27pt_21^3": (dense, random_level((21, 21, 20), 27)),
+             "bucketed_7pt_48^3": (ds.bucketed_coarse_operator,
+                                   random_level((48, 47, 46), 7)),
+             "slab_7pt_60x28x28": (slab, random_level((60, 28, 28), 7))}
+    n_slabs = ds.slab_plan(cases["slab_7pt_60x28x28"][1].offsets, (60, 28, 28),
+                           (20, 10, 10), 3, budget)["n_slabs"]
+    t0 = time.perf_counter()
+    for name, (fn, A) in cases.items():
+        card, cpu = both(fn, A)
+        checks[name] = card.offsets == cpu.offsets and bits_equal(card.weights, cpu.weights)
+    # the whole sharded setup in 4 parts (one card), every level
+    cfg_s = ptt.AMGConfig(coarsening="sa", aggregate="block", block_size=3,
+                          smoother="chebyshev", n_coarse_max=64, agglomerate_n=256,
+                          on_device_setup=True, halo_mode="pallas_async")
+    hs = {}
+    for where in ("cuda", "cpu"):
+        mesh = ptt.make_row_mesh(4, device=None if where == "cuda" else "cpu")
+        A_s, td = ptt.poisson_stencil_sharded((36, 24, 20), mesh, cfg_s)
+        hs[where] = ptt.sharded_device_setup(A_s, cfg_s, true_dims=td)
+    sharded_equal = []
+    for lc, lp in zip(hs["cuda"].levels, hs["cpu"].levels):
+        wc, wp = (l.A.global_weights() if hasattr(l.A, "global_weights")
+                  else l.A.weights for l in (lc, lp))
+        sharded_equal.append(bits_equal(wc, wp) and lc.lam_max == lp.lam_max)
+    checks["sharded_4parts_36x24x20"] = (
+        len(hs["cuda"].levels) == len(hs["cpu"].levels) and all(sharded_equal))
+    # config #3 at its own size: the card's setup against the CPU's, level
+    # by level
+    dims3 = h3.levels[0].A.dims
+    t1 = time.perf_counter()
+    h_cpu = ptt.setup(poisson_stencil(dims3, device="cpu"), h3.config, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    levels_equal = [bits_equal(a.A.weights, b.A.weights) and bits_equal(a.d_inv, b.d_inv)
+                    and a.lam_max == b.lam_max
+                    for a, b in zip(h3.levels, h_cpu.levels)]
+    size3 = "x".join(map(str, dims3))
+    checks[f"config3_{size3}_levels"] = (len(h3.levels) == len(h_cpu.levels)
+                                         and all(levels_equal))
+    c.emit("galerkin_order", cases=list(cases), slab_n_slabs=n_slabs,
+           bit_equal_card_vs_cpu=checks, sharded_levels_equal=sharded_equal,
+           config3_levels_equal=levels_equal, config3_size=size3,
+           config3_rows=[l.A.n_rows for l in h3.levels],
+           config3_paths=h_cpu.setup_stats["product_paths"],
+           seconds=time.perf_counter() - t0, config3_cpu_setup_s=cpu_s)
+    if not all(checks.values()):
+        raise AssertionError(f"a Galerkin product differs between card and CPU: {checks}")
+    if n_slabs < 2:
+        raise AssertionError(f"the slab case ran {n_slabs} slab(s)")
+    # ordered_fma at config #3's level-1 smoother centre plane (43³)
+    l1 = h3.levels[1]
+    m = -torch.tensor(0.55, device=dev) * l1.d_inv
+    w0 = l1.A.weights[l1.A.offsets.index((0, 0, 0))]
+    one = torch.ones((), device=dev)
+    got = ordered_sum.fma(m, w0, one)
+    plain = ordered_sum.fma_plain(m, w0, one)
+    fma_equal = bits_equal(got, plain)
+    n = m.numel()
+    n_bytes = 4 * (3 * n)  # m and w0 read, the result written (1.0 a scalar)
+    b_ms, b_by = c.bound_ms(n_bytes, 2 * n)
+    ms = c.device_ms(lambda: ordered_sum.fma(m, w0, one))
+    plain_ms = c.device_ms(lambda: ordered_sum.fma_plain(m, w0, one), reps=1,
+                           samples=5, warmup=1)
+    c.results["ordered_fma"].update(
+        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        copy_bound_ms=c.copy_bound_ms(n_bytes), max_abs_err=0.0,
+        main_case=f"config #3 level-1 smoother centre, {tuple(w0.shape)}",
+        library_kind="none (torch has no single-rounding fma)")
+    c.emit("kernel", name="ordered_fma", case=f"{tuple(w0.shape)}", ms=ms,
+           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+           bit_equal_plain=fma_equal)
+    if not fma_equal:
+        raise AssertionError("ordered_fma differs from its plain version")
+    # A8: the device coarse inverse of config #3's coarsest operator
+    dense_c = torch.from_numpy(h3.levels[-1].A.to_csr().to_dense()).float()
+    inv_card = coarse_inverse(dense_c.to(dev)).cpu()
+    inv_host = torch.from_numpy(coarse_inverse_np(dense_c.double().numpy())).float()
+    err = float((inv_card - inv_host).abs().max() / inv_host.abs().max())
+    c.emit("coarse_inverse_device", n=dense_c.shape[0], max_rel_err_vs_float64=err,
+           tolerance=1e-3)
+    if not err <= 1e-3:
+        raise AssertionError(f"coarse_inverse on the card: relative error {err}")
 
 
 def dist_algebraic_phases(c):
@@ -1585,18 +1742,22 @@ def main():
                          on_device_setup=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     t0 = time.perf_counter()
     h3 = ptt.setup(poisson_stencil((n3,) * 3), cfg3)
     torch.cuda.synchronize()
     setup3_s = time.perf_counter() - t0
+    launches_setup3 = {"ordered_fma": ordered_sum.LAUNCHES["ordered_fma"]}
     levels3 = [{"rows": l.A.n_rows, "points": l.A.n_points, "format": fmt(l.A),
                 "lam_max": l.lam_max,
                 "product_path": (device_setup.select_product_path(l.A, cfg3)
                                  if l.P is not None else None)}
                for l in h3.levels]
     emit("setup3d", problem=f"poisson_stencil(({n3},)*3)", seconds=setup3_s,
-         n_levels=h3.n_levels, levels=levels3,
+         n_levels=h3.n_levels, levels=levels3, launches=launches_setup3,
          peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if launches_setup3["ordered_fma"] <= 0:
+        raise AssertionError("config #3's setup launched no ordered_fma")
     rows3 = [l.A.n_rows for l in h3.levels]
     if rows3 != CONFIG3_ROWS:
         raise AssertionError(f"config #3 levels {rows3}, want {CONFIG3_ROWS}")
@@ -1609,6 +1770,9 @@ def main():
                                l.d_inv.cpu(), cfg3.lambda_power_iters, seed=0)
              for l in h3.levels]):
         raise AssertionError("config #3: a level's λ_max differs from the CPU's")
+    galerkin_order_phase(types.SimpleNamespace(
+        emit=emit, device_ms=device_ms, bound_ms=bound_ms,
+        copy_bound_ms=copy_bound_ms, results=results), h3)
 
     # -- kernel B2: flatdia_spmv ---------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -3392,8 +3556,10 @@ def main():
                 # the 8-part RS setup; LLVM's order runs on the one-device
                 # setup alone (launches_rs)
                 **{k: dist_paths["dist_config2_8parts_rs_setup"][k]
-                   for k in ("ordered_sum_staged", "ordered_sum_windows")}}
-    by_path = {"config2_pcg": launches2,
+                   for k in ("ordered_sum_staged", "ordered_sum_windows")},
+                **launches_setup3}
+    by_path = {"config3_setup": launches_setup3,
+               "config2_pcg": launches2,
                "config3_mixed_pcg": slice3["mixed"]["launches"],
                "config3_pallas_pcg": slice3["pallas"]["launches"],
                "config2_device_rs_setup": launches_rs,

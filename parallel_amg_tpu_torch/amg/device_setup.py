@@ -24,6 +24,7 @@ time, with a ``mask`` of the sharded grid's padding rows.
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import List
 
@@ -55,28 +56,93 @@ def power_iteration_lambda_max(A: Stencil, d_inv, iters: int, seed: int = 0):
     """λ_max(D⁻¹A) estimate as a 0-d tensor (1.1 safety factor, as the
     oracle); no host read.  The matvec adds its products in the JAX
     package's CPU order (one fma chain over the offsets, the first two taken
-    as ``ordered_sum.STENCIL_FIRST``) and the norm's sum is
-    ``ordered_sum.sumsq``, so a float32 λ is the JAX package's bit for bit
-    (other types take torch's order); the solve path's ``Stencil.matvec``
-    keeps torch's order."""
+    as ``ordered_sum.STENCIL_FIRST``, the centre unfused where
+    ``_unfused_centre`` says) and the norm's sum is ``ordered_sum.sumsq``,
+    so a float32 λ is the JAX package's bit for bit (other types take
+    torch's order); the solve path's ``Stencil.matvec`` keeps torch's
+    order."""
     x = start_vector(A.dims, A.weights.dtype, A.weights.device, seed)
     ordered = A.weights.dtype == torch.float32
     K = len(A.offsets)
     order = list(ordered_sum.STENCIL_FIRST) + list(range(2, K)) if K > 1 else [0]
     planes = A.weights[order]
+    split = _unfused_centre(A, order)
     lam = torch.ones((), dtype=x.dtype, device=x.device)
     for _ in range(iters):
         if ordered:
             shifted = A.shifted(x)
-            y = d_inv * ordered_sum.planes_dot(
-                planes, torch.stack([shifted[d] for d in order]))
-            nrm = ordered_sum.norm(y)
+            xs = torch.stack([shifted[d] for d in order])
+            if split is None:
+                s = ordered_sum.planes_dot(planes, xs)
+            else:  # LLVM's vector loop adds the centre's rounded product
+                s = ordered_sum.planes_dot(planes[:split], xs[:split])
+                s = s + planes[split] * xs[split]
+                for k in range(split + 1, K):
+                    s = ordered_sum.fma(planes[k], xs[k], s)
+            y = d_inv * s
+            nrm = ordered_sum.norm(y, structured=True)
         else:
             y = d_inv * A.matvec(x)
             nrm = torch.linalg.norm(y)
         lam = torch.where(nrm > 0, nrm, lam)
         x = y / torch.clamp(nrm, min=1e-30)
     return 1.1 * lam
+
+
+# 1/√c for c = 1 ... 64 as the JAX package's CPU backend computes
+# ``1.0 / jnp.sqrt(jnp.maximum(counts, 1.0))`` (float32 bits): not the
+# correctly rounded value at c = 39, 42, 53, 58, 61, and not torch's float32
+# 1/sqrt at others.  Read with jax and jaxlib 0.9.0 on an x86-64 CPU with
+# AVX-512 (scripts/probe_xla_galerkin_order.py --rsqrt).
+_XLA_RSQRT_BITS = (
+    0x3f800000, 0x3f3504f3, 0x3f13cd3a, 0x3f000000, 0x3ee4f92e, 0x3ed105ec,
+    0x3ec1848f, 0x3eb504f3, 0x3eaaaaab, 0x3ea1e89b, 0x3e9a5fb2, 0x3e93cd3a,
+    0x3e8e00d5, 0x3e88d677, 0x3e8432a5, 0x3e800000, 0x3e785b42, 0x3e715bef,
+    0x3e6aebf5, 0x3e64f92e, 0x3e5f7483, 0x3e5a514a, 0x3e5584cd, 0x3e5105ec,
+    0x3e4ccccd, 0x3e48d2ab, 0x3e4511a3, 0x3e41848f, 0x3e3e26eb, 0x3e3af4ba,
+    0x3e37ea74, 0x3e3504f3, 0x3e32416a, 0x3e2f9d53, 0x3e2d166c, 0x3e2aaaab,
+    0x3e285835, 0x3e261d5f, 0x3e23f8a3, 0x3e21e89b, 0x3e1fec04, 0x3e1e01b2,
+    0x3e1c2896, 0x3e1a5fb2, 0x3e18a61f, 0x3e16fb06, 0x3e155da2, 0x3e13cd3a,
+    0x3e124925, 0x3e10d0c3, 0x3e0f6381, 0x3e0e00d5, 0x3e0ca840, 0x3e0b5948,
+    0x3e0a137d, 0x3e08d677, 0x3e07a1d2, 0x3e067531, 0x3e05503e, 0x3e0432a5,
+    0x3e031c19, 0x3e020c52, 0x3e01030a, 0x3e000000)
+
+
+@functools.cache
+def _rsqrt_table(device):
+    return torch.tensor(_XLA_RSQRT_BITS, dtype=torch.int32).view(
+        torch.float32).to(device)
+
+
+def block_scale(counts):
+    """The tentative prolongator's normalisation 1/√max(count, 1) of float32
+    block counts, as the JAX package computes it: XLA's values for the
+    integer counts a block of up to 4 per axis in 3-D holds (the table
+    above), looked up on the counts' device; any other count takes
+    1/√c in float64, rounded once."""
+    c = torch.clamp(counts, min=1.0)
+    if counts.dtype != torch.float32:
+        return 1.0 / torch.sqrt(c)
+    table = _rsqrt_table(counts.device)
+    idx = c.to(torch.int64)
+    exact = (idx.to(c.dtype) == c) & (idx <= len(_XLA_RSQRT_BITS))
+    other = (1.0 / torch.sqrt(c.double())).to(c.dtype)
+    return torch.where(exact, table[(idx.clamp(max=len(_XLA_RSQRT_BITS)) - 1)],
+                       other)
+
+
+def _unfused_centre(A: Stencil, order):
+    """Where XLA's CPU code for the power iteration's matvec is LLVM's loop
+    vectorised across the middle axis of a 7-point 3-D grid (n1 = 8 and 5 ≤
+    n2 ≤ 8; read off the object code, held by tests/test_torch_ordered_sum.py),
+    its centre product is added rounded, not fused: the centre's position in
+    ``order``, else None (one fma chain)."""
+    dims = A.dims
+    zero = tuple(0 for _ in dims)
+    if (len(dims) == 3 and A.n_points == 7 and zero in A.offsets
+            and dims[1] == 8 and 5 <= dims[2] <= 8):
+        return order.index(A.offsets.index(zero))
+    return None
 
 
 def diag_inverse(A):
@@ -91,17 +157,41 @@ def _identity(A: Stencil) -> Stencil:
                    (tuple(0 for _ in A.dims),), A.dims)
 
 
+def _with_centre(A: Stencil, planes, a, b) -> Stencil:
+    """I + the stencil ``planes`` on A's offsets, whose centre plane is
+    fma(a, b, 1): the JAX package's contracted 1 + a·b, when the planes are
+    float32 and A has a centre and sorted offsets (as every setup operator
+    does); otherwise the plain ``Stencil.add``."""
+    zero = tuple(0 for _ in A.dims)
+    if (planes.dtype != torch.float32 or zero not in A.offsets
+            or A.offsets != tuple(sorted(A.offsets))):
+        return _identity(A).add(Stencil(planes, A.offsets, A.dims))
+    planes[A.offsets.index(zero)] = ordered_sum.fma(
+        a, b, torch.ones((), dtype=planes.dtype, device=planes.device))
+    return Stencil(planes, A.offsets, A.dims)
+
+
 def smoothing_operator(A: Stencil, d_inv, coef) -> Stencil:
-    """S = I − coef·D⁻¹A as a stencil (the prolongator smoother)."""
-    S = Stencil(-coef * d_inv[None] * A.weights, A.offsets, A.dims)
-    return _identity(A).add(S)
+    """S = I − coef·D⁻¹A as a stencil (the prolongator smoother).
+
+    In the JAX package's CPU order: m = (−coef)·D⁻¹ rounded, each plane m·w
+    rounded, and the centre plane 1 + m·w₀ contracted into one fused
+    multiply-add (``ordered_sum.fma``), float32 (other types take torch's
+    order, one rounding per operation)."""
+    coef = torch.as_tensor(coef, dtype=A.weights.dtype, device=A.weights.device)
+    m = -coef * d_inv
+    return _with_centre(A, m[None] * A.weights, m, A.diagonal())
 
 
 def smoothing_operator_T(A: Stencil, d_inv, coef) -> Stencil:
-    """Sᵀ = I − coef·A·D⁻¹ (A symmetric) — the restriction-side factor."""
+    """Sᵀ = I − coef·A·D⁻¹ (A symmetric) — the restriction-side factor.
+
+    Each plane −coef·(w·D⁻¹ shifted), products rounded left to right, the
+    centre 1 + (−coef)·(w₀·D⁻¹) one fused multiply-add in float32, as the
+    JAX package's CPU backend computes it."""
     SA = A.scale_cols(d_inv)
-    S = Stencil(-coef * SA.weights, SA.offsets, SA.dims)
-    return _identity(A).add(S)
+    neg = -torch.as_tensor(coef, dtype=A.weights.dtype, device=A.weights.device)
+    return _with_centre(A, neg * SA.weights, neg, SA.diagonal())
 
 
 def galerkin_out_offsets(offsets, block: int):
@@ -127,13 +217,50 @@ def _normalize(planes, out_offs, cdims, scale, halo0: int = 0):
     return planes * scale[rows][None] * col_scales
 
 
+def _dot_lanes(K: int, nc: int) -> bool:
+    """Whether the JAX package's one-hot dot ``onehot (n_out, K) @ piece (K,
+    nc)`` adds in four lanes (True) or in one chain over k (False).
+
+    Read off XLA's CPU dot (the Eigen contraction jaxlib 0.9.0 links) by
+    revealing the tree of each output's sum (a pair of ±2⁴⁰ among ones gives
+    the size of their lowest common subtree): with nc of 2 to 16 columns and
+    K > 16 it keeps four accumulators, k mod 4, over the first ⌊K/4⌋·4 terms,
+    adds them as (0 + 1) + (2 + 3), and adds the rest, summed as a chain of
+    their own, last; otherwise one chain in k order (measured for K ≤ 343 and
+    n_out 9 and 27 up to K·nc·n_out of about 5·10⁵; larger products go to
+    Eigen's blocked, threaded kernels, whose k-blocks this rule does not
+    follow)."""
+    return 2 <= nc <= 16 and K > 16
+
+
+def _onehot_dot(ids, piece, n_out: int, lanes: bool):
+    """Σ_k onehot[o, k]·piece[k] for onehot[o, k] = (ids[k] == o), in the
+    order of ``_dot_lanes``: exact adds (``bucket_add``), so the bits are the
+    same on every device."""
+    out = torch.zeros((n_out,) + tuple(piece.shape[1:]), dtype=piece.dtype,
+                      device=piece.device)
+    K = len(ids)
+    if not lanes:
+        return bucket_add(out, ids, piece)
+    main = K // 4 * 4
+    acc = [bucket_add(torch.zeros_like(out), ids[q:main:4], piece[q:main:4])
+           for q in range(4)]
+    out = (acc[0] + acc[1]) + (acc[2] + acc[3])
+    if main < K:
+        out = out + bucket_add(torch.zeros_like(out), ids[main:], piece[main:])
+    return out
+
+
 def galerkin_block(M: Stencil, cdims, block: int, scale,
                    scale_halo0: int = 0) -> Stencil:
     """A_c = Tᵀ M T for normalized block-injection T (scale = 1/√|agg|).
 
     Residue-class pooled reduction: per block residue rp one strided slice
     takes all D planes, and each fine offset o lands in the coarse offset
-    floor((rp+o)/b) per axis by ``bucket_add``.
+    floor((rp+o)/b) per axis; the residues' sums are added in residue order.
+    The JAX package sums each residue by a one-hot dot, whose order
+    ``_dot_lanes`` gives; the port adds the same terms in that order
+    (``_onehot_dot``).
 
     scale_halo0 > 0 means ``scale`` already carries that many halo rows on
     both ends of axis 0 (the slab path: coarse columns just outside the slab
@@ -150,12 +277,13 @@ def galerkin_block(M: Stencil, cdims, block: int, scale,
     nc = int(np.prod(cdims))
     acc = torch.zeros((len(out_offs), nc), dtype=M.weights.dtype,
                       device=M.weights.device)
+    lanes = _dot_lanes(D, nc)
     for rp in itertools.product(range(b), repeat=nd):
         piece = Wp[(slice(None),) + tuple(slice(rp[i], fpad[i], b)
                                           for i in range(nd))].reshape(D, nc)
         ids = [oidx[tuple((rp[i] + o[i]) // b for i in range(nd))]
                for o in M.offsets]
-        acc = acc + bucket_add(torch.zeros_like(acc), ids, piece)
+        acc = acc + _onehot_dot(ids, piece, len(out_offs), lanes)
     planes = acc.reshape((len(out_offs),) + tuple(cdims))
     r0 = max(abs(o[0]) for o in out_offs)
     if scale_halo0 and scale_halo0 < r0:
@@ -334,13 +462,24 @@ def _bucket_stage(factors, offsets, X, box_in, box_out, b: int, dims):
     """Y[O](p) = Σ_off factor_off(p) · X[O − δ_off(p)](p + off).
 
     Writes landing outside box_out are structurally zero and are dropped by
-    the slice intersection.
+    the slice intersection.  In the order the JAX package's CPU backend
+    compiles it to (read off its optimised HLO and object code): XLA first
+    sums every update that covers the whole box (δ = 0), in program order,
+    then applies the sliced updates in program order, each a fused
+    multiply-add into its slice, with factor·mask as select(mask, factor,
+    0); the whole-box sum takes the first product fused into the rounded
+    second, each later one fused.  A stage with no whole-box update starts
+    from its first slice's rounded product.  Float32 fused multiply-adds go
+    through ``ordered_sum.fma``.  That is the JAX package's code for 3-D
+    7-point levels such as 7 × 6 × 5, 12³, 14³, 20³, 26³, 44³ and 48³; on
+    others (2-D, 27 points, 32³, 13 × 12 × 11) LLVM leaves other products of
+    the whole-box sum unfused (ROADMAP C7c).
     """
     nd = len(dims)
     out_shape = tuple(h - l + 1 for l, h in box_out)
-    Y = torch.zeros(out_shape + tuple(dims), dtype=X.dtype, device=X.device)
+    fused = X.dtype == torch.float32
+    full, part = [], []
     for off, fac in zip(offsets, factors):
-        Xs = shift_nd(X, off, dims)
         for delta in _delta_support(off, b):
             tgt, src = [], []
             for i in range(nd):
@@ -352,9 +491,85 @@ def _bucket_stage(factors, offsets, X, box_in, box_out, b: int, dims):
                 src.append(slice(lo - delta[i] - box_in[i][0],
                                  hi - delta[i] - box_in[i][0] + 1))
             else:
-                fm = fac * _residue_mask(dims, off, delta, b, X.dtype, X.device)
-                Y[tuple(tgt)] += fm.reshape((1,) * nd + tuple(dims)) * Xs[tuple(src)]
+                whole = all(t.stop - t.start == n for t, n in zip(tgt, out_shape))
+                (full if whole else part).append(
+                    (off, fac, delta, tuple(tgt), tuple(src)))
+
+    shifted = {}
+
+    def operands(u):
+        """(factor·mask, X shifted and sliced) of one update; the shifted
+        copy of X is made contiguous (so an update's X slice is whole grid
+        planes) and kept for the next update of the same offset only, so one
+        copy of X is alive at a time."""
+        off, fac, delta, _, src = u
+        if off not in shifted:
+            shifted.clear()
+            shifted[off] = shift_nd(X, off, dims).contiguous()
+        mask = _residue_mask(dims, off, delta, b, torch.bool, X.device)
+        return torch.where(mask, fac, 0.0), shifted[off][src]
+
+    def fmadd(Yt, u):
+        """Yt ← fma(factor·mask, X slice, Yt) in place, one launch per
+        contiguous block: the whole box where the target and the X slice are
+        contiguous, else a launch for each index of the fewest leading box
+        axes after which both are (a shifted X whose grid is strided is
+        copied one grid plane at a time, never a box's size)."""
+        fm, xs = operands(u)
+        if not fused:
+            Yt += fm * xs
+            return
+        j = next(j for j in range(nd + 1) if Yt[(0,) * j].is_contiguous()
+                 and (xs[(0,) * j].is_contiguous() or j == nd))
+        for s in itertools.product(*[range(n) for n in Yt.shape[:j]]):
+            ordered_sum.fma(fm, xs[s], Yt[s], out=Yt[s])
+
+    if full:
+        # the first product fused into the rounded second, then the rest
+        order = [full[1], full[0]] + full[2:] if len(full) >= 2 else full
+        fm, xs = operands(order[0])
+        Y = (fm * xs).contiguous()
+        del fm, xs
+        for u in order[1:]:
+            fmadd(Y, u)
+    else:
+        Y = torch.zeros(out_shape + tuple(dims), dtype=X.dtype, device=X.device)
+        fm, xs = operands(part[0])
+        Y[part[0][3]] = fm * xs
+        del fm, xs
+        part = part[1:]
+    for u in part:
+        fmadd(Y[u[3]], u)
+    shifted.clear()
     return Y
+
+
+def _window_sum(N, cdims, b: int, lead: int):
+    """Tᵀ's sum pool of the trailing grid axes of N to cdims: each block of
+    bᵈ fine rows (zero-padded to whole blocks) added to +0.0 one element
+    after another, in XLA's order for the JAX package's padded
+    ``reduce_window``: row-major, except that where an axis after the first
+    is padded by exactly one row (the last such axis), the window positions
+    below b − 1 on it come first and those at b − 1 after them (read through
+    the JAX function by revealing its sum trees, every padding at b = 3 in
+    2-D and 3-D).  Exact adds, so the same bits on every device."""
+    nd = len(cdims)
+    pad = [cdims[i] * b - N.shape[lead + i] for i in range(nd)]
+    flat = []
+    for i in reversed(range(nd)):
+        flat += [0, pad[i]]
+    Np = torch.nn.functional.pad(N, flat)
+    split = max((i for i in range(1, nd) if pad[i] == 1), default=None)
+    order = list(itertools.product(range(b), repeat=nd))
+    if split is not None:
+        order = ([r for r in order if r[split] < b - 1]
+                 + [r for r in order if r[split] == b - 1])
+    acc = torch.zeros(tuple(N.shape[:lead]) + tuple(cdims), dtype=N.dtype,
+                      device=N.device)
+    for r in order:
+        acc = acc + Np[(slice(None),) * lead + tuple(slice(r[i], None, b)
+                                                      for i in range(nd))]
+    return acc
 
 
 def bucketed_coarse_operator(A: Stencil, d_inv, coef, cdims, block: int,
@@ -377,11 +592,19 @@ def bucketed_coarse_operator(A: Stencil, d_inv, coef, cdims, block: int,
     box3 = _cum_box(tuple(3 * r for r in rA), b)             # after Sᵀ·
 
     d_idx = A.offsets.index(zero)
-    s_planes = [-coef * d_inv * A.weights[d] for d in range(A.n_points)]
-    s_planes[d_idx] = s_planes[d_idx] + 1.0
-    st_planes = [-coef * A.weights[d] * shift_nd(d_inv, A.offsets[d], dims)
+    coef = torch.as_tensor(coef, dtype=A.weights.dtype, device=A.weights.device)
+    m = -coef * d_inv
+    s_planes = [m * A.weights[d] for d in range(A.n_points)]
+    st_planes = [(-coef * A.weights[d]) * shift_nd(d_inv, A.offsets[d], dims)
                  for d in range(A.n_points)]
-    st_planes[d_idx] = st_planes[d_idx] + 1.0
+    # the centre planes' 1 + a·b: one fused multiply-add in XLA's CPU order
+    if A.weights.dtype == torch.float32:
+        one = torch.ones((), dtype=A.weights.dtype, device=A.weights.device)
+        s_planes[d_idx] = ordered_sum.fma(m, A.weights[d_idx], one)
+        st_planes[d_idx] = ordered_sum.fma(-coef * A.weights[d_idx], d_inv, one)
+    else:
+        s_planes[d_idx] = s_planes[d_idx] + 1.0
+        st_planes[d_idx] = st_planes[d_idx] + 1.0
 
     X0 = torch.ones((1,) * nd + tuple(dims), dtype=A.weights.dtype,
                     device=A.weights.device)
@@ -390,7 +613,7 @@ def bucketed_coarse_operator(A: Stencil, d_inv, coef, cdims, block: int,
     del ST
     N = _bucket_stage(st_planes, A.offsets, AST, box2, box3, b, dims)
     del AST
-    pool = downsample_sum_nd(N, cdims, b, lead=nd)
+    pool = _window_sum(N, cdims, b, nd)
     out_offs = sorted(itertools.product(
         *[range(box3[i][0], box3[i][1] + 1) for i in range(nd)]))
     planes = pool.reshape((len(out_offs),) + tuple(cdims))
@@ -418,7 +641,9 @@ def symmetrize_stencil(A: Stencil) -> Stencil:
 
 def sparsify_stencil(A: Stencil, tol: float) -> Stencil:
     """Drop |w| < tol·rowmax off-diagonal entries, lump them onto the
-    diagonal (device analog of oracle.sparsify_lumped)."""
+    diagonal (device analog of oracle.sparsify_lumped).  The lump is the sum
+    over the offset axis in XLA's order (``ordered_sum.planes_sum``), so a
+    float32 result is the JAX package's bit for bit."""
     if tol <= 0:
         return A
     nd = len(A.dims)
@@ -429,7 +654,10 @@ def sparsify_stencil(A: Stencil, tol: float) -> Stencil:
     absw = A.weights.abs()
     rowmax = torch.where(offd, absw, 0.0).amax(dim=0)
     drop = (absw < tol * rowmax[None]) & offd
-    lump = torch.where(drop, A.weights, 0.0).sum(dim=0)
+    dropped = torch.where(drop, A.weights, 0.0)
+    lump = (ordered_sum.planes_sum(dropped)
+            if dropped.dtype == torch.float32 else dropped.sum(dim=0))
+    del dropped
     W = torch.where(drop, 0.0, A.weights)
     W[d_idx] += lump
     return Stencil(W, A.offsets, A.dims)
@@ -500,7 +728,7 @@ def device_structured_setup(A: Stencil, config: AMGConfig,
         cdims = tuple(-(-d // b) for d in dims)
         counts = downsample_sum_nd(torch.ones(dims, dtype=dtype, device=dev),
                                    cdims, b)
-        scale = 1.0 / torch.sqrt(torch.clamp(counts, min=1.0))
+        scale = block_scale(counts)
         coef = torch.full_like(lam, config.sa_omega) / torch.clamp(lam, min=1e-30)
         paths.append(select_product_path(A, config))
         A_c = coarse_operator(A, d_inv, coef, cdims, config, scale)

@@ -73,6 +73,22 @@ class Level:
         return self.A.n_rows if self.true_n is None else self.true_n
 
 
+def coarse_inverse(dense, rel_tol: float = 1e-6):
+    """Dense coarse-level solve operator M⁻¹ on the tensor's device: the
+    eigh pseudo-inverse of the symmetric part in the input's type (float32
+    for a float32 matrix), with the modes at or below rel_tol·max|w| zeroed,
+    so a slightly indefinite coarsest operator does not NaN the coarse
+    solve.  The device form of ``coarse_inverse_np``; the setups build the
+    coarse inverse with the float64 host form, as the JAX package does."""
+    S = 0.5 * (dense + dense.T)
+    w, V = torch.linalg.eigh(S)
+    wmax = w.abs().max() if w.numel() else torch.ones((), dtype=w.dtype,
+                                                      device=w.device)
+    good = w > rel_tol * wmax
+    winv = torch.where(good, 1.0 / torch.where(good, w, 1.0), 0.0)
+    return (V * winv[None, :]) @ V.T
+
+
 def coarse_inverse_np(dense, rel_tol: float = 1e-6):
     """Dense coarse-level solve operator M⁻¹ (numpy, f64) via symmetric eigh.
 

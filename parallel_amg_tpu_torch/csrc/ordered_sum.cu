@@ -41,6 +41,12 @@
 // `planes` the operands are (len, rows) planes, read coalesced as they are;
 // vf = 1 (one chain) takes rows of any length.
 //
+// ordered_fma: out[i] = fma(a, b, c) rounded once (__fmaf_rn), the product
+// and add XLA's CPU backend contracts in an elementwise loop (the centre
+// planes of the Galerkin smoothers, the bucketed product's updates); an
+// operand shorter than out repeats (a scalar, or a grid broadcast over the
+// leading axes).
+//
 // Every add is __fadd_rn and every fused multiply-add __fmaf_rn (no other
 // contraction, no reassociation, no atomics: the file is built without fast
 // math), so each result is the plain version's bit for bit.  Bound: device
@@ -433,7 +439,37 @@ int windows_full(const float* x, float* out, long long rows, int d1, int d2,
                           : launch_windows<kBlock>(x, out, rows, d1, d2, s);
 }
 
+__global__ void __launch_bounds__(kBlock)
+    ordered_fma_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                       const float* c, float* out, long long n,
+                       long long na, long long nb, long long nc) {
+  const long long stride = static_cast<long long>(gridDim.x) * kBlock;
+  for (long long i = blockIdx.x * static_cast<long long>(kBlock) + threadIdx.x; i < n;
+       i += stride)
+    out[i] = __fmaf_rn(a[na == n ? i : i % na], b[nb == n ? i : i % nb],
+                       c[nc == n ? i : i % nc]);
+}
+
 }  // namespace
+
+// out[i] = fma(a[i % na], b[i % nb], c[i % nc]) for i < n on `stream`: an
+// operand of fewer than n elements repeats (a scalar, or a trailing grid
+// broadcast over leading axes).  out may be c itself (nc = n: an update in
+// place; each element is read before the same thread writes it).  Returns
+// the launch's cudaError_t.
+extern "C" int ordered_fma(const void* a, const void* b, const void* c, void* out,
+                           long long n, long long na, long long nb, long long nc,
+                           void* stream) {
+  if (n == 0) return 0;
+  if (na <= 0 || nb <= 0 || nc <= 0 || n % na || n % nb || n % nc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + kBlock - 1) / kBlock;
+  const unsigned grid = static_cast<unsigned>(blocks < (1LL << 20) ? blocks : (1LL << 20));
+  ordered_fma_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<const float*>(c),
+      static_cast<float*>(out), n, na, nb, nc);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The sum of each row of (rows, d1, d2) float32 x over its whole tree of
 // windows into out (rows), on `stream`, in one launch.  A one-axis row (d1 =

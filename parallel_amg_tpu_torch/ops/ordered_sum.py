@@ -71,6 +71,14 @@ a loop of two or more iterations (a loop of one is compiled otherwise), and
   then the parts' sums left to right; then the correctly rounded square
   root (``sqrt``).
 
+The structured setups' Galerkin products (``amg/device_setup.py``) take two
+more of XLA's orders: an elementwise a·b + c that the CPU backend contracts
+into one fused multiply-add (``fma``: the smoothers' centre planes, the
+bucketed product's updates), and a sum
+over the leading (planes) axis of a (D, ...) array, which the windows rule
+orders over D like any reduced axis (``planes_sum``: the lumps of
+``sparsify_stencil``).
+
 ``row_sum`` and ``row_dot`` run the plain version (``row_sum_plain``,
 ``row_dot_plain``: torch ops, one IEEE add or one fused multiply-add, emulated
 exactly in float64 by ``fma_plain``, per element position; so they give the
@@ -102,7 +110,7 @@ STENCIL_FIRST = (1, 0)
 
 # kernel launches by kernel, counted in ``_launch_*``; callers may reset them
 LAUNCHES = {"ordered_sum_staged": 0, "ordered_sum_windows": 0,
-            "ordered_sum_lanes": 0}
+            "ordered_sum_lanes": 0, "ordered_fma": 0}
 
 # lanes schedules with a kernel instance in csrc/ordered_sum.cu, besides CHAIN
 _ADD_LANES = {(4, 2, 0), (4, 4, 4), (8, 2, 0)}
@@ -251,15 +259,30 @@ def planes_dot_plain(a, b):
     return s
 
 
-def sumsq(y):
+def sumsq(y, structured: bool = False):
     """Σ y² over every axis of float32 ``y`` (1 to 3 axes), in the order of
     ``jnp.linalg.norm``'s sum on the JAX package's CPU backend inside its
     power iterations: where no axis is longer than 32, one fma chain
     fma(y, y, acc) in row-major order; otherwise the rounded squares by the
     windows rule (three axes: blocks of up to 32 per axis, each summed in
-    row-major order, then the block partials in row-major order)."""
+    row-major order, then the block partials in row-major order).
+
+    Where ``structured`` says y is a structured power iteration's D⁻¹A·x
+    (a fusion of its own, which LLVM vectorises; not the sharded norm's
+    per-part sums) and LLVM unrolls the last axis and vectorises the loop
+    before it (read off the optimised IR of the norm's fusion), the grid is
+    summed in lanes across the axis before the last (``_middle_lanes_vf``,
+    ``_middle_lanes``).  Other small grids that LLVM vectorises (8², (12,
+    4), (7, 16, 5)) still take the rule above: ROADMAP C7b.  A three-axis
+    grid whose block partials are (n0, 2, 2) (33 to 64 per axis, 43³ and
+    33³ among them) adds the partials in two lanes across the middle axis
+    the same way.
+    """
     if y.dim() == 0 or y.dim() > 3:
         raise ValueError(f"sumsq takes 1 to 3 axes, not {y.dim()}")
+    vf = _middle_lanes_vf(tuple(y.shape)) if structured else 0
+    if vf:
+        return _middle_lanes(y if y.dim() == 3 else y[None], vf)
     if max(y.shape) <= WINDOW:
         flat = y.reshape(1, -1)
         return row_dot(flat, flat, CHAIN)[0]
@@ -270,7 +293,63 @@ def sumsq(y):
     if max(parts.shape) > WINDOW:
         raise ValueError(f"sumsq: a grid of {tuple(y.shape)} leaves partials "
                          f"{tuple(parts.shape)} longer than {WINDOW}")
+    if structured and parts.shape[1:] == (2, 2):
+        # LLVM adds (n0, 2, 2) partials in two lanes across the middle axis
+        return _middle_lanes(parts, 2, square=False)
     return row_sum(parts.reshape(1, -1), 1, CHAIN)[0]
+
+
+def _middle_lanes_vf(shape) -> int:
+    """The lanes LLVM gives a power iteration's Σ y² across the axis before
+    the last, or 0 (read with jax and jaxlib 0.9.0 on AVX-512, held by
+    tests/test_torch_ordered_sum.py).  Three axes: 4 for (n0, 4, n2 ≤ 5), 8
+    for (n0, 8 or 16, n2) with n1·n2 ≤ 64.  Two axes (n0, n1), rows of at
+    most 4 floats: 8 where n0 is 8, 16, 24 or 32; 4 where n0 is 4 or 20 and
+    the rows are 3 or 4 floats ((4, 2) and (12, 4) take the chain, longer
+    rows other orders: ROADMAP C7b)."""
+    if len(shape) == 2:
+        n0, n1 = shape
+        if n1 > 4 or n0 > WINDOW:
+            return 0
+        if n0 % 8 == 0:
+            return 8
+        return 4 if n0 % 16 == 4 and n1 >= 3 else 0
+    if len(shape) != 3 or max(shape) > WINDOW:
+        return 0
+    n0, n1, n2 = shape
+    if n1 == 4 and n2 <= 5:
+        return 4
+    if n1 in (8, 16) and n1 * n2 <= 64:
+        return 8
+    return 0
+
+
+def _middle_lanes(y, vf: int, square: bool = True):
+    """Σ y² of a (n0, n1, n2) grid in vf lanes across the middle axis (see
+    ``sumsq``): per slab i0, lanes l start at (sum so far, −0.0, ...), take
+    y² for rows i1 = b + l of each block b of vf rows and i2 in order, and
+    are halved into the sum.  Where a row is at most 4 floats the square and
+    its add are one fused multiply-add; longer rows are deinterleaved by a
+    shuffle between the product and the add, which keeps the product
+    rounded.  Without ``square``, y's values themselves are added (a
+    three-axis norm's block partials)."""
+    fused = y.shape[2] <= 4
+    acc = torch.zeros((), dtype=y.dtype, device=y.device)
+    for i0 in range(y.shape[0]):
+        lanes = torch.full((vf,), -0.0, dtype=y.dtype, device=y.device)
+        lanes[0] = acc
+        for b in range(0, y.shape[1], vf):
+            for i2 in range(y.shape[2]):
+                v = y[i0, b:b + vf, i2]
+                if not square:
+                    lanes = lanes + v
+                else:
+                    lanes = fma(v, v, lanes) if fused else lanes + v * v
+        while lanes.numel() > 1:
+            h = lanes.numel() // 2
+            lanes = lanes[:h] + lanes[h:]
+        acc = lanes[0]
+    return acc
 
 
 def sqrt(x):
@@ -281,10 +360,10 @@ def sqrt(x):
     return torch.sqrt(x.double()).to(x.dtype)
 
 
-def norm(y):
+def norm(y, structured: bool = False):
     """``jnp.linalg.norm(y)`` of the JAX package's power iterations:
-    ``sqrt(sumsq(y))``."""
-    return sqrt(sumsq(y))
+    ``sqrt(sumsq(y, structured))``."""
+    return sqrt(sumsq(y, structured))
 
 
 def _block_sums(sq):
@@ -452,16 +531,107 @@ def row_dot_plain(a, b, lanes=None):
     return out.reshape(lead)
 
 
+def fma(a, b, c, out=None):
+    """float32 fma(a, b, c) = a·b + c rounded once, elementwise over the
+    broadcast shape of the three tensors (one device): ``fma_plain`` on the
+    CPU, the ``ordered_fma`` kernel of csrc/ordered_sum.cu on the card (an
+    operand whose shape is a suffix of the result's, a scalar among them,
+    repeats over the leading axes; any other is expanded).  ``out``, a
+    contiguous tensor of the result's shape, takes the result in place; it
+    may be ``c`` itself (each element is read before it is written)."""
+    for t in (a, b, c):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fma takes float32, not {t.dtype}")
+    dev = a.device
+    shape = _broadcast_shape(a.shape, b.shape, c.shape)
+    if out is not None and (tuple(out.shape) != tuple(shape) or not out.is_contiguous()
+                            or out.dtype != torch.float32 or out.device != dev):
+        raise ValueError(f"fma: out must be a contiguous float32 {tuple(shape)} on {dev}")
+    if dev.type == "cpu":
+        return fma_plain(a, b, c) if out is None else out.copy_(fma_plain(a, b, c))
+    if dev.type != "cuda":
+        raise ValueError(f"fma runs on cpu or cuda, not {dev}")
+    ops, counts = [], []
+    for t in (a, b, c):
+        while t.dim() > 0 and t.shape[0] == 1 and t.numel() > 1:
+            t = t[0]  # leading axes of one element broadcast anyway
+        if t.numel() == 1:
+            t = t.reshape(1)
+        elif tuple(t.shape) != tuple(shape[len(shape) - t.dim():]):
+            t = t.expand(shape)
+        t = t.contiguous()
+        ops.append(t)
+        counts.append(t.numel())
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels()[2](ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
+                            out.data_ptr(), out.numel(), *counts, stream)
+    _check_err(err, "ordered_fma")
+    LAUNCHES["ordered_fma"] += 1
+    return out
+
+
+def _broadcast_shape(*shapes):
+    """numpy's broadcast of the shapes (``torch.broadcast_shapes`` imports
+    sympy, seconds at a process's first call)."""
+    n = max(len(sh) for sh in shapes)
+    out = []
+    for i in range(n):
+        dims = {sh[len(sh) - n + i] for sh in shapes if len(sh) - n + i >= 0} - {1}
+        if len(dims) > 1:
+            raise ValueError(f"shapes {shapes} do not broadcast")
+        out.append(dims.pop() if dims else 1)
+    return tuple(out)
+
+
+def planes_sum(x):
+    """Σ over the leading axis of float32 (D, ...) ``x`` in XLA's CPU order:
+    the windows rule over D (one chain from +0.0 where D ≤ 32, else windows
+    of 32 with the padding split, each a chain, then their partials by the
+    same rule), elementwise over the trailing axes.  One chain is the lanes
+    kernel's plane mode on the card (one launch a window), plain adds on the
+    CPU: every add is one IEEE float32 add, so both give the same bits."""
+    if x.dtype != torch.float32 or x.dim() < 1:
+        raise TypeError("planes_sum takes a float32 tensor of one axis or more")
+    D = x.shape[0]
+    w, nw, lo = windows(D)
+    if nw == 1:
+        return _planes_chain(x)
+    parts = [_planes_chain(x[max(0, i * w - lo):min(D, i * w + w - lo)])
+             for i in range(nw)]
+    return planes_sum(torch.stack(parts))
+
+
+def _planes_chain(x):
+    """One chain of adds over the leading axis, from +0.0."""
+    if x.device.type == "cuda":
+        K = x.shape[0]
+        return _lanes_cuda(x.reshape(K, -1), None, CHAIN,
+                           planes=True).reshape(x.shape[1:])
+    if x.device.type != "cpu":
+        raise ValueError(f"planes_sum runs on cpu or cuda, not {x.device}")
+    acc = torch.zeros(x.shape[1:], dtype=x.dtype)
+    for k in range(x.shape[0]):
+        acc = acc + x[k]
+    return acc
+
+
 @functools.cache
 def _kernels():
     lib = _build.load("ordered_sum")
-    rows_fn, lanes_fn = lib.ordered_sum, lib.ordered_sum_lanes
+    rows_fn, lanes_fn, fma_fn = lib.ordered_sum, lib.ordered_sum_lanes, lib.ordered_fma
     rows_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
     lanes_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
-    rows_fn.restype = lanes_fn.restype = ctypes.c_int
-    return rows_fn, lanes_fn
+    fma_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [
+        ctypes.c_void_p]
+    rows_fn.restype = lanes_fn.restype = fma_fn.restype = ctypes.c_int
+    return rows_fn, lanes_fn, fma_fn
 
 
 def _kernel_name(d1: int, d2: int) -> str:

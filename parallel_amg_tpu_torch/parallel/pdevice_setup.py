@@ -440,7 +440,7 @@ def sharded_device_setup(A, config: AMGConfig, mesh=None, true_dims=None,
             break
         cdims = (A.dims[0] // b,) + tuple(-(-d // b) for d in A.dims[1:])
         counts = _sharded_counts(A.dims, true_d[0], cdims, b, mesh, dtype)
-        scale = counts.map(lambda c: 1.0 / torch.sqrt(torch.clamp(c, min=1.0)))
+        scale = counts.map(ds.block_scale)
         coef = torch.full_like(lam, config.sa_omega) / torch.clamp(lam, min=1e-30)
         A_c = sharded_coarse_operator(A, d_inv, coef, scale, cdims, b,
                                       config.setup_intermediate_tol, true_d[0])

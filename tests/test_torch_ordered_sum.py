@@ -412,3 +412,117 @@ def test_sumsq_rules():
                 blk = blk + v
             want = want + blk
     assert ordered_sum.sumsq(g).item() == want.item()
+
+
+@needs_jax
+@pytest.mark.parametrize("dims,points", [((4, 4, 4), 27), ((3, 4, 4), 27),
+                                         ((5, 4, 4), 27), ((4, 4, 5), 27),
+                                         ((4, 4, 4), 7), ((4, 4), 9), ((4, 4), 5),
+                                         ((4, 3), 9), ((8, 3), 9), ((16, 4), 5),
+                                         ((24, 3), 9), ((20, 4), 9), ((4, 2), 9),
+                                         ((12, 4), 9), ((8, 8, 8), 27), ((5, 8, 8), 27),
+                                         ((4, 16, 4), 27), ((6, 8, 7), 27),
+                                         ((43, 43, 43), 27), ((33, 33, 33), 27)])
+def test_stencil_power_iteration_middle_lanes_bit_equal_to_jax(dims, points):
+    """Grids with non-constant weights where LLVM vectorises the power
+    iteration's Σ y² across the axis before the last (``_middle_lanes_vf``;
+    at 33³ and 43³ the (2, 2, 2) block partials): the
+    port's loop (``planes_dot`` in ``STENCIL_FIRST`` order, ``norm``) against
+    the JAX package's power-iteration body in a jitted loop of four
+    iterations, iterate bit for bit."""
+    import itertools
+
+    from parallel_amg_tpu.ops.stencil import Stencil as JStencil
+    from parallel_amg_tpu_torch.ops.stencil import Stencil
+
+    rng = np.random.default_rng(sum(dims) + points)
+    nd = len(dims)
+    offs = tuple(o for o in itertools.product((-1, 0, 1), repeat=nd)
+                 if points == 3 ** nd or sum(map(abs, o)) <= 1)
+    zero = offs.index((0,) * nd)
+    w = rng.uniform(-1.0, 1.0, size=(len(offs),) + dims).astype(np.float32)
+    w[zero] = rng.uniform(4.0, 8.0, size=dims).astype(np.float32)
+    d = (1.0 / w[zero]).astype(np.float32)
+    x0 = (rng.random(dims) - 0.5).astype(np.float32)
+
+    def loop(A, d_inv, x):
+        def body(i, carry):
+            x, lam = carry
+            y = d_inv * A.matvec(x)
+            nrm = jnp.linalg.norm(y)
+            return y / jnp.maximum(nrm, 1e-30), jnp.where(nrm > 0, nrm, lam)
+        return jax.lax.fori_loop(0, 4, body, (x, jnp.asarray(1.0, x.dtype)))
+
+    want = jax.jit(loop)(JStencil(jnp.asarray(w), offs, dims), jnp.asarray(d),
+                         jnp.asarray(x0))[0]
+    A = Stencil(torch.from_numpy(w), offs, dims)
+    order = list(ordered_sum.STENCIL_FIRST) + list(range(2, len(offs)))
+    planes, dt = A.weights[order], torch.from_numpy(d)
+
+    def step(x):
+        sh = A.shifted(x)
+        return dt * ordered_sum.planes_dot(planes, torch.stack([sh[k] for k in order]))
+
+    x = torch.from_numpy(x0)
+    for _ in range(4):
+        y = step(x)
+        x = y / torch.clamp(ordered_sum.norm(y, structured=True), min=1e-30)
+    assert np.array_equal(_bits(want), _bits(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [((1000,), (1000,), ()), ((), (7, 33), ()),
+                                    ((5, 6), (3, 3, 5, 6), (3, 3, 5, 6)),
+                                    ((1, 1, 5, 6), (2, 3, 5, 6), (2, 3, 5, 6)),
+                                    ((4, 1, 6), (4, 5, 6), (4, 5, 6))])
+def test_fma_and_planes_sum_bit_equal_to_plain_cuda(shapes):
+    """``ordered_sum.fma`` (the ordered_fma kernel; scalar, trailing-grid and
+    expanded operands; in place into c) and ``planes_sum`` (the lanes kernel's plane mode a
+    window) on the card against their plain versions, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("the ordered_fma kernel is CUDA C++ and needs a CUDA card")
+    rng = np.random.default_rng(len(shapes[1]))
+    a, b, c = (torch.from_numpy(np.asarray(_draw(rng, s)[0], np.float32).reshape(s))
+               for s in shapes)
+    before = ordered_sum.LAUNCHES["ordered_fma"]
+    got = ordered_sum.fma(a.cuda(), b.cuda(), c.cuda()).cpu()
+    assert ordered_sum.LAUNCHES["ordered_fma"] == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       ordered_sum.fma_plain(a, b, c).view(torch.int32))
+    if c.shape == got.shape:  # in place into c, one launch
+        c_card = c.cuda().contiguous()
+        ordered_sum.fma(a.cuda(), b.cuda(), c_card, out=c_card)
+        assert torch.equal(c_card.cpu().view(torch.int32), got.view(torch.int32))
+    for D in (7, 32, 33, 125, 343):
+        x = torch.from_numpy(_draw(rng, (D, 60))[0])
+        assert torch.equal(ordered_sum.planes_sum(x.cuda()).cpu().view(torch.int32),
+                           ordered_sum.planes_sum(x).view(torch.int32)), D
+
+
+@needs_jax
+@pytest.mark.parametrize("dims,points", [((8, 8, 8), 7), ((9, 8, 7), 7),
+                                         ((33, 33, 33), 7)])
+def test_setup_power_iteration_lambda_bit_equal_to_jax(dims, points):
+    """The structured setups' λ_max(D⁻¹A) on grids where LLVM vectorises
+    the power iteration (the matvec's centre unfused where n1 = 8; the
+    (2, 2, 2) norm partials of 33³ to 64³ in two lanes) against the JAX
+    package's ``_jit_power`` on the same non-constant weights, float32 for
+    float32."""
+    import itertools
+
+    from parallel_amg_tpu.amg import device_setup as jds
+    from parallel_amg_tpu.ops.stencil import Stencil as JStencil
+    from parallel_amg_tpu_torch.ops.stencil import Stencil
+
+    rng = np.random.default_rng(sum(dims) + points)
+    offs = tuple(o for o in itertools.product((-1, 0, 1), repeat=3)
+                 if points == 27 or sum(map(abs, o)) <= 1)
+    zero = offs.index((0, 0, 0))
+    w = rng.uniform(-1.0, 1.0, size=(len(offs),) + dims).astype(np.float32)
+    w[zero] = rng.uniform(4.0, 8.0, size=dims).astype(np.float32)
+    d = (1.0 / w[zero]).astype(np.float32)
+    want = jds._jit_power(JStencil(jnp.asarray(w), offs, dims), jnp.asarray(d),
+                          iters=15, seed=1)
+    got = device_setup.power_iteration_lambda_max(
+        Stencil(torch.from_numpy(w), offs, dims), torch.from_numpy(d), 15, seed=1)
+    assert np.array_equal(_bits(want), _bits(got))

@@ -5,10 +5,11 @@ The slab path computes the dense path's triple product Tᵀ Sᵀ A S T in axis-0
 slabs with halos, so per level it must agree with the dense product to
 float32 rounding (the dense path prunes all-zero planes of its intermediates
 and the slab path does not, which adds exact zeros only) and with the JAX
-package's slab product.  Tolerances: rtol 1e-4, atol 1e-5·max|w| on coarse
-weights (float32 sums in another order, through three products), as
-tests/test_torch_structured.py holds the dense path; offsets, slab sizes and
-PCG iteration counts equal.
+package's slab product.  Against the JAX package: coarse weights bit for
+bit (the port adds in XLA's CPU order, as tests/test_torch_structured.py
+holds the dense path); against the port's dense product (another function,
+in the JAX package too): rtol 1e-4, atol 1e-5·max|w|; offsets, slab sizes
+and PCG iteration counts equal.
 """
 
 import functools
@@ -30,6 +31,8 @@ from parallel_amg_tpu_torch.amg import device_setup as ds
 from parallel_amg_tpu_torch.amg.transfers import downsample_sum_nd
 from parallel_amg_tpu_torch.ops.stencil import Stencil
 from parallel_amg_tpu_torch.problems import poisson_stencil
+
+from float_bits import assert_bits
 
 torch.set_num_threads(2)
 
@@ -96,7 +99,7 @@ def test_chunked_coarse_operator_matches_jax_and_dense(budget_rows):
         jst, jnp.asarray(d_inv.numpy()), jnp.asarray(coef.numpy()), cdims, 3,
         jnp.asarray(scale.numpy()), it, budget)
     assert A_c.offsets == jA_c.offsets and A_c.dims == cdims
-    _assert_close(A_c.weights.numpy(), jA_c.weights)
+    assert_bits(A_c.weights, jA_c.weights)
     dense = ds.coarse_operator(st, d_inv, coef, cdims,
                                _cfg(ptt, setup_product_path="dense"), scale)
     mine, ref = _planes_by_offset(A_c), _planes_by_offset(dense)
@@ -125,12 +128,8 @@ def test_slab_setup_matches_jax_level_for_level():
     assert h.n_levels >= 3
     for l, jl, ld in zip(h.levels, jh.levels, hd.levels):
         assert l.A.offsets == jl.A.offsets
-        _assert_close(l.A.weights.numpy(), jl.A.weights)
-        if np.array_equal(l.A.weights.numpy().view(np.int32),
-                          np.asarray(jl.A.weights).view(np.int32)):
-            assert l.lam_max == float(jl.lam_max)
-        else:
-            np.testing.assert_allclose(l.lam_max, float(jl.lam_max), rtol=1e-5)
+        assert_bits(l.A.weights, jl.A.weights)
+        assert l.lam_max == float(jl.lam_max)
         # the port's dense setup: the same levels
         assert l.A.offsets == ld.A.offsets
         _assert_close(l.A.weights.numpy(), ld.A.weights.numpy())
