@@ -24,7 +24,9 @@
    whole sharded setup in 4 parts, on the card, each held bit-equal to the
    port's CPU run of the same function on the same inputs; config #3 at
    128³, the card's setup against a CPU run of the same setup level by
-   level, weights, D⁻¹ and λ; ``ordered_fma`` at config #3's level-1 smoother centre
+   level, weights, D⁻¹ and λ, and against the JAX package's CPU record of
+   the same levels (artifacts/config3_jax_levels.json, line
+   ``config3_vs_jax_record``); ``ordered_fma`` at config #3's level-1 smoother centre
    against its plain version (kernel, plain and bound times); and the
    device coarse inverse (A8) of config #3's coarsest operator against the
    float64 host form.
@@ -97,7 +99,11 @@
 19. setup_dist3d: config #3 split into 4 parts on the card
     (``poisson_stencil_sharded`` over ``make_row_mesh(4)``, then
     ``sharded_device_setup`` with halo_mode "pallas_async"): seconds, peak
-    memory, true level rows (levels 0 and 1 sharded, the rest gathered).
+    memory, true level rows (levels 0 and 1 sharded, the rest gathered),
+    and every level (the split levels' padded global arrays) held to the
+    JAX package's 4-part CPU record (weights, D⁻¹, λ).  Each structured
+    setup prints its one-hot dot shapes (line ``dot_shapes``, also written
+    to build/galerkin_dot_shapes.json).
 20. Kernel B8 against its plain version (the "xla" formulation), bit for
     bit: config #3's level 0 (144×128×128 padded, random weights) and level
     1 (48×43×43, 27 points) in 4 parts, a reach-2 128³ stencil, and a case
@@ -218,6 +224,7 @@ limit.  It needs no JAX and exits non-zero where torch finds no CUDA card.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -337,10 +344,11 @@ CONFIG2_JAX = {"grid_complexity": 1.455, "operator_complexity": 2.397,
 # artifacts/distributed_rs_cpu8.json prints for its single-device run.
 CONFIG2_JAX_CPU = {"rows": [1_048_576, 382_317, 79_114, 13_825, 2_025, 289, 43],
                    "complexity": (1.455, 2.397)}
-# The JAX package's config #5 numbers: 128³×3 with the BSR fine level
-# (bench_details.json:251-254) and the 324³×3 level rows
-# (artifacts/probe_100m_bsr.log:28).
-CONFIG5_JAX = {"complexity": (1.0396, 1.1459), "pcg_iters": 12}
+# The JAX package's config #5 numbers: 128³×3 complexities with the BSR fine
+# level (bench_details.json:251-254), its PCG count on the CPU
+# (scripts/config3_cpu_counts.py 128 jax5: 11; its TPU run took 12) and the
+# 324³×3 level rows (artifacts/probe_100m_bsr.log:28).
+CONFIG5_JAX = {"complexity": (1.0396, 1.1459), "pcg_iters": 11}
 CONFIG5_100M_ROWS = [102_036_672, 3_779_136, 139_968, 5_184, 192]
 # 468³ in 8 parts: levels 0 and 1 sharded (d0p = 504), then the gathered
 # tail (plan_sharded_levels; tests/test_pdevice_setup.py:156-160).
@@ -365,6 +373,60 @@ DEVICE_SA_512_JAX = {"rows": [262_144, 36_783, 2_217, 154, 11], "pcg_iters": 14,
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DOT_SHAPES_BY_SETUP = {}
+
+
+@contextlib.contextmanager
+def record_dot_shapes(label):
+    """Keep the one-hot dot shapes (n_out, K, nc) that ``galerkin_block``
+    meets in the setup run inside the block (``device_setup._dot_order``
+    wrapped while it runs), print them and write every setup's to
+    build/galerkin_dot_shapes.json (``scripts/probe_xla_galerkin_order.py
+    --dot`` holds the port's dot order against XLA's at each)."""
+    from parallel_amg_tpu_torch.amg import device_setup
+
+    seen, inner = set(), device_setup._dot_order
+
+    def recording(n_out, K, nc):
+        seen.add((n_out, K, nc))
+        return inner(n_out, K, nc)
+
+    device_setup._dot_order = recording
+    try:
+        yield
+    finally:
+        device_setup._dot_order = inner
+    DOT_SHAPES_BY_SETUP[label] = sorted(seen)
+    emit("dot_shapes", setup=label, shapes=DOT_SHAPES_BY_SETUP[label])
+    out = os.path.join(HERE, "build")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "galerkin_dot_shapes.json"), "w") as f:
+        json.dump(DOT_SHAPES_BY_SETUP, f, indent=1)
+
+
+def hold_jax_record(h, dims, key, label):
+    """Config #3's levels of hierarchy ``h``, set up on the grid ``dims``,
+    against the JAX package's CPU record (artifacts/config3_jax_levels.json,
+    ``key`` "one_device" or "parts4", written by
+    scripts/jax_config3_levels.py): each level's weights and D⁻¹ digests and
+    λ's float32 bits.  Prints the match per level; a mismatch, or a grid
+    other than the record's, raises."""
+    from parallel_amg_tpu_torch.utils.metrics import compare_levels, level_digests
+
+    with open(os.path.join(HERE, "artifacts", "config3_jax_levels.json")) as f:
+        rec = json.load(f)
+    if tuple(dims) != (rec["n"],) * 3:
+        raise AssertionError(f"{label}: grid {tuple(dims)}, the JAX record's is "
+                             f"{rec['n']}³")
+    rows, same = compare_levels(rec[key]["levels"], level_digests(h))
+    emit("config3_vs_jax_record", setup=label, record=key, equal=same, levels=rows,
+         jax=rec["jax"], jaxlib=rec["jaxlib"], record_cpu=rec["cpu"])
+    if not same:
+        raise AssertionError(f"{label}: a level differs from the JAX package's "
+                             f"record ({key}): {rows}")
 
 
 def nvidia_smi():
@@ -951,7 +1013,8 @@ def galerkin_order_phase(c, h3):
     the dense, bucketed and slab (at least 2 slabs) products on random 3-D
     stencils, the whole sharded setup in 4 parts, and config #3 at 128³ (the
     card's setup ``h3`` against a CPU run of the same setup, timed) level by
-    level (weights, D⁻¹, λ).
+    level (weights, D⁻¹, λ), and ``h3`` against the JAX package's record of
+    the same levels (``hold_jax_record``).
     Times the ordered_fma kernel at config #3's level-1 smoother and checks
     the device coarse inverse (A8) against the float64 host form."""
     import numpy as np
@@ -1047,6 +1110,8 @@ def galerkin_order_phase(c, h3):
            seconds=time.perf_counter() - t0, config3_cpu_setup_s=cpu_s)
     if not all(checks.values()):
         raise AssertionError(f"a Galerkin product differs between card and CPU: {checks}")
+    # and against the JAX package's own levels (its CPU record)
+    hold_jax_record(h3, dims3, "one_device", "setup3d")
     if n_slabs < 2:
         raise AssertionError(f"the slab case ran {n_slabs} slab(s)")
     # ordered_fma at config #3's level-1 smoother centre plane (43³)
@@ -1743,10 +1808,11 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    t0 = time.perf_counter()
-    h3 = ptt.setup(poisson_stencil((n3,) * 3), cfg3)
-    torch.cuda.synchronize()
-    setup3_s = time.perf_counter() - t0
+    with record_dot_shapes("setup3d"):
+        t0 = time.perf_counter()
+        h3 = ptt.setup(poisson_stencil((n3,) * 3), cfg3)
+        torch.cuda.synchronize()
+        setup3_s = time.perf_counter() - t0
     launches_setup3 = {"ordered_fma": ordered_sum.LAUNCHES["ordered_fma"]}
     levels3 = [{"rows": l.A.n_rows, "points": l.A.n_points, "format": fmt(l.A),
                 "lam_max": l.lam_max,
@@ -2053,11 +2119,14 @@ def main():
     def dist_setup(dims, mesh, label):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        A_d, true_dims = ptt.poisson_stencil_sharded(dims, mesh, cfg3_async)
-        hd = ptt.sharded_device_setup(A_d, cfg3_async, true_dims=true_dims)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        before = dict(ordered_sum.LAUNCHES)
+        with record_dot_shapes(label):
+            t0 = time.perf_counter()
+            A_d, true_dims = ptt.poisson_stencil_sharded(dims, mesh, cfg3_async)
+            hd = ptt.sharded_device_setup(A_d, cfg3_async, true_dims=true_dims)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        ordered_launches = {k: v - before[k] for k, v in ordered_sum.LAUNCHES.items()}
         levels = [{"rows": l.n, "padded_rows": l.A.n_rows, "format": fmt(l.A),
                    "points": l.A.n_points, "parts": getattr(getattr(l.A, "mesh", None),
                                                              "size", None),
@@ -2066,12 +2135,13 @@ def main():
         info = dict(problem=f"poisson_stencil_sharded({dims}, make_row_mesh({mesh.size}))",
                     seconds=secs, n_levels=hd.n_levels, levels=levels,
                     padded_dims=list(A_d.dims), setup_stats=hd.setup_stats,
-                    complexity=hd.complexity(),
+                    ordered_sum_launches=ordered_launches, complexity=hd.complexity(),
                     peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
         emit(label, **info)
         return hd, info
 
     hd3, info_d3 = dist_setup(dims3, mesh4, "setup_dist3d")
+    hold_jax_record(hd3, dims3, "parts4", "setup_dist3d")
     rows_d3 = [lv["rows"] for lv in info_d3["levels"]]
     if rows_d3 != CONFIG3_ROWS:
         raise AssertionError(f"config #3 in 4 parts: levels {rows_d3}, want {CONFIG3_ROWS}")
@@ -3104,10 +3174,11 @@ def main():
         L, _ = coupled_laplacian(dims, 3, 0.3)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        hv = ptt.setup_vector_kron(L, C5, cfg3, fine_format=fine_format)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        with record_dot_shapes(f"{label} {fine_format}"):
+            t0 = time.perf_counter()
+            hv = ptt.setup_vector_kron(L, C5, cfg3, fine_format=fine_format)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
         gc, oc = hv.complexity()
         levels = [{"node_rows": l.n // 3, "rows": l.n, "format": fmt(l.A),
                    "points": getattr(l.A, "n_points", None),

@@ -52,34 +52,48 @@ def start_vector(dims, dtype, device, seed: int = 0):
     return (prng.uniform(dims, seed, dtype) - 0.5).to(device)
 
 
+def ordered_planes(A: Stencil):
+    """The plane order of the JAX package's CPU stencil product in its power
+    iterations (one fma chain over the offsets, the first two taken as
+    ``ordered_sum.STENCIL_FIRST``, then the rest in offset order) and A's
+    planes in that order (a copy)."""
+    K = len(A.offsets)
+    order = list(ordered_sum.STENCIL_FIRST) + list(range(2, K)) if K > 1 else [0]
+    return order, A.weights[order]
+
+
+def ordered_apply(order, planes, A: Stencil, x, split=None):
+    """A x for float32 ``planes = ordered_planes(A)[1]``, added in that
+    order: one fma chain (``ordered_sum.planes_dot``), or, where ``split`` is
+    the centre's position (``_unfused_centre``), the centre's product added
+    rounded, as LLVM's vector loop adds it."""
+    shifted = A.shifted(x)
+    xs = torch.stack([shifted[d] for d in order])
+    if split is None:
+        return ordered_sum.planes_dot(planes, xs)
+    s = ordered_sum.planes_dot(planes[:split], xs[:split])
+    s = s + planes[split] * xs[split]
+    for k in range(split + 1, len(order)):
+        s = ordered_sum.fma(planes[k], xs[k], s)
+    return s
+
+
 def power_iteration_lambda_max(A: Stencil, d_inv, iters: int, seed: int = 0):
     """λ_max(D⁻¹A) estimate as a 0-d tensor (1.1 safety factor, as the
     oracle); no host read.  The matvec adds its products in the JAX
-    package's CPU order (one fma chain over the offsets, the first two taken
-    as ``ordered_sum.STENCIL_FIRST``, the centre unfused where
+    package's CPU order (``ordered_apply``, the centre unfused where
     ``_unfused_centre`` says) and the norm's sum is ``ordered_sum.sumsq``,
     so a float32 λ is the JAX package's bit for bit (other types take
     torch's order); the solve path's ``Stencil.matvec`` keeps torch's
     order."""
     x = start_vector(A.dims, A.weights.dtype, A.weights.device, seed)
     ordered = A.weights.dtype == torch.float32
-    K = len(A.offsets)
-    order = list(ordered_sum.STENCIL_FIRST) + list(range(2, K)) if K > 1 else [0]
-    planes = A.weights[order]
+    order, planes = ordered_planes(A)
     split = _unfused_centre(A, order)
     lam = torch.ones((), dtype=x.dtype, device=x.device)
     for _ in range(iters):
         if ordered:
-            shifted = A.shifted(x)
-            xs = torch.stack([shifted[d] for d in order])
-            if split is None:
-                s = ordered_sum.planes_dot(planes, xs)
-            else:  # LLVM's vector loop adds the centre's rounded product
-                s = ordered_sum.planes_dot(planes[:split], xs[:split])
-                s = s + planes[split] * xs[split]
-                for k in range(split + 1, K):
-                    s = ordered_sum.fma(planes[k], xs[k], s)
-            y = d_inv * s
+            y = d_inv * ordered_apply(order, planes, A, x, split)
             nrm = ordered_sum.norm(y, structured=True)
         else:
             y = d_inv * A.matvec(x)
@@ -129,6 +143,19 @@ def block_scale(counts):
     other = (1.0 / torch.sqrt(c.double())).to(c.dtype)
     return torch.where(exact, table[(idx.clamp(max=len(_XLA_RSQRT_BITS)) - 1)],
                        other)
+
+
+def eager_block_scale(counts):
+    """1/√max(count, 1) of float32 counts as the JAX package's distributed
+    setup computes it (``parallel_amg_tpu/parallel/pdevice_setup.py``,
+    eager, not jitted): the square root correctly rounded, then 1 over it
+    correctly rounded.  Taken in float64 and rounded once (exact for a
+    square root and a quotient of float32 values), so the same on every
+    device; it differs from ``block_scale`` at c = 6, 7, 17, 18, 21, 24, 28,
+    34, 42, 53 and 55."""
+    c = torch.clamp(counts, min=1.0)
+    root = torch.sqrt(c.double()).float()
+    return (1.0 / root.double()).float()
 
 
 def _unfused_centre(A: Stencil, order):
@@ -217,37 +244,92 @@ def _normalize(planes, out_offs, cdims, scale, halo0: int = 0):
     return planes * scale[rows][None] * col_scales
 
 
-def _dot_lanes(K: int, nc: int) -> bool:
-    """Whether the JAX package's one-hot dot ``onehot (n_out, K) @ piece (K,
-    nc)`` adds in four lanes (True) or in one chain over k (False).
-
-    Read off XLA's CPU dot (the Eigen contraction jaxlib 0.9.0 links) by
-    revealing the tree of each output's sum (a pair of ±2⁴⁰ among ones gives
-    the size of their lowest common subtree): with nc of 2 to 16 columns and
-    K > 16 it keeps four accumulators, k mod 4, over the first ⌊K/4⌋·4 terms,
-    adds them as (0 + 1) + (2 + 3), and adds the rest, summed as a chain of
-    their own, last; otherwise one chain in k order (measured for K ≤ 343 and
-    n_out 9 and 27 up to K·nc·n_out of about 5·10⁵; larger products go to
-    Eigen's blocked, threaded kernels, whose k-blocks this rule does not
-    follow)."""
-    return 2 <= nc <= 16 and K > 16
+# The k-blocked dot's budget: a column tile of w columns takes k-blocks of
+# ⌊DOT_BUDGET / w⌋ terms (see ``_dot_order``).
+DOT_BUDGET = 32768
+# The k-block of a full column tile by n_out, for the n_out that were read,
+# as (K below which, k-block): the first entry whose bound exceeds K applies,
+# else the last k-block.
+_DOT_KC = {9: ((32, 8), (64, 16), (126, 32), (248, 64), (None, 128)),
+           27: ((63, 16), (121, 32), (228, 64), (None, 128))}
+# n_out ≥ 64 was read at K 343: four lanes at nc 3,375, one chain at 200,000.
+_DOT_LANES_NC = 3375
 
 
-def _onehot_dot(ids, piece, n_out: int, lanes: bool):
+def _dot_order(n_out: int, K: int, nc: int):
+    """The order of the JAX package's one-hot dot ``onehot (n_out, K) @ piece
+    (K, nc)`` on its CPU backend: ``("lanes", None)``, ``("blocks", (tile,
+    kc))`` or ``("chain", None)``.
+
+    Read off XLA's CPU dot (jaxlib 0.9.0, an 8-core x86-64 CPU with AVX-512)
+    by revealing the tree of each output's sum: a pair of ±2⁴⁰ among ones
+    gives the size of their lowest common subtree
+    (``scripts/probe_xla_galerkin_order.py --dot`` re-reads it, checks this
+    rule at every shape the setups meet and warns at an n_out not read).
+
+    - "lanes": with nc of 2 to 16 columns and K > 16, or with n_out ≥ 64 and
+      nc ≤ 3,375 (read at K 343, nc 3,375), four accumulators, k mod 4, over
+      the first ⌊K/4⌋·4 terms, added as (0 + 1) + (2 + 3), then the rest,
+      summed as a chain of their own, last.
+    - "blocks", for n_out 9 and 27: the columns are cut into tiles of
+      ``tile`` from column 0 (the last tile may be narrower); a tile of w
+      columns sums k in blocks of kc_w = ⌊32768 / w⌋ terms from k = 0, each
+      block one chain from +0.0, and the block sums are chained in k order
+      (one chain where kc_w ≥ K).  A full tile's kc = 32768 / tile grows
+      with K (``_DOT_KC``: read for K 17 to 344 at nc 8,192, 12,345 and
+      20,000).  So config #3's level 1 → 2 dot, (27, 251, 3375), adds k in
+      blocks of 128 over columns 0–3327 and in one chain over the 47
+      columns after them.
+    - "chain": one chain in k order; read for n_out ≥ 64 at (125, 343,
+      200,000).  Any other n_out takes it too, not read (ROADMAP C7c): the
+      setups of the repo meet n_out 27 only, and where K ≤ 16 every order
+      above is this chain.
+    """
+    if 2 <= nc <= 16 and K > 16:
+        return "lanes", None
+    if n_out in _DOT_KC:
+        kc = next(k for bound, k in _DOT_KC[n_out] if bound is None or K < bound)
+        return "blocks", (DOT_BUDGET // kc, kc)
+    if n_out >= 64 and nc <= _DOT_LANES_NC:
+        return "lanes", None
+    return "chain", None
+
+
+def _onehot_dot(ids, piece, n_out: int, order):
     """Σ_k onehot[o, k]·piece[k] for onehot[o, k] = (ids[k] == o), in the
-    order of ``_dot_lanes``: exact adds (``bucket_add``), so the bits are the
-    same on every device."""
+    order ``order`` of ``_dot_order``: exact adds (``bucket_add``), so the
+    bits are the same on every device.  The k-blocks of a column group are
+    summed in one ``bucket_add`` (block b's terms into rows b·n_out + o),
+    then chained in k order."""
+    kind, plan = order
+    K = len(ids)
     out = torch.zeros((n_out,) + tuple(piece.shape[1:]), dtype=piece.dtype,
                       device=piece.device)
-    K = len(ids)
-    if not lanes:
+    if kind == "chain":
         return bucket_add(out, ids, piece)
-    main = K // 4 * 4
-    acc = [bucket_add(torch.zeros_like(out), ids[q:main:4], piece[q:main:4])
-           for q in range(4)]
-    out = (acc[0] + acc[1]) + (acc[2] + acc[3])
-    if main < K:
-        out = out + bucket_add(torch.zeros_like(out), ids[main:], piece[main:])
+    if kind == "lanes":
+        main = K // 4 * 4
+        acc = [bucket_add(torch.zeros_like(out), ids[q:main:4], piece[q:main:4])
+               for q in range(4)]
+        out = (acc[0] + acc[1]) + (acc[2] + acc[3])
+        if main < K:
+            out = out + bucket_add(torch.zeros_like(out), ids[main:], piece[main:])
+        return out
+    tile, _ = plan
+    nc = piece.shape[1]
+    full = nc // tile * tile
+    for lo, hi, w in ((0, full, tile), (full, nc, nc - full)):
+        if lo == hi:
+            continue
+        kc = DOT_BUDGET // w
+        nb = -(-K // kc)
+        blocks = torch.zeros((nb * n_out, hi - lo), dtype=piece.dtype, device=piece.device)
+        bucket_add(blocks, [k // kc * n_out + o for k, o in enumerate(ids)],
+                   piece[:, lo:hi])
+        acc = blocks[:n_out]
+        for b in range(1, nb):
+            acc = acc + blocks[b * n_out:(b + 1) * n_out]
+        out[:, lo:hi] = acc
     return out
 
 
@@ -259,7 +341,7 @@ def galerkin_block(M: Stencil, cdims, block: int, scale,
     takes all D planes, and each fine offset o lands in the coarse offset
     floor((rp+o)/b) per axis; the residues' sums are added in residue order.
     The JAX package sums each residue by a one-hot dot, whose order
-    ``_dot_lanes`` gives; the port adds the same terms in that order
+    ``_dot_order`` gives; the port adds the same terms in that order
     (``_onehot_dot``).
 
     scale_halo0 > 0 means ``scale`` already carries that many halo rows on
@@ -277,13 +359,13 @@ def galerkin_block(M: Stencil, cdims, block: int, scale,
     nc = int(np.prod(cdims))
     acc = torch.zeros((len(out_offs), nc), dtype=M.weights.dtype,
                       device=M.weights.device)
-    lanes = _dot_lanes(D, nc)
+    order = _dot_order(len(out_offs), D, nc)
     for rp in itertools.product(range(b), repeat=nd):
         piece = Wp[(slice(None),) + tuple(slice(rp[i], fpad[i], b)
                                           for i in range(nd))].reshape(D, nc)
         ids = [oidx[tuple((rp[i] + o[i]) // b for i in range(nd))]
                for o in M.offsets]
-        acc = acc + _onehot_dot(ids, piece, len(out_offs), lanes)
+        acc = acc + _onehot_dot(ids, piece, len(out_offs), order)
     planes = acc.reshape((len(out_offs),) + tuple(cdims))
     r0 = max(abs(o[0]) for o in out_offs)
     if scale_halo0 and scale_halo0 < r0:

@@ -67,7 +67,8 @@ a loop of two or more iterations (a loop of one is compiled otherwise), and
 - a norm's Σ y² (``sumsq``): one fma chain in row-major order where no axis
   is longer than 32, otherwise the windows rule on the rounded squares (on
   a grid of three axes: blocks of up to 32 per axis, then the partials in
-  row-major order); over parts (``pgrid.ordered_norm``) each part's Σ y²,
+  row-major order, or in lanes across their middle axis where it is 2, 4
+  or 8 long); over parts (``pgrid.ordered_norm``) each part's Σ y²,
   then the parts' sums left to right; then the correctly rounded square
   root (``sqrt``).
 
@@ -273,10 +274,21 @@ def sumsq(y, structured: bool = False):
     before it (read off the optimised IR of the norm's fusion), the grid is
     summed in lanes across the axis before the last (``_middle_lanes_vf``,
     ``_middle_lanes``).  Other small grids that LLVM vectorises (8², (12,
-    4), (7, 16, 5)) still take the rule above: ROADMAP C7b.  A three-axis
-    grid whose block partials are (n0, 2, 2) (33 to 64 per axis, 43³ and
-    33³ among them) adds the partials in two lanes across the middle axis
-    the same way.
+    4), (7, 16, 5)) still take the rule above: ROADMAP C7b.
+
+    A three-axis grid longer than 32 on some axis: XLA rounds the squares
+    (a fusion of their own), sums each window of up to 32³ as one chain in
+    row-major order (``reduce-window``), and reduces the (p0, p1, p2) block
+    partials in a fusion that LLVM vectorises where p1 is 2, 4 or 8: p1
+    lanes across the middle axis (``_middle_lanes``), slab by slab; other
+    partials (3³, 5³, 11³, 7 × 5 × 3) are one chain in row-major order.
+    Read off the optimised IR of the JAX package's power iteration at 43³,
+    64 × 128 × 128, 96³, 100³, 108³, 128³, 128 × 64 × 128, 128 × 128 × 64,
+    160³, 256³ and 324³, and of its sharded power iteration in 4 parts at
+    144 × 128 × 128 and 48 × 43 × 43 (the parts' own sums, before the
+    all-reduce), so it holds with or without ``structured``.  Config #3's
+    128³ grid has (4, 4, 4) partials in four lanes, its 4-part level 0
+    (2, 4, 4) per part.
     """
     if y.dim() == 0 or y.dim() > 3:
         raise ValueError(f"sumsq takes 1 to 3 axes, not {y.dim()}")
@@ -293,9 +305,9 @@ def sumsq(y, structured: bool = False):
     if max(parts.shape) > WINDOW:
         raise ValueError(f"sumsq: a grid of {tuple(y.shape)} leaves partials "
                          f"{tuple(parts.shape)} longer than {WINDOW}")
-    if structured and parts.shape[1:] == (2, 2):
-        # LLVM adds (n0, 2, 2) partials in two lanes across the middle axis
-        return _middle_lanes(parts, 2, square=False)
+    if parts.shape[1] in (2, 4, 8):
+        # LLVM adds the partials in p1 lanes across the middle axis
+        return _middle_lanes(parts, parts.shape[1], square=False)
     return row_sum(parts.reshape(1, -1), 1, CHAIN)[0]
 
 

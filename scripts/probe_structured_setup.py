@@ -16,11 +16,13 @@ with the peak memory reset, and prints one JSON line: both setups' seconds
 Run from the repository root on a machine with a card:
 
     python3 scripts/probe_structured_setup.py --tree parent=DIR \\
-        [--rounds 2] [--cells setup3d,setup_vec] [--profile]
+        [--rounds 2] [--cells setup3d,setup_vec] [--profile] [--stages]
 
 Rounds run every tree in turn (change, parent, parent, change, ...).
 ``--profile`` adds, per tree, the setup3d cell's ten largest device
-operations under torch.profiler.
+operations under torch.profiler.  ``--stages`` adds the warm setup's seconds
+in each of ``STAGES`` (synchronised before and after each call, summed over
+calls; a stage inside another counts in both), where the tree has it.
 """
 
 from __future__ import annotations
@@ -40,7 +42,41 @@ LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm", "bsr_spmv",
              "flatdia_spmm", "halo_stencil", "ordered_sum")
 
 
-def _child(tree: str, cell: str, profile: bool) -> None:
+# (module under parallel_amg_tpu_torch, function) timed by --stages
+STAGES = (("amg.device_setup", "power_iteration_lambda_max"),
+          ("amg.device_setup", "coarse_operator"),
+          ("amg.device_setup", "galerkin_block"),
+          ("amg.device_setup", "_onehot_dot"),
+          ("amg.device_setup", "_slab_coarse_operator"),
+          ("parallel.pdevice_setup", "_sharded_power"),
+          ("parallel.pdevice_setup", "sharded_coarse_operator"),
+          ("parallel.pdevice_setup", "_sharded_sparsify_sym"))
+
+
+def _time_stages(totals: dict) -> None:
+    """Wrap each of ``STAGES`` that the imported tree has in a synchronised
+    timer adding its seconds to ``totals``."""
+    import importlib
+
+    import torch
+
+    for mod_name, name in STAGES:
+        mod = importlib.import_module(f"parallel_amg_tpu_torch.{mod_name}")
+        fn = getattr(mod, name, None)
+        if fn is None:
+            continue
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = _fn(*a, **k)
+            torch.cuda.synchronize()
+            totals[_name] = totals.get(_name, 0.0) + time.perf_counter() - t
+            return r
+        setattr(mod, name, timed)
+
+
+def _child(tree: str, cell: str, profile: bool, stages: bool = False) -> None:
     sys.path.insert(0, tree)
     import torch
 
@@ -87,6 +123,13 @@ def _child(tree: str, cell: str, profile: bool) -> None:
            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
            "rows": [l.n for l in h.levels]}
     del h
+    if stages:
+        totals: dict = {}
+        _time_stages(totals)
+        t0 = time.perf_counter()
+        run(cell, n)
+        out["staged_seconds"] = time.perf_counter() - t0
+        out["stage_seconds"] = totals
     if profile:
         from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -110,11 +153,12 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--cells", default=",".join(CELLS))
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--stages", action="store_true")
     ap.add_argument("--child", nargs=2, metavar=("TREE", "CELL"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        _child(args.child[0], args.child[1], args.profile)
+        _child(args.child[0], args.child[1], args.profile, args.stages)
         return
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     trees = [("change", here)] + [tuple(t.split("=", 1)) for t in args.tree]
@@ -127,6 +171,8 @@ def main() -> None:
                        os.path.abspath(tree), cell]
                 if args.profile and r == 0 and cell == "setup3d":
                     cmd.append("--profile")
+                if args.stages:
+                    cmd.append("--stages")
                 p = subprocess.run(cmd, capture_output=True, text=True)
                 line = p.stdout.strip().splitlines()[-1] if p.stdout.strip() else ""
                 if p.returncode != 0 or not line:

@@ -11,8 +11,18 @@ smallest subtree that holds the pair, so all pairs give the whole tree
         [--bucketed] [--norms]
 
 - ``--dot``: the one-hot dot of ``galerkin_block`` (onehot (n_out, K) @
-  piece (K, nc)): for each shape, the share of outputs that one chain over
-  k, or the four-lane order of ``device_setup._dot_lanes``, reproduces.
+  piece (K, nc)) at every shape the setups meet: config #3 at 128³ on one
+  device and in 4 parts and config #5 at 128³×3, each run here to collect
+  its shapes (``device_setup._dot_order``'s arguments), and the shapes of 324³×3 and
+  468³ in 8 parts that chip_smoke.py recorded on the card
+  (artifacts/galerkin_dot_shapes.json, a copy of the
+  build/galerkin_dot_shapes.json it writes), with the tests' shapes.  For each
+  it reveals the tree along leaf 0 in every output column (the size of the
+  subtree leaf 0 shares with leaf k, for every k: a chain gives k + 1, a
+  k-block boundary a jump), prints the column ranges and their k-blocks,
+  and the share of outputs ``device_setup._dot_order`` reproduces on
+  random data with ``galerkin_block``'s one-hot pattern (it should be 1),
+  with a warning where n_out is one ``_dot_order`` was not read for.
 - ``--pool``: the tree of the padded ``reduce_window`` of the bucketed
   product for every padding of a 3-D block of 3 (``device_setup._window_sum``).
 - ``--rsqrt``: XLA's 1/√c for c = 1 … 64 against ``device_setup.block_scale``.
@@ -63,37 +73,133 @@ def tree(S, idx):
     return f"({tree(S, a)}+{tree(S, b)})"
 
 
-def _chain(V):
-    acc = np.zeros(V.shape[1:], F32)
-    for k in range(V.shape[0]):
-        acc = (acc + V[k]).astype(F32)
-    return acc
+DOT_SHAPES_FILE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "artifacts", "galerkin_dot_shapes.json")
+# shapes the tests hold (tests/test_torch_config3_order.py)
+TEST_DOT_SHAPES = [(27, 343, 3375), (27, 216, 3375), (27, 125, 3375),
+                   (64, 343, 3375), (27, 343, 1800)]
 
 
-def _lanes4(V):
-    K = V.shape[0]
-    main = K // 4 * 4
-    L = [_chain(V[q:main:4]) for q in range(4)]
-    out = ((L[0] + L[1]).astype(F32) + (L[2] + L[3]).astype(F32)).astype(F32)
-    return (out + _chain(V[main:])).astype(F32) if main < K else out
+def setup_dot_shapes():
+    """{setup: [(n_out, K, nc), ...]} of config #3 at 128³ (one device and 4
+    parts) and config #5 at 128³×3, run here on the CPU, and of the setups
+    chip_smoke.py recorded on the card."""
+    import json
+
+    import parallel_amg_tpu_torch as ptt
+    from parallel_amg_tpu_torch.problems import poisson_stencil
+    from parallel_amg_tpu_torch.problems.elasticity import coupled_laplacian
+
+    cfg = ptt.AMGConfig(coarsening="sa", aggregate="block", block_size=3,
+                        smoother="chebyshev", n_coarse_max=512, on_device_setup=True)
+    def one_device():
+        return ptt.setup(poisson_stencil((128,) * 3, device="cpu"), cfg, device="cpu")
+
+    def four_parts():
+        A, td = ptt.poisson_stencil_sharded((128,) * 3, ptt.make_row_mesh(4, device="cpu"),
+                                            cfg)
+        return ptt.sharded_device_setup(A, cfg, true_dims=td)
+
+    def config5():
+        L, C = coupled_laplacian((128,) * 3, 3, 0.3, device="cpu")
+        return ptt.setup_vector_kron(L, C, cfg)
+
+    runs = {"config3 128^3": one_device, "config3 128^3 in 4 parts": four_parts,
+            "config5 128^3x3": config5}
+    shapes, inner = {}, ds._dot_order
+    for name, run in runs.items():
+        seen = set()
+
+        def recording(n_out, K, nc):
+            seen.add((n_out, K, nc))
+            return inner(n_out, K, nc)
+
+        ds._dot_order = recording
+        try:
+            run()
+        finally:
+            ds._dot_order = inner
+        shapes[name] = sorted(seen)
+    if os.path.exists(DOT_SHAPES_FILE):
+        with open(DOT_SHAPES_FILE) as f:
+            for name, sh in json.load(f).items():
+                shapes[f"{name} (card)"] = [tuple(x) for x in sh]
+    return shapes
+
+
+def reveal_leaf0(n_out, K, nc):
+    """Per output column, the size of the smallest subtree holding leaves 0
+    and k, for k = 1 … K−1 (row 0 of the output): ±2⁴⁰ at k = 0 and k among
+    ones."""
+    dot = jax.jit(lambda a, b: a @ b)
+    oh = jnp.asarray(np.ones((n_out, K), F32))
+    S0 = np.zeros((nc, K), np.int64)
+    for k in range(1, K):
+        T = np.ones((K, nc), F32)
+        T[0], T[k] = BIG, -BIG
+        S0[:, k] = K - np.rint(np.asarray(dot(oh, jnp.asarray(T)))[0]).astype(np.int64)
+    return S0
+
+
+def k_blocks(s0, K):
+    """The k-block starts along leaf 0's path (a chain from each start, the
+    block sums chained: leaf 0 meets a later block once that block is
+    whole), or None where the tree is not of that form (lanes)."""
+    starts, k = [0], 1
+    while k < K and s0[k] == k + 1:
+        k += 1
+    while k < K:
+        starts.append(k)
+        j = k
+        while j + 1 < K and s0[j + 1] == s0[k]:
+            j += 1
+        if s0[k] != j + 1:
+            return None
+        k = j + 1
+    return starts
+
+
+def _dot_equal(n_out, K, nc, seed=1):
+    """Share of outputs where the port's ``_onehot_dot`` in ``_dot_order``'s
+    order equals the jitted JAX ``a @ b`` on a random one-hot pattern."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n_out, K)
+    oh = (ids[None, :] == np.arange(n_out)[:, None]).astype(F32)
+    T = (rng.standard_normal((K, nc)) * np.exp2(rng.integers(-8, 8, (K, nc)))).astype(F32)
+    want = np.asarray(jax.jit(lambda a, b: a @ b)(oh, T))
+    got = ds._onehot_dot(ids.tolist(), torch.from_numpy(T), n_out,
+                         ds._dot_order(n_out, K, nc)).numpy()
+    return float((want.view(np.int32) == got.view(np.int32)).mean())
 
 
 def probe_dot():
-    dot = jax.jit(lambda a, b: a @ b)
-    rng = np.random.default_rng(1)
-    print("n_out K nc: share of outputs in one chain / in four lanes")
-    for n_out in (9, 27):
-        for K in (25, 49, 93, 125, 343):
-            row = []
-            for nc in (4, 12, 16, 17, 64, 125, 1000, 3375):
-                oh = np.ones((n_out, K), F32)
-                T = (rng.standard_normal((K, nc))
-                     * np.exp2(rng.integers(-8, 8, (K, nc)))).astype(F32)
-                got = np.asarray(dot(oh, T))
-                V = np.broadcast_to(T[:, None, :], (K, n_out, nc))
-                row.append(f"{nc}:{(got == _chain(V)).mean():.2f}/"
-                           f"{(got == _lanes4(V)).mean():.2f}")
-            print(n_out, K, " ".join(row), flush=True)
+    shapes = setup_dot_shapes()
+    shapes["tests"] = TEST_DOT_SHAPES
+    seen = set()
+    for name, sh in shapes.items():
+        print("setup", name, "shapes", sh, flush=True)
+        for n_out, K, nc in sh:
+            if (n_out, K, nc) in seen:
+                continue
+            seen.add((n_out, K, nc))
+            if n_out not in ds._DOT_KC:
+                print(f"  warning: n_out {n_out} is not one _dot_order's k-block "
+                      f"table was read for ({sorted(ds._DOT_KC)}); its order "
+                      f"{ds._dot_order(n_out, K, nc)} holds only where the "
+                      f"share below is 1 (ROADMAP C7c)", flush=True)
+            S0 = reveal_leaf0(n_out, K, nc)
+            groups, prev = [], "none yet"
+            for j in range(nc):
+                b = k_blocks(S0[j], K) or "not blocks (lanes)"
+                if b != prev:
+                    groups.append([j, j, b])
+                    prev = b
+                else:
+                    groups[-1][1] = j
+            print(f"  ({n_out}, {K}, {nc}): XLA's k-blocks by column "
+                  + "; ".join(f"{a}-{z}: {b}" for a, z, b in groups)
+                  + f"; _dot_order {ds._dot_order(n_out, K, nc)}; share of outputs "
+                  f"equal {_dot_equal(n_out, K, nc):.4f}", flush=True)
 
 
 def probe_pool():
