@@ -29,7 +29,16 @@
    ``config3_vs_jax_record``); ``ordered_fma`` at config #3's level-1 smoother centre
    against its plain version (kernel, plain and bound times); and the
    device coarse inverse (A8) of config #3's coarsest operator against the
-   float64 host form.
+   float64 host form.  Then ``ordered_stencil_matvec`` (the power
+   iterations' D⁻¹·A·x, one launch a card) on config #3's level 0 and on a
+   grid whose centre is added unfused, bit-equal to its plain version and
+   to the ordered-sum launches the power iterations took before it, with
+   its device ms and that sequence's in turns, the plain version's, one
+   cuSPARSE CSR product of D⁻¹A's and the bound (again on config #3's two
+   split levels in 4 parts after phase 19
+   and on 468³'s in 8 parts in phase 23).  setup3d holds one
+   ``ordered_stencil_matvec`` an iteration of every level's power
+   iteration.
 6. Kernel B2 (flatdia_spmv) against its plain version on a random 7-point
    128³ stencil, config #3's level-1 coarse stencil, config #2's widest DIA
    level and a tiny grid whose flattened planes alias, in float32 and
@@ -101,7 +110,10 @@
     ``sharded_device_setup`` with halo_mode "pallas_async"): seconds, peak
     memory, true level rows (levels 0 and 1 sharded, the rest gathered),
     and every level (the split levels' padded global arrays) held to the
-    JAX package's 4-part CPU record (weights, D⁻¹, λ).  Each structured
+    JAX package's 4-part CPU record (weights, D⁻¹, λ).  Each sharded setup
+    prints its ordered-sum launches and those of its sharded power
+    iterations apart, held to one ``ordered_stencil_matvec`` an iteration
+    and no ``ordered_fma``.  Each structured
     setup prints its one-hot dot shapes (line ``dot_shapes``, also written
     to build/galerkin_dot_shapes.json).
 20. Kernel B8 against its plain version (the "xla" formulation), bit for
@@ -128,7 +140,10 @@
     product and a product with explicit zeros; the product's time beside
     its bound, the plain version's and cuSPARSE's (after phase 11).
 23. slice_dist_100m: 468³ = 102,503,232 DOF in 8 parts on the card: setup
-    seconds, peak memory, level rows, B8 at level 0 (one launch, bit-equal,
+    seconds, peak memory, level rows, level 0's λ and the power iteration on
+    the seeded operator of level 1's shape against the JAX package's CPU
+    record (artifacts/p468_jax_power.json, line ``p468_vs_jax_record``),
+    ``ordered_stencil_matvec`` on both split levels, B8 at level 0 (one launch, bit-equal,
     and the copy-stream path's time beside it), amg_pcg to 1e-6 within 60
     iterations with the float64 true residual.  It runs last, with the
     earlier hierarchies freed.
@@ -311,6 +326,20 @@ KERNELS = {
                   "accumulators stay in registers; rows of up to 32 staged in "
                   "shared memory, planes read coalesced; __fadd_rn or "
                   "__fmaf_rn"},
+    # not a TPU kernel: the power iterations' stencil matvec D⁻¹·A·x in the
+    # JAX package's CPU order, every part of a card in one launch, on B8's
+    # part table (ops/ordered_stencil.py)
+    "ordered_stencil_matvec": {
+        "source": HALO_SOURCE,
+        "replaces": "none (the JAX package's CPU order of its power iterations' "
+                    "matvec, parallel_amg_tpu/amg/device_setup.py:51-65 and the "
+                    "sharded xla matvec, parallel_amg_tpu/parallel/pstencil.py:157-221); "
+                    "it replaces the ordered_sum_lanes and ordered_fma launches and "
+                    "the stack copies of the port's earlier power iterations",
+        "design": "a thread a group of 4 points of a part, every part of a card in one "
+                  "launch (B8's HaloParts table, halos read in place): the fma chain "
+                  "in the JAX package's plane order with the zero terms kept, the "
+                  "halo terms' fmas on the planes they reach, D^-1 in the epilogue"},
     # not a TPU kernel: the fused multiply-add XLA's CPU backend contracts in
     # the structured setups' smoothers (amg/device_setup.py)
     "ordered_fma": {
@@ -326,7 +355,7 @@ PORT_KERNEL_NAMES = ("twell_stream_kernel", "flatdia_spmv_kernel",
                      "flatdia_spmm_kernel", "bsr_spmv_kernel", "expand_kernel",
                      "merge_kernel", "matvec_kernel", "boundary_kernel", "ordered_sum_staged",
                      "ordered_sum_windows", "ordered_sum_windows_span",
-                     "ordered_sum_lanes", "ordered_fma_kernel")
+                     "ordered_sum_lanes", "ordered_fma_kernel", "ordered_kernel")
 LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm", "bsr_spmv",
              "flatdia_spmm", "halo_stencil", "ordered_sum")  # csrc/<name>.cu
 CONFIG3_ROWS = [2_097_152, 79_507, 3_375, 125]
@@ -371,8 +400,13 @@ DEVICE_SA_512_JAX = {"rows": [262_144, 36_783, 2_217, 154, 11], "pcg_iters": 14,
                      "oracle_greedy_iters": 8}
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, with the seconds since the script started (``t_s``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - T0, 3)}), flush=True)
 
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -944,6 +978,184 @@ def lambda_cpu_check(c, label, lams_card, lam_cpu_fns):
     c.emit("lambda_max_vs_cpu", path=label, lam_card=lams_card, lam_cpu=lams_cpu,
            bit_equal=equal, cpu_seconds=time.perf_counter() - t0)
     return all(equal) and len(lams_card) == len(lams_cpu)
+
+
+@contextlib.contextmanager
+def power_launches(counts):
+    """Count the ordered-sum launches of the sharded power iterations
+    (``pdevice_setup._sharded_power``) run inside the block apart from the
+    rest: ``counts`` gets "sharded_power" (per kernel) and "calls"."""
+    from parallel_amg_tpu_torch.ops import ordered_sum
+    from parallel_amg_tpu_torch.parallel import pdevice_setup
+
+    inner = pdevice_setup._sharded_power
+    counts.update(calls=0, sharded_power={k: 0 for k in ordered_sum.LAUNCHES})
+
+    def counting(*args, **kw):
+        before = dict(ordered_sum.LAUNCHES)
+        lam = inner(*args, **kw)
+        counts["calls"] += 1
+        for k, v in ordered_sum.LAUNCHES.items():
+            counts["sharded_power"][k] += v - before[k]
+        return lam
+
+    pdevice_setup._sharded_power = counting
+    try:
+        yield counts
+    finally:
+        pdevice_setup._sharded_power = inner
+
+
+def scaled_stencil_csr(W, offsets, dims, row_scale):
+    """diag(row_scale)·A of the stencil (W, offsets, dims) as one sparse CSR
+    on W's card (int32 indices): each row's nonzero couplings inside the
+    grid, columns ascending.  Built straight from the planes (no sort), so
+    it fits beside 468³'s hierarchy."""
+    import math
+
+    import torch
+
+    dev, n = W.device, math.prod(dims)
+    strides = [math.prod(dims[a + 1:]) for a in range(len(dims))]
+    flat = [sum(o * st for o, st in zip(off, strides)) for off in offsets]
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    vals, cols, keep = [], [], []
+    for d in sorted(range(len(offsets)), key=flat.__getitem__):
+        inside = torch.ones(dims, dtype=torch.bool, device=dev)
+        for a, o in enumerate(offsets[d]):  # the neighbour lies off the grid
+            edge = [slice(None)] * len(dims)
+            edge[a] = slice(0, -o) if o < 0 else slice(dims[a] - o, dims[a])
+            if o:
+                inside[tuple(edge)] = False
+        v = (row_scale * W[d]).reshape(-1)
+        keep.append(inside.reshape(-1) & (v != 0))
+        vals.append(v)
+        cols.append(rows + flat[d])
+    keep, vals, cols = (torch.stack(t, 1) for t in (keep, vals, cols))
+    crow = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    crow[1:] = keep.sum(1, dtype=torch.int32).cumsum(0, dtype=torch.int32)
+    return torch.sparse_csr_tensor(crow, cols[keep], vals[keep], (n, n))
+
+
+def ordered_stencil_case(c, label, A, d_inv, gen, main=False):
+    """``ordered_stencil_matvec`` on the power iterations' matvec of A (a
+    Stencil with its D⁻¹, or a ShardedStencil with its D⁻¹ PGrid) at a
+    random x, against its plain version and against the ordered-sum
+    launches the power iterations took before it (``matvec_plain`` with
+    ``launch``), bit for bit: one launch a card; the kernel's and that
+    sequence's device ms in turns, the plain version's, the bound, and one
+    cuSPARSE CSR product by the rows of D⁻¹A (``library_ms``: the same
+    function, its products in another order)."""
+    import torch
+
+    from parallel_amg_tpu_torch.amg import device_setup
+    from parallel_amg_tpu_torch.ops import ordered_stencil, ordered_sum
+    from parallel_amg_tpu_torch.parallel import exchange
+
+    sharded = hasattr(A, "mesh")
+    if sharded:
+        plan = ordered_stencil.Plan(A.weights, d_inv.parts, A.offsets, sharded=True)
+        weights = A.weights
+    else:
+        plan = ordered_stencil.Plan.one_device(A, d_inv, device_setup._unfused_centre(
+            A, ordered_stencil.chain_order(len(A.offsets))))
+        weights = [A.weights]
+    xs = [torch.rand(W.shape[1:], generator=gen, device=W.device) - 0.5 for W in weights]
+    halos = (exchange.halos(xs, plan.h, 0) if plan.h else [(None, None)] * len(xs))
+    before = ordered_sum.LAUNCHES["ordered_stencil_matvec"]
+    got = ordered_stencil.matvec(plan, xs, halos)
+    launched = ordered_sum.LAUNCHES["ordered_stencil_matvec"] - before
+    n_cards = len({W.device for W in weights})
+    plain = ordered_stencil.matvec_plain(plan, xs, halos)
+    seq = ordered_stencil.matvec_plain(plan, xs, halos, launch=True)
+    equal_plain = all(bits_equal(g, p) for g, p in zip(got, plain))
+    equal_seq = all(bits_equal(g, s) for g, s in zip(got, seq))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    del plain, seq
+    K = len(A.offsets)
+    n = sum(W[0].numel() for W in weights)
+    # W, x, D⁻¹ read once and y written once; K fma and one multiply a point
+    n_bytes = 4 * n * (K + 3)
+    b_ms, b_by = c.bound_ms(n_bytes, 2 * K * n + n)
+    kernel_ms, seq_ms = [], []
+    for _ in range(2):  # in turns: kernel, earlier sequence, kernel, sequence
+        kernel_ms.append(c.device_ms(lambda: ordered_stencil.matvec(plan, xs, halos),
+                                     reps=3, samples=9))
+        seq_ms.append(c.device_ms(lambda: ordered_stencil.matvec_plain(
+            plan, xs, halos, launch=True), reps=1, samples=5, warmup=2))
+    plain_ms = c.device_ms(lambda: ordered_stencil.matvec_plain(plan, xs, halos), reps=1,
+                           samples=3, warmup=1)
+    if n_cards == 1:  # the yardstick: one torch.sparse CSR product of D⁻¹A
+        csr = scaled_stencil_csr(*((A.global_weights(), A.offsets, A.dims, torch.cat(
+            d_inv.parts)) if sharded else (A.weights, A.offsets, A.dims, d_inv)))
+        lib_ms, lib_err = c.library_ms(csr, torch.cat(xs).reshape(-1))
+        del csr
+    else:
+        lib_ms, lib_err = None, "parts on more than one card"
+    ms = statistics.median(kernel_ms)
+    fields = dict(points=K, parts=len(weights), slab=list(plan.slab), split=plan.split,
+                  halo_terms=len(plan.corr), launches=launched, cards=n_cards,
+                  bit_equal_plain=equal_plain, bit_equal_earlier_sequence=equal_seq,
+                  ms=ms, ms_in_turns=kernel_ms, earlier_sequence_ms=seq_ms, plain_ms=plain_ms,
+                  library_ms=lib_ms, library_error=lib_err,
+                  bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+                  copy_bound_ms=c.copy_bound_ms(n_bytes))
+    c.emit("kernel", name="ordered_stencil_matvec", case=label, **fields)
+    if not (equal_plain and equal_seq and finite and launched == n_cards):
+        raise AssertionError(f"ordered_stencil_matvec {label}: bit-equal to plain "
+                             f"{equal_plain}, to the earlier sequence {equal_seq}, finite "
+                             f"{finite}, {launched} launches for {n_cards} card(s)")
+    r = c.results["ordered_stencil_matvec"]
+    r.setdefault("cases", {})[label] = {k: fields[k] for k in (
+        "ms", "earlier_sequence_ms", "plain_ms", "library_ms", "bound_ms", "launches")}
+    if main:
+        r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                 copy_bound_ms=c.copy_bound_ms(n_bytes), main_case=label,
+                 earlier_sequence_ms=seq_ms, share_of_bound=b_ms / ms,
+                 library_kind="cuSPARSE CSR of D⁻¹A (one torch sparse CSR @ x; the "
+                              "rows' products in another order than the JAX "
+                              "package's, D⁻¹ applied before the sum)")
+    del got
+
+
+def hold_p468_record(c, h468, mesh):
+    """468³ in 8 parts against the JAX package's CPU record of its power
+    iterations (artifacts/p468_jax_power.json, scripts/jax_p468_power.py):
+    level 0's λ of the setup ``h468``, and the port's ``_sharded_power`` on
+    the record's seeded operator of level 1's shape, rebuilt with numpy (its
+    weights' digest and λ's float32 bits).  Prints ``p468_vs_jax_record``;
+    a mismatch raises."""
+    import torch
+
+    from parallel_amg_tpu_torch.parallel import pdevice_setup as pd
+    from parallel_amg_tpu_torch.parallel.pstencil import ShardedStencil
+    from parallel_amg_tpu_torch.problems import seeded_stencil
+    from parallel_amg_tpu_torch.utils.metrics import array_digest, f32_bits
+
+    with open(os.path.join(HERE, "artifacts", "p468_jax_power.json")) as f:
+        rec = json.load(f)
+    l0, l1 = rec["level0"], rec["level1"]
+    A0 = h468.levels[0].A
+    got0 = f32_bits(h468.levels[0].lam_max)
+    t0 = time.perf_counter()
+    w, offs = seeded_stencil(l1["padded_dims"], l1["points"], l1["weights_seed"])
+    digest = array_digest(w)
+    A1 = ShardedStencil.from_global(torch.from_numpy(w), offs, l1["padded_dims"], mesh)
+    del w
+    lam1 = pd._sharded_power(A1, pd._sharded_dinv(A1), rec["iters"], rec["power_seed"])
+    got1 = f32_bits(float(lam1))
+    levels = [{"level": 0, "dims": list(A0.dims), "lam_max": h468.levels[0].lam_max,
+               "lam_max_bits": got0, "record_bits": l0["lam_max_bits"],
+               "equal": got0 == l0["lam_max_bits"] and list(A0.dims) == l0["padded_dims"]},
+              {"level": 1, "dims": list(A1.dims), "operator": l1["operator"],
+               "weights_equal": digest == l1["weights_digest"], "lam_max": float(lam1),
+               "lam_max_bits": got1, "record_bits": l1["lam_max_bits"],
+               "equal": got1 == l1["lam_max_bits"] and digest == l1["weights_digest"]}]
+    c.emit("p468_vs_jax_record", equal=all(lv["equal"] for lv in levels), levels=levels,
+           jax=rec["jax"], jaxlib=rec["jaxlib"], record_cpu=rec["cpu"],
+           level1_seconds=time.perf_counter() - t0)
+    if not all(lv["equal"] for lv in levels):
+        raise AssertionError(f"468³: a level differs from the JAX package's record: {levels}")
 
 
 def ordered_sum_phase(c, A0, cfg, mesh):
@@ -1813,7 +2025,8 @@ def main():
         h3 = ptt.setup(poisson_stencil((n3,) * 3), cfg3)
         torch.cuda.synchronize()
         setup3_s = time.perf_counter() - t0
-    launches_setup3 = {"ordered_fma": ordered_sum.LAUNCHES["ordered_fma"]}
+    launches_setup3 = {k: ordered_sum.LAUNCHES[k] for k in (
+        "ordered_stencil_matvec", "ordered_fma", "ordered_sum_lanes")}
     levels3 = [{"rows": l.A.n_rows, "points": l.A.n_points, "format": fmt(l.A),
                 "lam_max": l.lam_max,
                 "product_path": (device_setup.select_product_path(l.A, cfg3)
@@ -1824,6 +2037,10 @@ def main():
          peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
     if launches_setup3["ordered_fma"] <= 0:
         raise AssertionError("config #3's setup launched no ordered_fma")
+    # one ordered_stencil_matvec an iteration of every level's power iteration
+    if launches_setup3["ordered_stencil_matvec"] != cfg3.lambda_power_iters * h3.n_levels:
+        raise AssertionError(f"config #3's setup: {launches_setup3}, want "
+                             f"{cfg3.lambda_power_iters} ordered_stencil_matvec a level")
     rows3 = [l.A.n_rows for l in h3.levels]
     if rows3 != CONFIG3_ROWS:
         raise AssertionError(f"config #3 levels {rows3}, want {CONFIG3_ROWS}")
@@ -1836,9 +2053,21 @@ def main():
                                l.d_inv.cpu(), cfg3.lambda_power_iters, seed=0)
              for l in h3.levels]):
         raise AssertionError("config #3: a level's λ_max differs from the CPU's")
-    galerkin_order_phase(types.SimpleNamespace(
-        emit=emit, device_ms=device_ms, bound_ms=bound_ms,
-        copy_bound_ms=copy_bound_ms, results=results), h3)
+    kctx = types.SimpleNamespace(emit=emit, device_ms=device_ms, bound_ms=bound_ms,
+                                 copy_bound_ms=copy_bound_ms, library_ms=library_ms,
+                                 results=results)
+    galerkin_order_phase(kctx, h3)
+    # the power iterations' matvec on one device: config #3's level 0, and a
+    # grid whose centre the JAX package adds unfused (n1 = 8, 5 ≤ n2 ≤ 8)
+    g_os = torch.Generator(device=dev).manual_seed(18)
+    ordered_stencil_case(kctx, "config3_128^3_level0", h3.levels[0].A, h3.levels[0].d_inv,
+                         g_os)
+    p_unf = poisson_stencil((96, 8, 6))
+    A_unf = Stencil(p_unf.weights * (0.5 + torch.rand(p_unf.weights.shape, generator=g_os,
+                                                      device=dev)), p_unf.offsets, p_unf.dims)
+    ordered_stencil_case(kctx, "unfused_centre_96x8x6", A_unf,
+                         device_setup.diag_inverse(A_unf), g_os)
+    del p_unf, A_unf
 
     # -- kernel B2: flatdia_spmv ---------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -2120,13 +2349,22 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = dict(ordered_sum.LAUNCHES)
-        with record_dot_shapes(label):
+        power = {}
+        with record_dot_shapes(label), power_launches(power):
             t0 = time.perf_counter()
             A_d, true_dims = ptt.poisson_stencil_sharded(dims, mesh, cfg3_async)
             hd = ptt.sharded_device_setup(A_d, cfg3_async, true_dims=true_dims)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         ordered_launches = {k: v - before[k] for k, v in ordered_sum.LAUNCHES.items()}
+        # the sharded power iterations: one ordered_stencil_matvec a card an
+        # iteration (all parts on one card), no ordered_fma
+        want_power = power["calls"] * cfg3_async.lambda_power_iters
+        if (power["sharded_power"]["ordered_stencil_matvec"] != want_power
+                or power["sharded_power"]["ordered_fma"] != 0):
+            raise AssertionError(f"{label}: sharded power iterations launched "
+                                 f"{power['sharded_power']}, want {want_power} "
+                                 "ordered_stencil_matvec")
         levels = [{"rows": l.n, "padded_rows": l.A.n_rows, "format": fmt(l.A),
                    "points": l.A.n_points, "parts": getattr(getattr(l.A, "mesh", None),
                                                              "size", None),
@@ -2135,7 +2373,9 @@ def main():
         info = dict(problem=f"poisson_stencil_sharded({dims}, make_row_mesh({mesh.size}))",
                     seconds=secs, n_levels=hd.n_levels, levels=levels,
                     padded_dims=list(A_d.dims), setup_stats=hd.setup_stats,
-                    ordered_sum_launches=ordered_launches, complexity=hd.complexity(),
+                    ordered_sum_launches=ordered_launches,
+                    sharded_power_launches=power["sharded_power"],
+                    sharded_power_calls=power["calls"], complexity=hd.complexity(),
                     peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
         emit(label, **info)
         return hd, info
@@ -2147,6 +2387,9 @@ def main():
         raise AssertionError(f"config #3 in 4 parts: levels {rows_d3}, want {CONFIG3_ROWS}")
     if hd3.setup_stats["sharded_levels"] != 2:
         raise AssertionError(f"config #3 in 4 parts sharded {hd3.setup_stats} levels, want 2")
+    for lv in (0, 1):
+        ordered_stencil_case(kctx, f"config3_4parts_level{lv}", hd3.levels[lv].A,
+                             hd3.levels[lv].d_inv, g_os)
 
     # -- kernel B8: halo_stencil -----------------------------------------------------
     def random_parts(A_s, gen):
@@ -3539,6 +3782,10 @@ def main():
     rows468 = [lv["rows"] for lv in info468["levels"]]
     if rows468 != DIST_100M_ROWS:
         raise AssertionError(f"468³ in 8 parts: levels {rows468}, want {DIST_100M_ROWS}")
+    hold_p468_record(kctx, hd468, mesh8)
+    for lv in (0, 1):
+        ordered_stencil_case(kctx, f"dist_468^3_8parts_level{lv}", hd468.levels[lv].A,
+                             hd468.levels[lv].d_inv, g_os, main=lv == 0)
     A468 = hd468.levels[0].A
     x468 = PGrid.from_global(torch.randn(A468.dims, generator=g, device=dev), mesh8)
     A468_k = A468.with_halo_mode("pallas_async")
@@ -3628,8 +3875,17 @@ def main():
                 # setup alone (launches_rs)
                 **{k: dist_paths["dist_config2_8parts_rs_setup"][k]
                    for k in ("ordered_sum_staged", "ordered_sum_windows")},
-                **launches_setup3}
+                # config #3's one-device setup: its smoothers' fmas
+                "ordered_fma": launches_setup3["ordered_fma"],
+                # the 468³ setup in 8 parts, the main case's path: its power
+                # iterations on every level
+                "ordered_stencil_matvec":
+                    info468["ordered_sum_launches"]["ordered_stencil_matvec"]}
     by_path = {"config3_setup": launches_setup3,
+               "config3_dist_4parts_setup": info_d3["ordered_sum_launches"],
+               "config3_dist_4parts_sharded_power": info_d3["sharded_power_launches"],
+               "dist_468^3_8parts_setup": info468["ordered_sum_launches"],
+               "dist_468^3_8parts_sharded_power": info468["sharded_power_launches"],
                "config2_pcg": launches2,
                "config3_mixed_pcg": slice3["mixed"]["launches"],
                "config3_pallas_pcg": slice3["pallas"]["launches"],
@@ -3661,7 +3917,7 @@ def main():
                           "auto_width_ms", "device_ms_per_matvec",
                           "device_ms_per_vcycle_config2", "bit_equal_20_calls",
                           "full_mode_ms", "k_major_ms", "sort_ms",
-                          "share_of_bound", "host_ms")}
+                          "share_of_bound", "host_ms", "earlier_sequence_ms", "cases")}
         if "design" in meta:
             extra["design"] = meta["design"]
         if name in ("halo_stencil_interior", "halo_stencil_boundary"):

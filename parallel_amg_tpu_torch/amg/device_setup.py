@@ -42,7 +42,7 @@ from parallel_amg_tpu_torch.amg.transfers import (
     downsample_sum_nd,
 )
 from parallel_amg_tpu_torch.config import AMGConfig
-from parallel_amg_tpu_torch.ops import ordered_sum, prng
+from parallel_amg_tpu_torch.ops import ordered_stencil, ordered_sum, prng
 from parallel_amg_tpu_torch.ops.stencil import Stencil, bucket_add, shift_nd
 
 
@@ -52,48 +52,24 @@ def start_vector(dims, dtype, device, seed: int = 0):
     return (prng.uniform(dims, seed, dtype) - 0.5).to(device)
 
 
-def ordered_planes(A: Stencil):
-    """The plane order of the JAX package's CPU stencil product in its power
-    iterations (one fma chain over the offsets, the first two taken as
-    ``ordered_sum.STENCIL_FIRST``, then the rest in offset order) and A's
-    planes in that order (a copy)."""
-    K = len(A.offsets)
-    order = list(ordered_sum.STENCIL_FIRST) + list(range(2, K)) if K > 1 else [0]
-    return order, A.weights[order]
-
-
-def ordered_apply(order, planes, A: Stencil, x, split=None):
-    """A x for float32 ``planes = ordered_planes(A)[1]``, added in that
-    order: one fma chain (``ordered_sum.planes_dot``), or, where ``split`` is
-    the centre's position (``_unfused_centre``), the centre's product added
-    rounded, as LLVM's vector loop adds it."""
-    shifted = A.shifted(x)
-    xs = torch.stack([shifted[d] for d in order])
-    if split is None:
-        return ordered_sum.planes_dot(planes, xs)
-    s = ordered_sum.planes_dot(planes[:split], xs[:split])
-    s = s + planes[split] * xs[split]
-    for k in range(split + 1, len(order)):
-        s = ordered_sum.fma(planes[k], xs[k], s)
-    return s
-
-
 def power_iteration_lambda_max(A: Stencil, d_inv, iters: int, seed: int = 0):
     """λ_max(D⁻¹A) estimate as a 0-d tensor (1.1 safety factor, as the
-    oracle); no host read.  The matvec adds its products in the JAX
-    package's CPU order (``ordered_apply``, the centre unfused where
-    ``_unfused_centre`` says) and the norm's sum is ``ordered_sum.sumsq``,
-    so a float32 λ is the JAX package's bit for bit (other types take
-    torch's order); the solve path's ``Stencil.matvec`` keeps torch's
-    order."""
+    oracle); no host read.  The matvec D⁻¹·A·x adds its products in the JAX
+    package's CPU order (``ops/ordered_stencil.py``: one
+    ``ordered_stencil_matvec`` launch an iteration on the card, the centre
+    unfused where ``_unfused_centre`` says) and the norm's sum is
+    ``ordered_sum.sumsq``, so a float32 λ is the JAX package's bit for bit
+    (other types take torch's order); the solve path's ``Stencil.matvec``
+    keeps torch's order."""
     x = start_vector(A.dims, A.weights.dtype, A.weights.device, seed)
     ordered = A.weights.dtype == torch.float32
-    order, planes = ordered_planes(A)
-    split = _unfused_centre(A, order)
+    if ordered:
+        plan = ordered_stencil.Plan.one_device(A, d_inv, _unfused_centre(
+            A, ordered_stencil.chain_order(len(A.offsets))))
     lam = torch.ones((), dtype=x.dtype, device=x.device)
     for _ in range(iters):
         if ordered:
-            y = d_inv * ordered_apply(order, planes, A, x, split)
+            y = ordered_stencil.matvec(plan, [x])[0]
             nrm = ordered_sum.norm(y, structured=True)
         else:
             y = d_inv * A.matvec(x)

@@ -34,6 +34,27 @@
 //   never walks the in-plane offsets (most of a 27-point or Galerkin
 //   stencil).
 //
+// ordered_stencil_matvec is not B8 and replaces no Pallas kernel: it is the
+// setups' power iteration, y = D^-1 (A x) in the float32 order of the JAX
+// package's CPU backend (ops/ordered_stencil.py has the order), for every
+// part on the card in one launch, on B8's part table.  It replaces, per
+// iteration, the stack of K shifted copies of x, one ordered_sum_lanes
+// launch a part (its fma chain) and one ordered_fma launch a part and
+// offset with o0 != 0 (its halo updates), and the D^-1 multiply.  Per point:
+// acc = +0.0, then acc = fma(W[d][p], x[p + off_d], acc) over the chain's
+// planes in the JAX package's order, x read as 0 off the slab on axis 0 or
+// off the grid on the other axes (that zero term is kept: it turns a -0
+// into +0); at a split position (one device, a 7-point grid LLVM vectorises)
+// the product is rounded and added.  Then, where the grid is split into
+// parts, each offset with o0 != 0 in offset order adds fma(W[d][p], halo,
+// acc) on the |o0| planes at the slab's end it reaches past, from the
+// neighbor's (h, n1, n2) halo (a view of its slab on this card, or a landing
+// buffer), 0 at the grid's ends.  Then y = D^-1 * acc, one rounded multiply.
+// Its grid is (groups of V points of a part, part), flat over the part, so
+// a one-device grid of any m0 fits; the terms are a HaloTerms table, chain
+// first.  Bound: device-memory bytes, W, D^-1 and y once and x once (its
+// neighbors' reads hit L1/L2): (K + 3) x n x 4 bytes a part.
+//
 // Grids: (tile of the (n1, n2) plane, plane, part).  The boundary's plane k
 // of a part that reaches lo planes at the start and hi at the end maps to
 // i0 = k for k < lo, else i0 = m0 - lo - hi + k (the host takes lo = m0,
@@ -98,6 +119,11 @@ struct HaloTerms {
 // The parts of one matvec or interior launch: each one's (D, m0, n1, n2)
 // weights, (m0, n1, n2) x and y, and the x slabs of its axis-0 neighbors
 // (null at the grid's ends, and on both sides of a split part).
+// ordered_stencil_matvec reads left and right as the (h, n1, n2) halos
+// themselves (the last h planes of the left neighbor, the first h of the
+// right one: views of its slab on this card, or landing buffers), and scale
+// as each part's (m0, n1, n2) D^-1 (null: no scaling); the B8 entries ignore
+// scale.
 struct HaloParts {
   int count;
   const float* W[kMaxParts];
@@ -105,6 +131,7 @@ struct HaloParts {
   float* y[kMaxParts];
   const float* left[kMaxParts];
   const float* right[kMaxParts];
+  const float* scale[kMaxParts];
 };
 
 // The split parts of one boundary launch: each one's weights and y, its
@@ -279,6 +306,119 @@ __global__ void __launch_bounds__(kBlock)
   store<V>(y, acc);
 }
 
+// acc[v] = fma(w[v], x, acc[v]) for V consecutive points, x read at column
+// j2 + v of the row xr, 0 where xr is null or the column lies off [0, n2):
+// the zero term is kept, as it turns an acc of -0 into +0.  With unfused,
+// the product is rounded and then added (LLVM's vectorised centre).
+template <int V>
+__device__ __forceinline__ void ordered_term(float (&acc)[V],
+                                             const float* __restrict__ w,
+                                             const float* __restrict__ xr,
+                                             int j2, int n2, bool unfused) {
+  float wv[V];
+  if constexpr (V == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(w));
+    wv[0] = t.x;
+    wv[1] = t.y;
+    wv[2] = t.z;
+    wv[3] = t.w;
+  } else {
+    wv[0] = __ldcs(w);
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int j = j2 + v;
+    const float xv = (xr != nullptr && j >= 0 && j < n2) ? __ldg(xr + j) : 0.f;
+    acc[v] = unfused ? __fadd_rn(acc[v], __fmul_rn(wv[v], xv))
+                     : __fmaf_rn(wv[v], xv, acc[v]);
+  }
+}
+
+// One thread a group of V points of one part (grid: (point groups, part)):
+// the chain terms, then the halo terms on the planes they reach, then D^-1.
+template <int V>
+__global__ void __launch_bounds__(kBlock)
+    ordered_kernel(HaloParts parts, HaloTerms terms, int chain, int split,
+                   int m0, int n1, int n2, int h) {
+  const int part = blockIdx.y;
+  const int plane = n1 * n2;
+  const long long n = static_cast<long long>(m0) * plane;
+  const long long q =
+      (static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x) * V;
+  if (q >= n) {
+    return;
+  }
+  const int i0 = static_cast<int>(q / plane);
+  const int r = static_cast<int>(q - static_cast<long long>(i0) * plane);
+  const int i1 = r / n2;
+  const int i2 = r - i1 * n2;
+  const float* __restrict__ w0 = parts.W[part] + q;
+  const float* __restrict__ x = parts.x[part];
+  float acc[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    acc[v] = 0.f;
+  }
+  // the chain: every plane in the JAX package's order, 0 off the slab
+  for (int t = 0; t < chain; ++t) {
+    const int j0 = i0 + terms.o0[t];
+    const int j1 = i1 + terms.o1[t];
+    const float* xr = (j0 >= 0 && j0 < m0 && j1 >= 0 && j1 < n1)
+                          ? x + static_cast<long long>(j0) * plane +
+                                static_cast<long long>(j1) * n2
+                          : nullptr;
+    ordered_term<V>(acc, w0 + terms.d[t] * n, xr, i2 + terms.o2[t], n2,
+                    t == split);
+  }
+  // the halo terms, in offset order, on the |o0| planes at the slab's end
+  // each reaches past (a zero plane where there is no neighbor)
+  if (chain < terms.count && (i0 < h || i0 >= m0 - h)) {
+    const float* __restrict__ lh = parts.left[part];
+    const float* __restrict__ rh = parts.right[part];
+    for (int t = chain; t < terms.count; ++t) {
+      const int o0 = terms.o0[t];
+      const float* src;
+      if (o0 < 0) {
+        if (i0 >= -o0) {
+          continue;
+        }
+        src = lh == nullptr ? nullptr
+                            : lh + static_cast<long long>(h + i0 + o0) * plane;
+      } else {
+        if (i0 < m0 - o0) {
+          continue;
+        }
+        src = rh == nullptr ? nullptr
+                            : rh + static_cast<long long>(i0 + o0 - m0) * plane;
+      }
+      const int j1 = i1 + terms.o1[t];
+      src = (src == nullptr || j1 < 0 || j1 >= n1)
+                ? nullptr
+                : src + static_cast<long long>(j1) * n2;
+      ordered_term<V>(acc, w0 + terms.d[t] * n, src, i2 + terms.o2[t], n2,
+                      false);
+    }
+  }
+  const float* __restrict__ s = parts.scale[part];
+  if (s != nullptr) {
+    float sv[V];
+    if constexpr (V == 4) {
+      const float4 t = __ldcs(reinterpret_cast<const float4*>(s + q));
+      sv[0] = t.x;
+      sv[1] = t.y;
+      sv[2] = t.z;
+      sv[3] = t.w;
+    } else {
+      sv[0] = __ldcs(s + q);
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      acc[v] = __fmul_rn(sv[v], acc[v]);
+    }
+  }
+  store<V>(parts.y[part] + q, acc);
+}
+
 // The checks every entry shares: the plane's index math is 32-bit, the
 // grid's y extent holds the planes and its z extent the parts.
 bool bad_grid(int count, int m0, int n1, int n2, int h, int vec) {
@@ -350,6 +490,39 @@ extern "C" int halo_stencil_boundary(HaloBoundary parts, int m0, int n1,
     boundary_kernel<4><<<grid, kBlock, 0, cs>>>(parts, terms, m0, n1, n2, h);
   } else {
     boundary_kernel<1><<<grid, kBlock, 0, cs>>>(parts, terms, m0, n1, n2, h);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The power iterations' y = D^-1 (A x) of every part in the table, in one
+// launch: terms[0, chain) are the chain in its order (split: the position
+// whose product is added rounded, -1 for none), terms[chain, count) the halo
+// terms (o0 != 0, offset order; none for a grid that is not split); left
+// and right are (h, n1, n2) halos or null, h <= m0.
+extern "C" int ordered_stencil_matvec(HaloParts parts, int m0, int n1, int n2,
+                                      int h, HaloTerms terms, int chain,
+                                      int split, int vec, void* stream) {
+  if (parts.count < 0 || parts.count > kMaxParts || m0 < 0 || n1 <= 0 ||
+      n2 <= 0 || static_cast<long long>(n1) * n2 >= (1LL << 31) || h < 0 ||
+      (m0 > 0 && h > m0) || (vec != 0 && n2 % 4 != 0) || terms.count < 0 ||
+      terms.count > kMaxPoints || chain < 0 || chain > terms.count ||
+      split < -1 || split >= chain) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (parts.count == 0 || m0 == 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  const auto cs = static_cast<cudaStream_t>(stream);
+  const int per = vec != 0 ? 4 : 1;
+  const long long groups = (static_cast<long long>(m0) * n1 * n2) / per;
+  const dim3 grid(static_cast<unsigned>((groups + kBlock - 1) / kBlock),
+                  parts.count);
+  if (vec != 0) {
+    ordered_kernel<4><<<grid, kBlock, 0, cs>>>(parts, terms, chain, split, m0,
+                                               n1, n2, h);
+  } else {
+    ordered_kernel<1><<<grid, kBlock, 0, cs>>>(parts, terms, chain, split, m0,
+                                               n1, n2, h);
   }
   return static_cast<int>(cudaGetLastError());
 }

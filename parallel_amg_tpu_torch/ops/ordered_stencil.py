@@ -1,0 +1,218 @@
+"""The power iterations' stencil matvec y = D⁻¹·(A·x) in the JAX package's
+CPU order, and the binding of its kernel ``ordered_stencil_matvec``
+(``csrc/halo_stencil.cu``).
+
+λ_max(D⁻¹A) sets the Chebyshev interval, so the port's power iterations add
+their products in the float32 order of the JAX package's CPU backend (read
+off its optimised HLO and object code; ``tests/test_torch_ordered_sum.py``,
+``tests/test_torch_config3_sharded.py`` and ``tests/test_torch_p468_order.py``
+hold it):
+
+- per point one fused multiply-add chain from +0.0 over the planes in
+  ``chain_order`` (``ordered_sum.STENCIL_FIRST``, then offset order), x
+  read as 0 where the neighbour lies off the grid, or, for a part of a grid
+  split along axis 0, off its slab.  Where LLVM vectorises a 7-point grid
+  across its middle axis (``device_setup._unfused_centre``, one device
+  only) the centre's product is rounded and then added (``split``);
+- a part of a split grid (``parallel/pdevice_setup._sharded_power``, the
+  JAX package's sharded ``_jit_power``, whose matvec is the "xla"
+  ``ShardedStencil.matvec``) then adds, in offset order, each offset with
+  o₀ ≠ 0 on the |o₀| planes at its slab's end that it reaches past:
+  fma(W, halo plane, y), with a zero plane at the grid's ends;
+- then y = D⁻¹·y, one rounded multiply.
+
+``matvec`` runs the plain version (``matvec_plain``: the torch formulation,
+each fused multiply-add emulated exactly by ``ordered_sum.fma_plain``) on CPU
+tensors, and on CUDA tensors one ``ordered_stencil_matvec`` launch a card
+(and ``halo_kernels.MAX_PARTS`` parts) for every local part, on kernel B8's
+part table (``ops/halo_kernels``): the halos are read in place (views of the
+neighbours' slabs on the card, or the exchanged buffers).  A failed build or
+launch raises.  ``ordered_sum.LAUNCHES["ordered_stencil_matvec"]`` counts
+the launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from parallel_amg_tpu_torch.ops import halo_kernels as hk
+from parallel_amg_tpu_torch.ops import ordered_sum
+from parallel_amg_tpu_torch.ops.stencil import Stencil
+
+
+def chain_order(K: int):
+    """The plane order of the JAX package's CPU stencil product of K
+    offsets in its power iterations: one fma chain, the first two planes
+    taken as ``ordered_sum.STENCIL_FIRST``, then the rest in offset
+    order."""
+    return list(ordered_sum.STENCIL_FIRST) + list(range(2, K)) if K > 1 else [0]
+
+
+def ordered_apply(order, planes, A: Stencil, x, split=None, launch=False):
+    """A x for float32 ``planes``, A's planes in ``order``
+    (``chain_order``), added in that order: one fma chain, or, where
+    ``split`` is the centre's position (``_unfused_centre``), the centre's
+    product added rounded, as LLVM's vector loop adds it.  The chain and
+    fmas are ``ordered_sum``'s plain versions; with ``launch`` its kernels
+    on a CUDA tensor (``planes_dot`` and ``fma``)."""
+    dot = ordered_sum.planes_dot if launch else ordered_sum.planes_dot_plain
+    fma = ordered_sum.fma if launch else ordered_sum.fma_plain
+    shifted = A.shifted(x)
+    xs = torch.stack([shifted[d] for d in order])
+    if split is None:
+        return dot(planes, xs)
+    s = dot(planes[:split], xs[:split])
+    s = s + planes[split] * xs[split]
+    for k in range(split + 1, len(order)):
+        s = fma(planes[k], xs[k], s)
+    return s
+
+
+class Plan:
+    """What the matvec reads on every iteration of one power iteration:
+    the local parts' float32 weights (K, m0, *rest) and D⁻¹ (m0, *rest; None:
+    no scaling), the offsets, the chain's plane order and ``split``, and
+    the halo terms (``sharded``: the offsets with o₀ ≠ 0 in offset order;
+    one device: none).  Built once per power iteration; the kernel's part
+    tables and the plain version's plane copies are made at their first
+    use and kept."""
+
+    def __init__(self, weights, scales, offsets, sharded: bool, split=None):
+        self.weights = [W.contiguous() for W in weights]
+        self.scales = ([None] * len(self.weights) if scales is None else
+                       [None if s is None else s.contiguous() for s in scales])
+        self.offsets = tuple(tuple(int(c) for c in o) for o in offsets)
+        self.slab = tuple(self.weights[0].shape[1:])
+        self.order = chain_order(len(self.offsets))
+        self.split = split
+        self.corr = [d for d, o in enumerate(self.offsets) if o[0] != 0] if sharded else []
+        self.h = max((abs(self.offsets[d][0]) for d in self.corr), default=0)
+        self._plain = None
+        self._cards = None
+
+    @classmethod
+    def one_device(cls, A: Stencil, d_inv, split=None):
+        """The plan of one device's power iteration on A."""
+        return cls([A.weights], [d_inv], A.offsets, sharded=False, split=split)
+
+    def plain_parts(self):
+        """Per part the plain version's Stencil on its slab, its planes in
+        chain order and each halo term's rows of W, contiguous."""
+        if self._plain is None:
+            m0 = self.slab[0]
+            self._plain = []
+            for W in self.weights:
+                local = Stencil(W, self.offsets, self.slab)
+                rows = [W[d][_rows(self.offsets[d][0], m0)].contiguous()
+                        for d in self.corr]
+                self._plain.append((local, W[self.order], rows))
+        return self._plain
+
+
+def _rows(o0: int, m0: int):
+    """The planes of a slab of m0 whose offset o₀ reaches past its end."""
+    return slice(0, -o0) if o0 < 0 else slice(m0 - o0, m0)
+
+
+def matvec(plan: Plan, xs, halos=None):
+    """y = D⁻¹·(A·x) of every local part in the JAX package's CPU order, as a
+    list: ``xs`` the parts' x (m0, *rest), ``halos`` per part (left, right),
+    the (h, *rest) halos of the neighbours or None (the grid's ends; None for
+    all: no neighbours).  The plain version on CPU tensors; on CUDA tensors
+    one ``ordered_stencil_matvec`` launch a card."""
+    if halos is None:
+        halos = [(None, None)] * len(xs)
+    kinds = {x.device.type for x in xs}
+    if kinds == {"cpu"}:
+        return matvec_plain(plan, xs, halos)
+    if kinds != {"cuda"}:
+        raise ValueError(f"ordered_stencil.matvec runs on cpu or cuda parts, not {kinds}")
+    return _matvec_cuda(plan, xs, halos)
+
+
+def matvec_plain(plan: Plan, xs, halos, launch=False):
+    """The plain version of ``matvec`` (any device): per part
+    ``ordered_apply`` on its slab, then each halo term's fma on the planes
+    it reaches (its halo zero-padded on the other axes, a zero plane at the
+    grid's ends), then D⁻¹.  With ``launch`` on CUDA tensors, the sequence
+    of ``ordered_sum`` kernels the power iterations took before this
+    kernel: a stack of the shifted planes, one ``ordered_sum_lanes`` chain
+    and one ``ordered_fma`` a halo term."""
+    fma = ordered_sum.fma if launch else ordered_sum.fma_plain
+    h, m0 = plan.h, plan.slab[0]
+    rest = plan.slab[1:]
+    reach = [max(abs(o[i]) for o in plan.offsets) for i in range(1, len(plan.offsets[0]))]
+    pads = [p for r in reversed(reach) for p in (r, r)]
+    out = []
+    for (local, planes, w_rows), xl, sides, scale in zip(plan.plain_parts(), xs, halos,
+                                                         plan.scales):
+        y = ordered_apply(plan.order, planes, local, xl, plan.split, launch)
+        if plan.corr:  # each side's halo planes, zero-padded on the other axes
+            padded = {s: torch.nn.functional.pad(
+                torch.zeros((h,) + rest, dtype=xl.dtype, device=xl.device)
+                if hs is None else hs, pads) for s, hs in zip((-1, 1), sides)}
+        for d, Wr in zip(plan.corr, w_rows):
+            off = plan.offsets[d]
+            o0 = off[0]
+            src = padded[1 if o0 > 0 else -1][
+                (slice(h + o0, h) if o0 < 0 else slice(0, o0),)
+                + tuple(slice(r + c, r + c + n) for r, c, n in zip(reach, off[1:], rest))]
+            rows = _rows(o0, m0)
+            if launch:
+                fma(Wr, src, y[rows], out=y[rows])
+            else:
+                y[rows] = fma(Wr, src, y[rows])
+        out.append(y if scale is None else scale * y)
+    return out
+
+
+def _tables(plan: Plan):
+    """The kernel's terms (the chain in its order, then the halo terms) and
+    per card its part tables (``halo_kernels.Card``, with D⁻¹), made once
+    per plan."""
+    if plan._cards is not None:
+        return plan._cards
+    (n1, n2), offs3 = hk.grid3(plan.slab[1:], plan.offsets)
+    terms = hk.terms_struct([(d,) + offs3[d] for d in plan.order] + list(
+        hk.halo_terms(offs3) if plan.corr else ()))
+    for W, s in zip(plan.weights, plan.scales):
+        hk.check_weights(W, plan.slab, plan.offsets)
+        if s is not None:
+            hk.check_slab(s, plan.slab, W.device, "D⁻¹")
+    cards = {}
+    for i, W in enumerate(plan.weights):
+        cards.setdefault(W.device, []).append((i, None, None))
+    plan._cards = (terms, (n1, n2), [hk.Card(dev, rows, plan.weights, n2,
+                                             scales=plan.scales)
+                                     for dev, rows in cards.items()])
+    return plan._cards
+
+
+def _matvec_cuda(plan: Plan, xs, halos):
+    terms, (n1, n2), cards = _tables(plan)
+    if len(xs) != len(plan.weights):
+        raise ValueError(f"{len(xs)} slabs for {len(plan.weights)} parts")
+    m0, h = plan.slab[0], plan.h
+    halo_shape = (h,) + plan.slab[1:]
+    step = 4 * m0 * n1 * n2
+    chain = len(plan.order)
+    split = -1 if plan.split is None else plan.split
+    ys = [None] * len(xs)
+    for card in cards:
+        y = torch.empty((len(card.positions) * m0,) + plan.slab[1:], device=card.device)
+        vec = int(card.vec and y.data_ptr() % 16 == 0)
+        for c0, t in card.interior_tables:
+            pos = card.positions[c0:c0 + t.count]
+            t.x[:t.count] = [hk.check_slab(xs[i], plan.slab, card.device, "x") for i in pos]
+            t.y[:t.count] = [y.data_ptr() + k * step for k in range(c0, c0 + t.count)]
+            for k, i in enumerate(pos):
+                left, right = halos[i]
+                t.left[k], t.right[k] = (
+                    None if s is None else hk.check_slab(s, halo_shape, card.device, "halo")
+                    for s in (left, right))
+            hk.launch("ordered_stencil_matvec", card.device, t, m0, n1, n2, h, terms,
+                      chain, split, vec)
+            ordered_sum.LAUNCHES["ordered_stencil_matvec"] += 1
+        for i, yi in zip(card.positions, y.split(m0)):
+            ys[i] = yi
+    return ys

@@ -109,9 +109,11 @@ CHAIN = (1, 1, 0)    # lanes of one chain, left to right (any row length)
 # the first two products of a Stencil matvec in XLA's order (see the module)
 STENCIL_FIRST = (1, 0)
 
-# kernel launches by kernel, counted in ``_launch_*``; callers may reset them
+# kernel launches by kernel, counted where each is launched (here, and
+# ``ops/ordered_stencil.py`` for the power iterations' stencil matvec);
+# callers may reset them
 LAUNCHES = {"ordered_sum_staged": 0, "ordered_sum_windows": 0,
-            "ordered_sum_lanes": 0, "ordered_fma": 0}
+            "ordered_sum_lanes": 0, "ordered_fma": 0, "ordered_stencil_matvec": 0}
 
 # lanes schedules with a kernel instance in csrc/ordered_sum.cu, besides CHAIN
 _ADD_LANES = {(4, 2, 0), (4, 4, 4), (8, 2, 0)}

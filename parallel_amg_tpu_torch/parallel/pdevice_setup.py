@@ -33,7 +33,7 @@ from parallel_amg_tpu_torch.amg import device_setup as ds
 from parallel_amg_tpu_torch.amg.hierarchy import Hierarchy, Level
 from parallel_amg_tpu_torch.amg.transfers import downsample_sum_nd
 from parallel_amg_tpu_torch.config import AMGConfig
-from parallel_amg_tpu_torch.ops import ordered_sum
+from parallel_amg_tpu_torch.ops import ordered_stencil
 from parallel_amg_tpu_torch.ops.stencil import Stencil
 from parallel_amg_tpu_torch.parallel import exchange
 from parallel_amg_tpu_torch.parallel.pgrid import PGrid, ordered_norm
@@ -183,71 +183,25 @@ def _sharded_dinv(A: ShardedStencil) -> PGrid:
     return A.diagonal().map(lambda d: torch.where(d != 0, 1.0 / d, 0.0))
 
 
-def _ordered_matvec_plan(A: ShardedStencil):
-    """What ``_ordered_matvec`` reads on every iteration: each offset with
-    o₀ ≠ 0 (in offset order) with the rows it corrects, and per local part
-    its interior's plane order and planes (``device_setup.ordered_planes``)
-    and those rows' weights, contiguous."""
-    m0 = A.m0
-    corr = [(d, off, slice(0, -off[0]) if off[0] < 0 else slice(m0 - off[0], m0))
-            for d, off in enumerate(A.offsets) if off[0] != 0]
-    parts = []
-    for W in A.weights:
-        local = Stencil(W, A.offsets, (m0,) + tuple(A.dims[1:]))
-        parts.append((local, *ds.ordered_planes(local),
-                      [W[d][rows].contiguous() for d, _, rows in corr]))
-    return corr, parts
-
-
-def _ordered_matvec(A: ShardedStencil, x: PGrid, plan) -> PGrid:
-    """y = A x in the JAX package's CPU order for its sharded power
-    iteration, whose matvec is ``ShardedStencil.matvec`` in "xla" mode
-    (``parallel_amg_tpu/parallel/pstencil.py``): per part the interior with
-    a zero halo on axis 0 (``device_setup.ordered_apply``: one fused fma
-    chain, as the single-device matvec), then, in offset order, each offset
-    with o₀ ≠ 0 adds its halo rows' products, fma(W, halo plane, y), on the
-    |o₀| rows at the part's end it reaches past (a zero plane at the grid's
-    ends).  Read off the optimised HLO and IR of the JAX package's sharded
-    ``_jit_power`` on a 4-device CPU mesh (48 × 43 × 43, 27 points): one
-    fusion for the interior and one for each halo update.  The interior's
-    centre is always fused: the unfused centre of ``_unfused_centre`` (a
-    7-point part of 8 × 5..8 across axes 1 and 2) was not read for the
-    sharded fusion (ROADMAP C7a).  ``plan`` is ``_ordered_matvec_plan(A)``."""
-    corr, parts = plan
-    h = A.halo
-    halos = _halos(x.parts, h, 0)
-    reach = [max(abs(o[i]) for o in A.offsets) for i in range(1, len(A.dims))]
-    pads = [p for r in reversed(reach) for p in (r, r)]
-    out = []
-    for i, ((local, order, planes, w_rows), xl) in enumerate(zip(parts, x.parts)):
-        rest = tuple(xl.shape[1:])
-        y = ds.ordered_apply(order, planes, local, xl)
-        if corr:  # each side's halo planes, zero-padded on the other axes
-            sides = {s: torch.nn.functional.pad(
-                torch.zeros((h,) + rest, dtype=xl.dtype, device=xl.device)
-                if hs is None else hs, pads) for s, hs in zip((-1, 1), halos[i])}
-        for (_, off, rows), Wr in zip(corr, w_rows):
-            o0 = off[0]
-            src = sides[1 if o0 > 0 else -1][
-                (slice(h + o0, h) if o0 < 0 else slice(0, o0),)
-                + tuple(slice(r + c, r + c + n) for r, c, n in zip(reach, off[1:], rest))]
-            ordered_sum.fma(Wr, src, y[rows], out=y[rows])
-        out.append(y)
-    return PGrid(out, x.mesh)
-
-
 def _sharded_power(A: ShardedStencil, d_inv: PGrid, iters: int, seed: int = 0):
     """λ_max(D⁻¹A) on a float32 sharded operator (1.1 safety factor): the
     start vector is ``device_setup.start_vector`` over the padded global
     dims, split into parts, so it is the single-device engine's draw.  The
-    matvec is ``_ordered_matvec`` and the norm ``ordered_norm`` (XLA's SPMD
-    order), so λ is the JAX package's bits; both take float32 only."""
+    matvec D⁻¹·A·x is the JAX package's sharded ``_jit_power`` matvec in its
+    CPU order (``ops/ordered_stencil.py``: each part's interior chain with a
+    zero halo on axis 0, then one fma per halo term in offset order; read
+    off its optimised HLO and IR on a 4-device CPU mesh at 48 × 43 × 43, 27
+    points: one fusion for the interior and one for each halo update; one
+    ``ordered_stencil_matvec`` launch a card an iteration on the card) and
+    the norm ``ordered_norm`` (XLA's SPMD order), so λ is the JAX package's
+    bits; both take float32 only."""
     x = PGrid.from_global(ds.start_vector(A.dims, A.weights[0].dtype,
                                           A.mesh.home, seed), A.mesh)
     lam = torch.ones((), dtype=x.dtype, device=x.device)
-    plan = _ordered_matvec_plan(A)
+    plan = ordered_stencil.Plan(A.weights, d_inv.parts, A.offsets, sharded=True)
     for _ in range(iters):
-        y = d_inv * _ordered_matvec(A, x, plan)
+        halos = _halos(x.parts, A.halo, 0) if A.halo else None
+        y = PGrid(ordered_stencil.matvec(plan, x.parts, halos), A.mesh)
         nrm = ordered_norm(y)
         lam = torch.where(nrm > 0, nrm, lam)
         x = y / torch.clamp(nrm, min=1e-30)

@@ -54,12 +54,23 @@ not parts).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
-from parallel_amg_tpu_torch.ops import _build
+from parallel_amg_tpu_torch.ops.halo_kernels import (
+    MAX_PARTS,
+    MAX_POINTS,
+    Card,
+    Offsets,
+    Terms,
+    check_slab,
+    check_weights,
+    grid3,
+    halo_terms,
+    launch,
+    terms_struct,
+)
 from parallel_amg_tpu_torch.parallel import exchange
 from parallel_amg_tpu_torch.parallel.pgrid import PGrid
 from parallel_amg_tpu_torch.parallel.pstencil import (
@@ -72,77 +83,12 @@ from parallel_amg_tpu_torch.parallel.pstencil import (
 LAUNCHES = {"halo_stencil_matvec": 0, "halo_stencil_interior": 0,
             "halo_stencil_boundary": 0}
 
-MAX_POINTS = 192  # kMaxPoints of csrc/halo_stencil.cu
-MAX_PARTS = 16    # kMaxParts of csrc/halo_stencil.cu
-
-
-class _Offsets(ctypes.Structure):
-    """``struct HaloOffsets`` of csrc/halo_stencil.cu, passed by value."""
-    _fields_ = [("count", ctypes.c_int), ("o0", ctypes.c_int * MAX_POINTS),
-                ("o1", ctypes.c_int * MAX_POINTS),
-                ("o2", ctypes.c_int * MAX_POINTS)]
-
-
-class _Terms(ctypes.Structure):
-    """``struct HaloTerms`` of csrc/halo_stencil.cu, passed by value."""
-    _fields_ = [("count", ctypes.c_int)] + [
-        (f, ctypes.c_int * MAX_POINTS) for f in ("d", "o0", "o1", "o2")]
-
-
-class _Parts(ctypes.Structure):
-    """``struct HaloParts`` of csrc/halo_stencil.cu, passed by value."""
-    _fields_ = [("count", ctypes.c_int)] + [
-        (f, ctypes.c_void_p * MAX_PARTS)
-        for f in ("W", "x", "y", "left", "right")]
-
-
-class _Boundary(ctypes.Structure):
-    """``struct HaloBoundary`` of csrc/halo_stencil.cu, passed by value."""
-    _fields_ = [("count", ctypes.c_int)] + [
-        (f, ctypes.c_void_p * MAX_PARTS) for f in ("W", "y", "left", "right")] + [
-        (f, ctypes.c_int * MAX_PARTS) for f in ("lo", "hi")]
-
-
-_GRID = [ctypes.c_int] * 4  # m0, n1, n2, h
-_ARGTYPES = {
-    "halo_stencil_matvec": [_Parts, *_GRID, _Offsets, ctypes.c_int,
-                            ctypes.c_void_p],
-    "halo_stencil_boundary": [_Boundary, *_GRID, _Terms, ctypes.c_int,
-                              ctypes.c_void_p],
-}
-
-
-@functools.cache
-def _kernel(symbol: str):
-    fn = getattr(_build.load("halo_stencil"), symbol)
-    fn.argtypes = _ARGTYPES[symbol]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def grid3(rest, offsets):
-    """(n1, n2) and 3-D offsets of a slab (m0, *rest) with at most two
-    non-sharded axes: a 2-D grid is (m0, 1, n), a 1-D one (m0, 1, 1)."""
-    nd = len(rest) + 1
-    if nd > 3:
-        raise ValueError(f"kernel B8 takes grids of up to 3 axes, not {nd}")
-    pad = 3 - nd
-    n1, n2 = ((1,) * pad + tuple(rest))
-    offs3 = tuple((o[0],) + (0,) * pad + tuple(o[1:]) for o in offsets)
-    return (int(n1), int(n2)), offs3
-
-
-def halo_terms(offs3):
-    """The boundary launch's terms: the offsets with o₀ ≠ 0, in offset
-    order, each as (d, o₀, o₁, o₂) with d the plane of W it reads."""
-    return tuple((d,) + tuple(o) for d, o in enumerate(offs3) if o[0] != 0)
-
 
 @functools.lru_cache(maxsize=256)
-def _offsets_struct(offs3) -> _Offsets:
+def _offsets_struct(offs3) -> Offsets:
     if len(offs3) > MAX_POINTS:
         raise ValueError(f"{len(offs3)} offsets exceed the kernel's {MAX_POINTS}")
-    s = _Offsets()
+    s = Offsets()
     s.count = len(offs3)
     for i, (a, b, c) in enumerate(offs3):
         s.o0[i], s.o1[i], s.o2[i] = a, b, c
@@ -150,47 +96,14 @@ def _offsets_struct(offs3) -> _Offsets:
 
 
 @functools.lru_cache(maxsize=256)
-def _terms_struct(offs3) -> _Terms:
-    terms = halo_terms(offs3)
-    if len(terms) > MAX_POINTS:
-        raise ValueError(f"{len(terms)} halo terms exceed the kernel's {MAX_POINTS}")
-    s = _Terms()
-    s.count = len(terms)
-    for i, (d, a, b, c) in enumerate(terms):
-        s.d[i], s.o0[i], s.o1[i], s.o2[i] = d, a, b, c
-    return s
+def _terms_struct(offs3) -> Terms:
+    return terms_struct(halo_terms(offs3))
 
 
 def _launch(symbol: str, key: str, device, *args) -> None:
     """One launch of the C entry ``symbol``, counted under ``key``."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(symbol)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{key} launch failed: cudaError {err}")
+    launch(symbol, device, *args)
     LAUNCHES[key] += 1
-
-
-def _check_weights(W, slab, offsets):
-    """W as kernel B8 takes it for a slab of shape ``slab``."""
-    if W.dtype != torch.float32:
-        raise TypeError(f"kernel B8 takes float32 weights, got {W.dtype}")
-    if tuple(W.shape) != (len(offsets),) + tuple(slab):
-        raise ValueError(f"weights {tuple(W.shape)} do not match the slab "
-                         f"{tuple(slab)} and {len(offsets)} offsets")
-    if not W.is_contiguous():
-        raise ValueError("weights must be contiguous")
-
-
-def _check_slab(t, shape, device, what: str) -> int:
-    """The pointer of ``t``, a contiguous float32 ``shape`` tensor on
-    ``device`` (the card of its part's weights)."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"kernel B8 takes float32, got {t.dtype} for {what}")
-    if tuple(t.shape) != tuple(shape) or t.device != device or not t.is_contiguous():
-        raise ValueError(f"kernel B8 takes a contiguous float32 {tuple(shape)} "
-                         f"{what} on {device}, got {tuple(t.shape)} on {t.device}")
-    return t.data_ptr()
 
 
 def inner_parts(A: ShardedStencil):
@@ -239,38 +152,12 @@ def route_plan(local, size: int, devices, inner):
     return [(dev, tuple(a), tuple(b)) for dev, (a, b) in cards.items()]
 
 
-def part_tables(struct, weights):
-    """[(first part, table)] of ``struct`` (``_Parts`` or ``_Boundary``)
-    for groups of MAX_PARTS parts, with the parts' W pointers filled."""
-    tables = []
-    for c0 in range(0, len(weights), MAX_PARTS):
-        t = struct()
-        t.count = min(MAX_PARTS, len(weights) - c0)
-        t.W[:t.count] = [W.data_ptr() for W in weights[c0:c0 + t.count]]
-        tables.append((c0, t))
-    return tables
-
-
-class _Card:
-    """One card's launches: ``interior`` and ``split`` as ``route_plan``
-    gives them, their part tables with the W pointers, and whether W
-    allows four points a thread."""
-
-    def __init__(self, device, interior, split, weights, n2: int):
-        self.device, self.interior, self.split = device, interior, split
-        self.positions = [i for i, _, _ in interior]
-        self.interior_tables = part_tables(_Parts, [weights[i] for i in self.positions])
-        self.boundary_tables = part_tables(_Boundary, [weights[i] for i in split])
-        self.vec = n2 % 4 == 0 and all(weights[i].data_ptr() % 16 == 0
-                                       for i in self.positions)
-
-
 class Route:
     """What B8's launches for A's local parts need that does not change
     between matvecs, for the inner parts at the positions ``inner``: the
     offsets, the compacted halo terms, how many planes the halo terms reach
     from each side (``reach``: left, right), the (n1, n2) plane and per card
-    (``_Card``) the part tables with their W pointers.  Built once and kept
+    (``Card``) the part tables with their W pointers.  Built once and kept
     on A (``A.launch_table``): do not swap a part's weight tensor after
     that."""
 
@@ -285,9 +172,9 @@ class Route:
         self.m0, self.h = A.m0, A.halo
         self.slab = (A.m0,) + tuple(A.dims[1:])
         for W in A.weights:
-            _check_weights(W, self.slab, A.offsets)
+            check_weights(W, self.slab, A.offsets)
         self.n_parts = len(A.weights)
-        self.cards = [_Card(dev, interior, split, A.weights, self.n2)
+        self.cards = [Card(dev, interior, A.weights, self.n2, split)
                       for dev, interior, split in route_plan(
                           A.mesh.local, A.mesh.size,
                           [W.device for W in A.weights], self.inner)]
@@ -320,7 +207,7 @@ def interior_route(A: ShardedStencil, inner) -> Route:
     return r
 
 
-def fill_interior(card: _Card, ptrs, y_ptr: int, step: int) -> None:
+def fill_interior(card: Card, ptrs, y_ptr: int, step: int) -> None:
     """The x, y and neighbour pointers of a card's interior tables: ``ptrs``
     maps a position to its x slab's pointer, part k of the card writes
     ``y_ptr + k·step``."""
@@ -341,7 +228,7 @@ def boundary_planes(left, right, reach, m0: int):
     return (m0, 0) if lo + hi > m0 else (lo, hi)
 
 
-def fill_boundary(card: _Card, y_ptrs, lefts, rights, reach, m0: int) -> None:
+def fill_boundary(card: Card, y_ptrs, lefts, rights, reach, m0: int) -> None:
     """The y and landing-buffer pointers of a card's boundary tables, one
     of each per split part in ``card.split`` order (None: the zero halo),
     and each part's planes (``boundary_planes``)."""
@@ -361,7 +248,7 @@ def _interior(r: Route, xs, key: str):
     m0, step = r.m0, r.step
     ys = [None] * len(xs)
     for card in r.cards:
-        ptrs = {i: _check_slab(xs[i], r.slab, card.device, "slab")
+        ptrs = {i: check_slab(xs[i], r.slab, card.device, "slab")
                 for i in card.positions}
         y = torch.empty((len(card.positions) * m0,) + r.slab[1:], device=card.device)
         fill_interior(card, ptrs, y.data_ptr(), step)
@@ -380,12 +267,12 @@ def _boundary(r: Route, ys, halos) -> None:
     halo_shape = (r.h,) + r.slab[1:]
 
     def landing(t, dev):
-        return None if t is None else _check_slab(t, halo_shape, dev, "halo")
+        return None if t is None else check_slab(t, halo_shape, dev, "halo")
 
     for card in r.cards:
         if not card.split:
             continue
-        y_ptrs = [_check_slab(ys[i], r.slab, card.device, "y") for i in card.split]
+        y_ptrs = [check_slab(ys[i], r.slab, card.device, "y") for i in card.split]
         fill_boundary(card, y_ptrs, [landing(halos[i][0], card.device) for i in card.split],
                       [landing(halos[i][1], card.device) for i in card.split],
                       r.reach, r.m0)

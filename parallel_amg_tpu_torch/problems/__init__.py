@@ -18,8 +18,9 @@ from parallel_amg_tpu_torch.problems.poisson import poisson2d, poisson3d
 from parallel_amg_tpu_torch.problems.stencil_problems import (
     anisotropic_stencil,
     poisson_stencil,
+    seeded_stencil,
 )
 
 __all__ = ["anisotropic2d", "convection2d", "poisson2d", "poisson3d",
-           "poisson_stencil", "anisotropic_stencil", "coupled_laplacian",
+           "poisson_stencil", "anisotropic_stencil", "seeded_stencil", "coupled_laplacian",
            "coupled_laplacian_scipy", "coupling_matrix"]

@@ -22,7 +22,9 @@ Rounds run every tree in turn (change, parent, parent, change, ...).
 ``--profile`` adds, per tree, the setup3d cell's ten largest device
 operations under torch.profiler.  ``--stages`` adds the warm setup's seconds
 in each of ``STAGES`` (synchronised before and after each call, summed over
-calls; a stage inside another counts in both), where the tree has it.
+calls; a stage inside another counts in both: ``start_vector``, the power
+iterations' host draws, inside both power iterations), where the tree has
+it.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm", "bsr_spmv",
 
 # (module under parallel_amg_tpu_torch, function) timed by --stages
 STAGES = (("amg.device_setup", "power_iteration_lambda_max"),
+          ("amg.device_setup", "start_vector"),
           ("amg.device_setup", "coarse_operator"),
           ("amg.device_setup", "galerkin_block"),
           ("amg.device_setup", "_onehot_dot"),
