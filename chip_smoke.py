@@ -30,15 +30,26 @@
    against its plain version (kernel, plain and bound times); and the
    device coarse inverse (A8) of config #3's coarsest operator against the
    float64 host form.  Then ``ordered_stencil_matvec`` (the power
-   iterations' D⁻¹·A·x, one launch a card) on config #3's level 0 and on a
-   grid whose centre is added unfused, bit-equal to its plain version and
+   iterations' D⁻¹·A·x, one launch a card) on config #3's level 0, on a
+   grid whose centre is added unfused, and on three whose centre is
+   unfused on the rows LLVM's vector loop covers (64 × 45 × 8, rows 0–43;
+   16 × 468 × 8 in 8 parts, every row; 16 × 45 × 6 in 8 parts, rows 0–43),
+   bit-equal to its plain version and
    to the ordered-sum launches the power iterations took before it, with
    its device ms and that sequence's in turns, the plain version's, one
    cuSPARSE CSR product of D⁻¹A's and the bound (again on config #3's two
    split levels in 4 parts after phase 19
    and on 468³'s in 8 parts in phase 23).  setup3d holds one
    ``ordered_stencil_matvec`` an iteration of every level's power
-   iteration.
+   iteration, one ``ordered_bucket_stage`` a bucketed stage and fewer
+   ``ordered_fma`` than the 82 of the earlier stages.  Then
+   ``ordered_bucket_stage`` on the three stages of config #3's level-0
+   bucketed product and of a seeded 27-point 52³ operator (468³'s gathered
+   tail), bit-equal to its plain version and to the earlier ``ordered_fma``
+   sequence (``tests/bucket_sequence.py``), with both times in turns, the
+   plain version's and the bound.  The CPU references of config #3 (its
+   levels' λ and its 128³ levels) start in host processes after these
+   timings; a line ``host_reference`` for each reference says when it ran.
 6. Kernel B2 (flatdia_spmv) against its plain version on a random 7-point
    128³ stencil, config #3's level-1 coarse stencil, config #2's widest DIA
    level and a tiny grid whose flattened planes alias, in float32 and
@@ -203,13 +214,16 @@
     bit-equal, rows equal and complexities to three digits equal to the JAX
     package's 8-shard run, PMIS rounds, B3/B5/B4 and ordered-sum launches,
     their per-part product at level 0 held bit-equal to the plain versions
-    (values too), every level's λ_max held equal to the CPU's, PCG the JAX
-    package's 7, V-cycle ms and launches; a third
+    (values too), every level's λ_max held equal to the CPU's (the CPU's
+    power iterations in a host process while the later phases run, held
+    before the kernels line, as are config #3's λ and 128³ levels and the
+    level-0 P below), PCG the JAX package's 7, V-cycle ms and launches; a
+    third
     setup with one input of every ordered-sum shape captured, each held
     bit-equal to the plain version through the ordered-sum kernels,
     ``ordered_sum_staged`` and ``ordered_sum_windows`` timed on their
-    largest, and level 0's P on the card held bit-equal to the CPU's; 12 W-cycles
-    on these levels and on the one-device RS hierarchy, float64 true
+    largest, and level 0's P on the card held bit-equal to the CPU's; 6
+    W-cycles on these levels and on the one-device RS hierarchy, float64 true
     residuals a cycle (reported), and a W-cycle ``solve`` of 12 cycles on
     the same setup with λ_max from 100 power iterations, its true residual
     held to 1e-6 + 13·floor as PCG's is.
@@ -338,7 +352,8 @@ KERNELS = {
                     "the stack copies of the port's earlier power iterations",
         "design": "a thread a group of 4 points of a part, every part of a card in one "
                   "launch (B8's HaloParts table, halos read in place): the fma chain "
-                  "in the JAX package's plane order with the zero terms kept, the "
+                  "in the JAX package's plane order with the zero terms kept (the "
+                  "centre rounded and added on the rows below LLVM's row bound), the "
                   "halo terms' fmas on the planes they reach, D^-1 in the epilogue"},
     # not a TPU kernel: the fused multiply-add XLA's CPU backend contracts in
     # the structured setups' smoothers (amg/device_setup.py)
@@ -349,13 +364,28 @@ KERNELS = {
         "design": "elementwise __fmaf_rn, a grid-stride loop; an operand "
                   "shorter than the result (a scalar, a grid under a box of "
                   "planes) repeats"},
+    # not a TPU kernel: one stage of the bucketed Galerkin product in the JAX
+    # package's CPU order (ops/bucket_stage.py), in one launch
+    "ordered_bucket_stage": {
+        "source": ORDERED_SUM_SOURCE,
+        "replaces": "none (XLA's CPU order of the JAX package's bucketed stage, "
+                    "parallel_amg_tpu/amg/device_setup.py:357-386); it replaces the "
+                    "ordered_fma launches, shifted copies of X and masks of the port's "
+                    "earlier stage",
+        "design": "a thread a grid point and up to 27 output boxes, their sums in "
+                  "registers: the terms from a host table in order, each one's mask "
+                  "(the residue window), masked factor and neighbour computed once "
+                  "for the point and applied to every box of its target, X read in "
+                  "place (0 off the grid), __fmul_rn then __fmaf_rn, masked-off terms "
+                  "computed as fma(+0, x, y)"},
 }
 # the __global__ functions of csrc/, as the profiler names them
 PORT_KERNEL_NAMES = ("twell_stream_kernel", "flatdia_spmv_kernel",
                      "flatdia_spmm_kernel", "bsr_spmv_kernel", "expand_kernel",
                      "merge_kernel", "matvec_kernel", "boundary_kernel", "ordered_sum_staged",
                      "ordered_sum_windows", "ordered_sum_windows_span",
-                     "ordered_sum_lanes", "ordered_fma_kernel", "ordered_kernel")
+                     "ordered_sum_lanes", "ordered_fma_kernel", "ordered_kernel",
+                     "ordered_bucket_stage_kernel")
 LIBRARIES = ("twell_spmv", "flatdia_spmv", "spgemm", "bsr_spmv",
              "flatdia_spmm", "halo_stencil", "ordered_sum")  # csrc/<name>.cu
 CONFIG3_ROWS = [2_097_152, 79_507, 3_375, 125]
@@ -401,12 +431,142 @@ DEVICE_SA_512_JAX = {"rows": [262_144, 36_783, 2_217, 154, 11], "pcg_iters": 14,
 
 
 T0 = time.perf_counter()
+T0_WALL = time.time()
+# the CPU references that run in host processes while the card's phases go
+# on: (future, hold) pairs that main() holds before the kernels line
+CPU_CHECKS = []
+_HOST_POOL = []
 
 
 def emit(phase, **fields):
     """One JSON line, with the seconds since the script started (``t_s``)."""
     print(json.dumps({"phase": phase, **fields,
                       "t_s": round(time.perf_counter() - T0, 3)}), flush=True)
+
+
+def on_host(fn, args, hold):
+    """Run the CPU reference ``fn(*args)`` in a host process of its own,
+    beside the card's phases (arrays cross as numpy, pickled through the
+    pipe, not torch's shared memory); main() calls ``hold(result)`` before
+    the kernels line, which raises on a mismatch.  Each reference took
+    30–90 s of host time in the main process."""
+    if not _HOST_POOL:
+        import multiprocessing
+
+        _HOST_POOL.append(concurrent.futures.ProcessPoolExecutor(
+            max_workers=2, mp_context=multiprocessing.get_context("spawn")))
+    CPU_CHECKS.append((fn.__name__, time.time(), _HOST_POOL[0].submit(_timed, fn, args),
+                       hold))
+
+
+def _timed(fn, args):
+    """(wall-clock start, end, fn(*args)) in a host process."""
+    t0 = time.time()
+    out = fn(*args)
+    return t0, time.time(), out
+
+
+def hold_host_checks():
+    """Hold every ``on_host`` reference, then stop the host processes.  A
+    line ``host_reference`` for each says when it was submitted and when it
+    ran (seconds since the script started): the card's phases in that window
+    shared the host's cores with it."""
+    for name, submitted, future, hold in CPU_CHECKS:
+        t0, t1, out = future.result()
+        emit("host_reference", name=name, submitted_s=round(submitted - T0_WALL, 3),
+             start_s=round(t0 - T0_WALL, 3), end_s=round(t1 - T0_WALL, 3))
+        hold(out)
+    for pool in _HOST_POOL:
+        pool.shutdown()
+
+
+def _cpu_pcsr(n_shards, fields, row_partition, col_partition, true_shape):
+    """A PCSR on a CPU mesh of ``n_shards`` parts from its numpy fields."""
+    import torch
+
+    import parallel_amg_tpu_torch as ptt
+    from parallel_amg_tpu_torch.parallel.pcsr import PCSR
+
+    return PCSR(mesh=ptt.make_row_mesh(n_shards, device="cpu"), row_partition=row_partition,
+                col_partition=col_partition, true_shape=true_shape,
+                **{f: [torch.from_numpy(a) for a in v] for f, v in fields.items()})
+
+
+def pcsr_args(A):
+    """``_cpu_pcsr``'s arguments for a PCSR A, its tensors as numpy arrays."""
+    return (A.n_shards, {f: [t.cpu().numpy() for t in getattr(A, f)] for f in PCSR_FIELDS},
+            A.row_partition, A.col_partition, A.true_shape)
+
+
+def cpu_pcsr_lambdas(levels, iters):
+    """(λ_max of each level's PCSR power iteration on the CPU, seconds):
+    ``levels`` as (``pcsr_args``, D⁻¹'s parts as numpy)."""
+    import torch
+
+    from parallel_amg_tpu_torch.parallel import prs_setup as prs
+    from parallel_amg_tpu_torch.parallel.pgrid import PGrid
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    lams = []
+    for args, d_parts in levels:
+        A = _cpu_pcsr(*args)
+        d_inv = PGrid([torch.from_numpy(d) for d in d_parts], A.mesh)
+        lams.append(float(prs._pcsr_lambda_max(A, d_inv, iters, 0)))
+    return lams, time.perf_counter() - t0
+
+
+def cpu_stencil_lambdas(levels, iters):
+    """(λ_max of each level's one-device power iteration on the CPU, seconds):
+    ``levels`` as (weights, offsets, dims, D⁻¹), arrays as numpy."""
+    import torch
+
+    from parallel_amg_tpu_torch.amg import device_setup
+    from parallel_amg_tpu_torch.ops.stencil import Stencil
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    lams = [float(device_setup.power_iteration_lambda_max(
+        Stencil(torch.from_numpy(w), offs, dims), torch.from_numpy(d), iters, seed=0))
+        for w, offs, dims, d in levels]
+    return lams, time.perf_counter() - t0
+
+
+def cpu_level0_P(args, cfg):
+    """(level 0's P of config #2's RS setup in parts on the CPU, its PCSR
+    fields as numpy; seconds) from A_0's ``pcsr_args``."""
+    import torch
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    P = level0_P(_cpu_pcsr(*args), cfg)
+    return ({f: [t.numpy() for t in getattr(P, f)] for f in PCSR_FIELDS},
+            time.perf_counter() - t0)
+
+
+def level0_P(A, cfg):
+    """Level 0's P of the RS setup in parts: strength, PMIS, extended+i."""
+    from parallel_amg_tpu_torch.parallel import prs_setup as prs
+
+    Sd, So = prs.pcsr_strength(A, cfg.theta)
+    state = prs.pcsr_pmis(A, Sd, So, seed=0)
+    cmap, mc_pad, _ = prs.coarse_numbering(A, state)
+    return prs.pcsr_interpolation(A, Sd, So, state, cmap, mc_pad, cfg)
+
+
+def cpu_structured_levels(dims, config):
+    """(each level's weights and D⁻¹ as numpy and λ_max, the product paths,
+    seconds) of the structured setup of poisson_stencil(dims) on the CPU."""
+    import torch
+
+    import parallel_amg_tpu_torch as ptt
+    from parallel_amg_tpu_torch.problems import poisson_stencil
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    h = ptt.setup(poisson_stencil(dims, device="cpu"), config, device="cpu")
+    return ([(l.A.weights.numpy(), l.d_inv.numpy(), float(l.lam_max)) for l in h.levels],
+            h.setup_stats["product_paths"], time.perf_counter() - t0)
 
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -969,14 +1129,19 @@ def lambda_cpu_check(c, label, lams_card, lam_cpu_fns):
     """Each level's λ_max from the card against the same power iteration on
     the CPU (the same operator copied over, the kernels' plain versions),
     bit for bit.  Returns whether all were equal."""
-    import torch
-
     t0 = time.perf_counter()
     lams_cpu = [float(f()) for f in lam_cpu_fns]
+    return lambda_vs_cpu(c, label, lams_card, lams_cpu, time.perf_counter() - t0)
+
+
+def lambda_vs_cpu(c, label, lams_card, lams_cpu, cpu_seconds):
+    """``lambda_cpu_check``'s comparison and line, for λs already taken."""
+    import torch
+
     equal = [torch.tensor(a, dtype=torch.float32).item() == b
              for a, b in zip(lams_card, lams_cpu)]
     c.emit("lambda_max_vs_cpu", path=label, lam_card=lams_card, lam_cpu=lams_cpu,
-           bit_equal=equal, cpu_seconds=time.perf_counter() - t0)
+           bit_equal=equal, cpu_seconds=cpu_seconds)
     return all(equal) and len(lams_card) == len(lams_cpu)
 
 
@@ -1037,7 +1202,7 @@ def scaled_stencil_csr(W, offsets, dims, row_scale):
     return torch.sparse_csr_tensor(crow, cols[keep], vals[keep], (n, n))
 
 
-def ordered_stencil_case(c, label, A, d_inv, gen, main=False):
+def ordered_stencil_case(c, label, A, d_inv, gen, main=False, want_rows=None):
     """``ordered_stencil_matvec`` on the power iterations' matvec of A (a
     Stencil with its D⁻¹, or a ShardedStencil with its D⁻¹ PGrid) at a
     random x, against its plain version and against the ordered-sum
@@ -1045,20 +1210,20 @@ def ordered_stencil_case(c, label, A, d_inv, gen, main=False):
     ``launch``), bit for bit: one launch a card; the kernel's and that
     sequence's device ms in turns, the plain version's, the bound, and one
     cuSPARSE CSR product by the rows of D⁻¹A (``library_ms``: the same
-    function, its products in another order)."""
+    function, its products in another order).  ``want_rows``: the rows of
+    the centre unfused that the plan must carry."""
     import torch
 
     from parallel_amg_tpu_torch.amg import device_setup
     from parallel_amg_tpu_torch.ops import ordered_stencil, ordered_sum
-    from parallel_amg_tpu_torch.parallel import exchange
+    from parallel_amg_tpu_torch.parallel import exchange, pdevice_setup
 
     sharded = hasattr(A, "mesh")
     if sharded:
-        plan = ordered_stencil.Plan(A.weights, d_inv.parts, A.offsets, sharded=True)
+        plan = pdevice_setup.power_plan(A, d_inv)
         weights = A.weights
     else:
-        plan = ordered_stencil.Plan.one_device(A, d_inv, device_setup._unfused_centre(
-            A, ordered_stencil.chain_order(len(A.offsets))))
+        plan = device_setup.power_plan(A, d_inv)
         weights = [A.weights]
     xs = [torch.rand(W.shape[1:], generator=gen, device=W.device) - 0.5 for W in weights]
     halos = (exchange.halos(xs, plan.h, 0) if plan.h else [(None, None)] * len(xs))
@@ -1094,17 +1259,20 @@ def ordered_stencil_case(c, label, A, d_inv, gen, main=False):
         lib_ms, lib_err = None, "parts on more than one card"
     ms = statistics.median(kernel_ms)
     fields = dict(points=K, parts=len(weights), slab=list(plan.slab), split=plan.split,
-                  halo_terms=len(plan.corr), launches=launched, cards=n_cards,
+                  unfused_rows=plan.rows, halo_terms=len(plan.corr), launches=launched,
+                  cards=n_cards,
                   bit_equal_plain=equal_plain, bit_equal_earlier_sequence=equal_seq,
                   ms=ms, ms_in_turns=kernel_ms, earlier_sequence_ms=seq_ms, plain_ms=plain_ms,
                   library_ms=lib_ms, library_error=lib_err,
                   bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
                   copy_bound_ms=c.copy_bound_ms(n_bytes))
     c.emit("kernel", name="ordered_stencil_matvec", case=label, **fields)
-    if not (equal_plain and equal_seq and finite and launched == n_cards):
+    if not (equal_plain and equal_seq and finite and launched == n_cards
+            and (want_rows is None or plan.rows == want_rows)):
         raise AssertionError(f"ordered_stencil_matvec {label}: bit-equal to plain "
                              f"{equal_plain}, to the earlier sequence {equal_seq}, finite "
-                             f"{finite}, {launched} launches for {n_cards} card(s)")
+                             f"{finite}, {launched} launches for {n_cards} card(s), "
+                             f"unfused rows {plan.rows} (want {want_rows})")
     r = c.results["ordered_stencil_matvec"]
     r.setdefault("cases", {})[label] = {k: fields[k] for k in (
         "ms", "earlier_sequence_ms", "plain_ms", "library_ms", "bound_ms", "launches")}
@@ -1165,32 +1333,30 @@ def ordered_sum_phase(c, A0, cfg, mesh):
     the widest windowed input timed against their plain version and
     torch.sum; and level 0's P on the card (strength, PMIS and extended+i)
     held bit-equal to the CPU's from the same A_0 (kernels' plain versions
-    there)."""
-    import parallel_amg_tpu_torch as ptt
-    from parallel_amg_tpu_torch.parallel import prs_setup as prs
-    from parallel_amg_tpu_torch.parallel.pcsr import PCSR
+    there, in a host process beside the card's next phases: line
+    ``ordered_sum_level0_P_vs_cpu``)."""
+    import torch
 
-    def level0_P(A):
-        Sd, So = prs.pcsr_strength(A, cfg.theta)
-        state = prs.pcsr_pmis(A, Sd, So, seed=0)
-        cmap, mc_pad, _ = prs.coarse_numbering(A, state)
-        return prs.pcsr_interpolation(A, Sd, So, state, cmap, mc_pad, cfg)
+    import parallel_amg_tpu_torch as ptt
 
     _, captured = capture_row_sums(lambda: ptt.distributed_setup(A0, cfg, mesh))
     c.sync()
     by_kernel, kernel_equal = ordered_sum_check(c, captured, "dist_config2_8parts_rs_setup")
-    P_card = level0_P(A0)
+    P_card = level0_P(A0, cfg)
     c.sync()
-    mesh_cpu = ptt.make_row_mesh(A0.n_shards, device="cpu")
-    A_cpu = PCSR(mesh=mesh_cpu, row_partition=A0.row_partition,
-                 col_partition=A0.col_partition, true_shape=A0.true_shape,
-                 **{f: [t.cpu() for t in getattr(A0, f)] for f in PCSR_FIELDS})
-    t0 = time.perf_counter()
-    P_cpu = level0_P(A_cpu)
-    cpu_s = time.perf_counter() - t0
-    p_equal = all(len(getattr(P_card, f)) == len(getattr(P_cpu, f)) and all(
-        bits_equal(a, b) for a, b in zip(getattr(P_card, f), getattr(P_cpu, f)))
-        for f in PCSR_FIELDS)
+    P_card = {f: [t.cpu() for t in getattr(P_card, f)] for f in PCSR_FIELDS}
+
+    def hold_P(result):
+        P_cpu, cpu_s = result
+        p_equal = all(len(P_card[f]) == len(P_cpu[f]) and all(
+            bits_equal(a, torch.from_numpy(b)) for a, b in zip(P_card[f], P_cpu[f]))
+            for f in PCSR_FIELDS)
+        c.emit("ordered_sum_level0_P_vs_cpu", path="dist_config2_8parts_rs_setup",
+               bit_equal=p_equal, cpu_seconds=cpu_s)
+        if not p_equal:
+            raise AssertionError("ordered_sum: the card's level-0 P differs from the CPU's")
+
+    on_host(cpu_level0_P, (pcsr_args(A0), cfg), hold_P)
     staged = [t for t in by_kernel["ordered_sum_staged"] if t[0] == "row_sum"]
     windowed = [t for t in by_kernel["ordered_sum_windows"]
                 if t[0] == "row_sum" and t[1][0].dim() > t[1][1]]
@@ -1208,15 +1374,13 @@ def ordered_sum_phase(c, A0, cfg, mesh):
                          f"input {list(args[0].shape)} over {args[1]} axes (the "
                          f"whole tree of windows in one launch)")
     c.emit("ordered_sum", path="dist_config2_8parts_rs_setup",
-           kernel_bit_equal_plain=kernel_equal, level0_P_bit_equal_cpu=p_equal,
-           level0_P_cpu_seconds=cpu_s,
+           kernel_bit_equal_plain=kernel_equal,
            inputs_by_kernel={k: len(v) for k, v in by_kernel.items()})
-    if not (kernel_equal and p_equal and staged and windowed):
+    if not (kernel_equal and staged and windowed):
         raise AssertionError(
             f"ordered_sum: kernels bit-equal to their plain version {kernel_equal}; "
-            f"the card's level-0 P bit-equal to the CPU's {p_equal}; staged and "
-            f"windowed inputs {len(staged)}, {len(windowed)}")
-    del captured, by_kernel, staged, windowed, P_card, P_cpu, A_cpu
+            f"staged and windowed inputs {len(staged)}, {len(windowed)}")
+    del captured, by_kernel, staged, windowed
 
 
 def galerkin_order_phase(c, h3):
@@ -1224,9 +1388,10 @@ def galerkin_order_phase(c, h3):
     port's own CPU run of the same function on the same inputs, bit for bit:
     the dense, bucketed and slab (at least 2 slabs) products on random 3-D
     stencils, the whole sharded setup in 4 parts, and config #3 at 128³ (the
-    card's setup ``h3`` against a CPU run of the same setup, timed) level by
-    level (weights, D⁻¹, λ), and ``h3`` against the JAX package's record of
-    the same levels (``hold_jax_record``).
+    card's setup ``h3`` against a CPU run of the same setup in a host
+    process, timed; line ``galerkin_order_config3_vs_cpu``) level by level
+    (weights, D⁻¹, λ), and ``h3`` against the JAX package's record of the
+    same levels (``hold_jax_record``).
     Times the ordered_fma kernel at config #3's level-1 smoother and checks
     the device coarse inverse (A8) against the float64 host form."""
     import numpy as np
@@ -1243,6 +1408,26 @@ def galerkin_order_phase(c, h3):
     dev = torch.device("cuda", 0)
     gen = np.random.default_rng(16)
     checks = {}
+    # config #3 at its own size: the card's setup against a CPU run of the
+    # same setup, level by level, in a host process beside the card's phases
+    dims3 = h3.levels[0].A.dims
+    size3 = "x".join(map(str, dims3))
+    card3 = [(l.A.weights.cpu(), l.d_inv.cpu(), float(l.lam_max)) for l in h3.levels]
+
+    def hold_levels(result):
+        cpu3, paths, cpu_s = result
+        levels_equal = [bits_equal(a[0], torch.from_numpy(b[0]))
+                        and bits_equal(a[1], torch.from_numpy(b[1])) and a[2] == b[2]
+                        for a, b in zip(card3, cpu3)]
+        ok = len(card3) == len(cpu3) and all(levels_equal)
+        c.emit("galerkin_order_config3_vs_cpu", config3_size=size3,
+               config3_rows=[l.A.n_rows for l in h3.levels], config3_paths=paths,
+               config3_levels_equal=levels_equal, bit_equal=ok, config3_cpu_setup_s=cpu_s)
+        if not ok:
+            raise AssertionError(f"config #3 at {size3}: a level differs between card "
+                                 f"and CPU: {levels_equal}")
+
+    on_host(cpu_structured_levels, (dims3, h3.config), hold_levels)
 
     def random_level(dims, kind):
         st = poisson_stencil(dims, device="cpu")
@@ -1302,24 +1487,9 @@ def galerkin_order_phase(c, h3):
         sharded_equal.append(bits_equal(wc, wp) and lc.lam_max == lp.lam_max)
     checks["sharded_4parts_36x24x20"] = (
         len(hs["cuda"].levels) == len(hs["cpu"].levels) and all(sharded_equal))
-    # config #3 at its own size: the card's setup against the CPU's, level
-    # by level
-    dims3 = h3.levels[0].A.dims
-    t1 = time.perf_counter()
-    h_cpu = ptt.setup(poisson_stencil(dims3, device="cpu"), h3.config, device="cpu")
-    cpu_s = time.perf_counter() - t1
-    levels_equal = [bits_equal(a.A.weights, b.A.weights) and bits_equal(a.d_inv, b.d_inv)
-                    and a.lam_max == b.lam_max
-                    for a, b in zip(h3.levels, h_cpu.levels)]
-    size3 = "x".join(map(str, dims3))
-    checks[f"config3_{size3}_levels"] = (len(h3.levels) == len(h_cpu.levels)
-                                         and all(levels_equal))
     c.emit("galerkin_order", cases=list(cases), slab_n_slabs=n_slabs,
            bit_equal_card_vs_cpu=checks, sharded_levels_equal=sharded_equal,
-           config3_levels_equal=levels_equal, config3_size=size3,
-           config3_rows=[l.A.n_rows for l in h3.levels],
-           config3_paths=h_cpu.setup_stats["product_paths"],
-           seconds=time.perf_counter() - t0, config3_cpu_setup_s=cpu_s)
+           seconds=time.perf_counter() - t0)
     if not all(checks.values()):
         raise AssertionError(f"a Galerkin product differs between card and CPU: {checks}")
     # and against the JAX package's own levels (its CPU record)
@@ -1361,6 +1531,98 @@ def galerkin_order_phase(c, h3):
         raise AssertionError(f"coarse_inverse on the card: relative error {err}")
 
 
+def bucket_stage_phase(c, A3, d_inv3, gen):
+    """``ordered_bucket_stage`` on the three stages of config #3's level-0
+    bucketed product (A3 and its D⁻¹, 128³, 7 points) and of the 468³ setup's
+    gathered tail (a seeded 27-point operator of its 52³ level), each against
+    its plain version (``bucket_stage.stage_plain`` on the card) and the
+    earlier ``ordered_fma`` sequence (``tests/bucket_sequence.py``, the
+    setup's route before the kernel), bit for bit, one launch a stage; the
+    kernel's and the sequence's device ms in turns (``bucket_stage.stage``
+    timed as the setup calls it, its table built and copied to the card on
+    every call), the plain version's, the bound (X, the factor planes and Y
+    each once; 2 operations a term an element)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from bucket_sequence import earlier_sequence
+
+    from parallel_amg_tpu_torch.amg import device_setup as ds
+    from parallel_amg_tpu_torch.ops import bucket_stage, ordered_sum
+    from parallel_amg_tpu_torch.ops.stencil import Stencil
+    from parallel_amg_tpu_torch.problems import seeded_stencil
+
+    dev = A3.weights.device
+    w52, offs52 = seeded_stencil((52, 52, 52), 27, 3)
+    A52 = Stencil(torch.from_numpy(w52).to(dev), offs52, (52, 52, 52))
+    operators = {"config3_128^3_level0": (A3, d_inv3),
+                 "p468_tail_52^3_27pt": (A52, ds.diag_inverse(A52))}
+    coef = torch.tensor(0.55, device=dev)
+    r = c.results["ordered_bucket_stage"]
+    cases = r.setdefault("cases", {})
+    ok = True
+    for op_label, (A, d_inv) in operators.items():
+        factors, boxes = ds.bucket_stage_factors(A, d_inv, coef, 3)
+        X = torch.ones((1, 1, 1) + A.dims, device=dev)
+        for s, (F, box_in, box_out) in enumerate(zip(factors, boxes, boxes[1:])):
+            label = f"{op_label}_stage{s + 1}"
+            table = bucket_stage.terms(A.offsets, box_in, box_out, 3)
+            before = ordered_sum.LAUNCHES["ordered_bucket_stage"]
+            fma_before = ordered_sum.LAUNCHES["ordered_fma"]
+            got = bucket_stage.stage(F, A.offsets, X, box_in, box_out, 3, A.dims)
+            launched = ordered_sum.LAUNCHES["ordered_bucket_stage"] - before
+            fma_launched = ordered_sum.LAUNCHES["ordered_fma"] - fma_before
+            plain = bucket_stage.stage_plain(F, A.offsets, X, box_in, box_out, 3, A.dims)
+            equal_plain = bits_equal(got, plain)
+            del plain
+            before = ordered_sum.LAUNCHES["ordered_fma"]
+            seq = earlier_sequence(list(F), A.offsets, X, box_in, box_out, 3, A.dims)
+            seq_launches = ordered_sum.LAUNCHES["ordered_fma"] - before
+            equal_seq = bits_equal(got, seq)
+            del seq
+            finite = bool(torch.isfinite(got).all())
+            n = A.n
+            _, src = bucket_stage.kernel_table(table, box_in, box_out, 3)
+            applied = sum(v >= 0 for cols in src for v in cols)  # (term, box) pairs
+            n_bytes = 4 * n * (F.shape[0] + X.numel() // n + got.numel() // n)
+            b_ms, b_by = c.bound_ms(n_bytes, 2 * applied * n)
+            kernel_ms, seq_ms = [], []
+            for _ in range(2):  # in turns: kernel, sequence, kernel, sequence
+                kernel_ms.append(c.device_ms(lambda: bucket_stage.stage(
+                    F, A.offsets, X, box_in, box_out, 3, A.dims), reps=3, samples=7))
+                seq_ms.append(c.device_ms(lambda: earlier_sequence(
+                    list(F), A.offsets, X, box_in, box_out, 3, A.dims), reps=1, samples=3,
+                    warmup=1))
+            plain_ms = c.device_ms(lambda: bucket_stage.stage_plain(
+                F, A.offsets, X, box_in, box_out, 3, A.dims), reps=1, samples=3, warmup=1)
+            ms = statistics.median(kernel_ms)
+            fields = dict(grid=list(A.dims), points=A.n_points, box_in=X.numel() // n,
+                          box_out=got.numel() // n, terms=len(table),
+                          element_terms=applied, launches=launched,
+                          ordered_fma_launches=fma_launched,
+                          earlier_sequence_ordered_fma_launches=seq_launches,
+                          bit_equal_plain=equal_plain, bit_equal_earlier_sequence=equal_seq,
+                          ms=ms, ms_in_turns=kernel_ms, earlier_sequence_ms=seq_ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          share_of_bound=b_ms / ms, copy_bound_ms=c.copy_bound_ms(n_bytes))
+            c.emit("kernel", name="ordered_bucket_stage", case=label, **fields)
+            cases[label] = {k: fields[k] for k in (
+                "ms", "earlier_sequence_ms", "plain_ms", "bound_ms", "launches")}
+            ok &= (equal_plain and equal_seq and finite and launched == 1
+                   and fma_launched == 0)
+            if label == "config3_128^3_level0_stage3":
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, copy_bound_ms=c.copy_bound_ms(n_bytes),
+                         main_case=label, earlier_sequence_ms=seq_ms,
+                         share_of_bound=b_ms / ms, max_abs_err=0.0,
+                         library_kind="none (no single PyTorch call computes the stage)")
+            X = got
+        del X, factors
+    if not ok:
+        raise AssertionError(f"ordered_bucket_stage: a case differs from its plain version "
+                             f"or the earlier sequence, or took other launches: {cases}")
+
+
 def dist_algebraic_phases(c):
     """The algebraic distributed path, 8 parts on the card: phases pcsr,
     passembly, psetup_host, prs_setup and psa_setup.  ``c`` carries the
@@ -1378,7 +1640,6 @@ def dist_algebraic_phases(c):
     from parallel_amg_tpu_torch.oracle import oracle_pcg, oracle_setup
     from parallel_amg_tpu_torch.parallel import prs_setup as prs
     from parallel_amg_tpu_torch.parallel.pcsr import PCSR
-    from parallel_amg_tpu_torch.parallel.pgrid import PGrid
     from parallel_amg_tpu_torch.problems import poisson2d
     from parallel_amg_tpu_torch.utils import roofline
 
@@ -1651,20 +1912,20 @@ def dist_algebraic_phases(c):
     # are reported, cycle by cycle, as float64 true residuals; the held
     # solve is the same setup with λ_max from 100 power iterations, capped
     # at the cycles a 0.30 rate needs to 1e-6 and held as PCG is
+    t0 = time.perf_counter()
     w_main = w_history(h1, b)
     w_one = w_history(c.one_device_rs, torch.from_numpy(b_np).float().to(c.dev))
+    w_history_s = time.perf_counter() - t0
     lam_main = [l.lam_max for l in h1.levels]
-    mesh_cpu = ptt.make_row_mesh(S, device="cpu")
 
-    def lam_cpu(lvl):
-        A_cpu = PCSR(mesh=mesh_cpu, row_partition=lvl.A.row_partition,
-                     col_partition=lvl.A.col_partition, true_shape=lvl.A.true_shape,
-                     **{f: [t.cpu() for t in getattr(lvl.A, f)] for f in PCSR_FIELDS})
-        d_cpu = PGrid([p.cpu() for p in lvl.d_inv.parts], mesh_cpu)
-        return prs._pcsr_lambda_max(A_cpu, d_cpu, cfg_rs.lambda_power_iters, 0)
+    def hold_lams(result):
+        if not lambda_vs_cpu(c, "dist_config2_8parts_rs_setup", lam_main, *result):
+            raise AssertionError("prs_setup: a level's λ_max differs from the CPU's")
 
-    lam_equal = lambda_cpu_check(c, "dist_config2_8parts_rs_setup", lam_main,
-                                 [functools.partial(lam_cpu, l) for l in h1.levels])
+    # the same power iterations on the CPU (60-150 s of host time) run in a
+    # host process beside the card's next phases
+    on_host(cpu_pcsr_lambdas, ([(pcsr_args(l.A), [p.cpu().numpy() for p in l.d_inv.parts])
+                                for l in h1.levels], cfg_rs.lambda_power_iters), hold_lams)
     del h1
     cfg_w = dataclasses.replace(cfg_rs, cycle="W", lambda_power_iters=100)
     hw = ptt.distributed_setup(Ap, cfg_w, mesh)
@@ -1695,6 +1956,7 @@ def dist_algebraic_phases(c):
            pcg_launches=pcg_launches,
            wcycle_true_rel_residual_by_cycle=w_main, lam_max=lam_main,
            wcycle_one_device_rs_true_rel_residual_by_cycle=w_one,
+           wcycle_histories_s=w_history_s,
            wcycle_lam_max=[l.lam_max for l in hw.levels],
            wcycle_lambda_power_iters=cfg_w.lambda_power_iters,
            wcycle_solve_cycles=k_w,
@@ -1715,7 +1977,6 @@ def dist_algebraic_phases(c):
     launched = (min(setup_launches[k] for k in (*pspgemm.LAUNCHES,
                                                  *ORDERED_SUM_KERNELS)) > 0
                 and pcg_launches["twell_spmv"] > 0)
-    hold(lam_equal, "prs_setup: a level's λ_max differs from the CPU's")
     hold(bit_equal and r.converged and tr <= limit and w_tr <= w_limit
          and launched,
          "prs_setup: a hold failed (see the prs_setup line)")
@@ -1805,7 +2066,12 @@ def main():
         pspgemm,
         twell,
     )
-    from parallel_amg_tpu_torch.parallel import exchange, launch, phalo_async
+    from parallel_amg_tpu_torch.parallel import (
+        exchange,
+        launch,
+        pdevice_setup,
+        phalo_async,
+    )
     from parallel_amg_tpu_torch.parallel.pgrid import PGrid
     from parallel_amg_tpu_torch.parallel.pstencil import (
         ShardedStencil,
@@ -1831,6 +2097,7 @@ def main():
         poisson2d,
         poisson3d,
         poisson_stencil,
+        seeded_stencil,
     )
     from parallel_amg_tpu_torch.oracle import oracle_vcycle
     from parallel_amg_tpu_torch.utils import roofline
@@ -2026,7 +2293,8 @@ def main():
         torch.cuda.synchronize()
         setup3_s = time.perf_counter() - t0
     launches_setup3 = {k: ordered_sum.LAUNCHES[k] for k in (
-        "ordered_stencil_matvec", "ordered_fma", "ordered_sum_lanes")}
+        "ordered_stencil_matvec", "ordered_fma", "ordered_bucket_stage",
+        "ordered_sum_lanes")}
     levels3 = [{"rows": l.A.n_rows, "points": l.A.n_points, "format": fmt(l.A),
                 "lam_max": l.lam_max,
                 "product_path": (device_setup.select_product_path(l.A, cfg3)
@@ -2035,8 +2303,14 @@ def main():
     emit("setup3d", problem=f"poisson_stencil(({n3},)*3)", seconds=setup3_s,
          n_levels=h3.n_levels, levels=levels3, launches=launches_setup3,
          peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
-    if launches_setup3["ordered_fma"] <= 0:
-        raise AssertionError("config #3's setup launched no ordered_fma")
+    # the smoothers' centre planes stay ordered_fma (82 when each contiguous
+    # block of a bucketed update was one); every bucketed stage is one
+    # ordered_bucket_stage launch
+    n_bucketed3 = [lv["product_path"] for lv in levels3].count("bucketed")
+    if not (0 < launches_setup3["ordered_fma"] < 82
+            and launches_setup3["ordered_bucket_stage"] == 3 * n_bucketed3 > 0):
+        raise AssertionError(f"config #3's setup: {launches_setup3} for {n_bucketed3} "
+                             "bucketed product(s)")
     # one ordered_stencil_matvec an iteration of every level's power iteration
     if launches_setup3["ordered_stencil_matvec"] != cfg3.lambda_power_iters * h3.n_levels:
         raise AssertionError(f"config #3's setup: {launches_setup3}, want "
@@ -2046,17 +2320,16 @@ def main():
         raise AssertionError(f"config #3 levels {rows3}, want {CONFIG3_ROWS}")
     # λ_max(D⁻¹A) of every level: the same power iteration on the CPU, from
     # the level's operator copied over, gives the card's bits
-    if not lambda_cpu_check(
-            types.SimpleNamespace(emit=emit), "config3_128^3",
-            [l.lam_max for l in h3.levels],
-            [functools.partial(device_setup.power_iteration_lambda_max, l.A.to("cpu"),
-                               l.d_inv.cpu(), cfg3.lambda_power_iters, seed=0)
-             for l in h3.levels]):
-        raise AssertionError("config #3: a level's λ_max differs from the CPU's")
+    lams3 = [l.lam_max for l in h3.levels]
+
+    def hold_lams3(result):
+        if not lambda_vs_cpu(types.SimpleNamespace(emit=emit), "config3_128^3", lams3,
+                             *result):
+            raise AssertionError("config #3: a level's λ_max differs from the CPU's")
+
     kctx = types.SimpleNamespace(emit=emit, device_ms=device_ms, bound_ms=bound_ms,
                                  copy_bound_ms=copy_bound_ms, library_ms=library_ms,
                                  results=results)
-    galerkin_order_phase(kctx, h3)
     # the power iterations' matvec on one device: config #3's level 0, and a
     # grid whose centre the JAX package adds unfused (n1 = 8, 5 ≤ n2 ≤ 8)
     g_os = torch.Generator(device=dev).manual_seed(18)
@@ -2066,8 +2339,33 @@ def main():
     A_unf = Stencil(p_unf.weights * (0.5 + torch.rand(p_unf.weights.shape, generator=g_os,
                                                       device=dev)), p_unf.offsets, p_unf.dims)
     ordered_stencil_case(kctx, "unfused_centre_96x8x6", A_unf,
-                         device_setup.diag_inverse(A_unf), g_os)
+                         device_setup.diag_inverse(A_unf), g_os, want_rows=8)
     del p_unf, A_unf
+    # the centre unfused on the rows LLVM's vector loop covers (ROADMAP C7a):
+    # one device, rows 0-43 of 45; 8 parts of 2 × 468 × 8, every row (four
+    # points a thread); 8 parts of 2 × 45 × 6, rows 0-43 (one point a thread)
+    w_rows, offs_rows = seeded_stencil((64, 45, 8), 7, 19)
+    A_rows = Stencil(torch.from_numpy(w_rows).to(dev), offs_rows, (64, 45, 8))
+    ordered_stencil_case(kctx, "unfused_rows_64x45x8", A_rows,
+                         device_setup.diag_inverse(A_rows), g_os, want_rows=44)
+    w_rows, offs_rows = seeded_stencil((16, 468, 8), 7, 1)
+    A_rows = ShardedStencil.from_global(torch.from_numpy(w_rows).to(dev), offs_rows,
+                                        (16, 468, 8), ptt.make_row_mesh(8))
+    ordered_stencil_case(kctx, "unfused_rows_16x468x8_8parts", A_rows,
+                         pdevice_setup._sharded_dinv(A_rows), g_os, want_rows=468)
+    w_rows, offs_rows = seeded_stencil((16, 45, 6), 7, 2)
+    A_rows = ShardedStencil.from_global(torch.from_numpy(w_rows).to(dev), offs_rows,
+                                        (16, 45, 6), ptt.make_row_mesh(8))
+    ordered_stencil_case(kctx, "unfused_rows_16x45x6_8parts", A_rows,
+                         pdevice_setup._sharded_dinv(A_rows), g_os, want_rows=44)
+    del w_rows, A_rows
+    bucket_stage_phase(kctx, h3.levels[0].A, h3.levels[0].d_inv, g_os)
+    # the host references start after the timings above, which wait on the
+    # host (the earlier sequences' launches)
+    on_host(cpu_stencil_lambdas, ([(l.A.weights.cpu().numpy(), l.A.offsets, l.A.dims,
+                                    l.d_inv.cpu().numpy()) for l in h3.levels],
+                                  cfg3.lambda_power_iters), hold_lams3)
+    galerkin_order_phase(kctx, h3)
 
     # -- kernel B2: flatdia_spmv ---------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -3782,6 +4080,15 @@ def main():
     rows468 = [lv["rows"] for lv in info468["levels"]]
     if rows468 != DIST_100M_ROWS:
         raise AssertionError(f"468³ in 8 parts: levels {rows468}, want {DIST_100M_ROWS}")
+    # the gathered tail's bucketed products: one ordered_bucket_stage a stage;
+    # the centres alone stay ordered_fma (1,080 when the stages' updates
+    # were ordered_fma launches)
+    launches468 = info468["ordered_sum_launches"]
+    n_bucketed468 = hd468.setup_stats["tail_product_paths"].count("bucketed")
+    if not (launches468["ordered_fma"] < 1080
+            and launches468["ordered_bucket_stage"] == 3 * n_bucketed468 > 0):
+        raise AssertionError(f"468³ setup: {launches468} for {n_bucketed468} bucketed "
+                             "product(s) in its tail")
     hold_p468_record(kctx, hd468, mesh8)
     for lv in (0, 1):
         ordered_stencil_case(kctx, f"dist_468^3_8parts_level{lv}", hd468.levels[lv].A,
@@ -3875,8 +4182,10 @@ def main():
                 # setup alone (launches_rs)
                 **{k: dist_paths["dist_config2_8parts_rs_setup"][k]
                    for k in ("ordered_sum_staged", "ordered_sum_windows")},
-                # config #3's one-device setup: its smoothers' fmas
+                # config #3's one-device setup: its smoothers' fmas and its
+                # bucketed stages
                 "ordered_fma": launches_setup3["ordered_fma"],
+                "ordered_bucket_stage": launches_setup3["ordered_bucket_stage"],
                 # the 468³ setup in 8 parts, the main case's path: its power
                 # iterations on every level
                 "ordered_stencil_matvec":
@@ -3907,6 +4216,7 @@ def main():
                "convection_fgmres": launches_fg,
                **dist_paths, **mp_paths}
 
+    hold_host_checks()
     line = []
     for name, meta in KERNELS.items():
         r = results[name]

@@ -42,7 +42,7 @@ from parallel_amg_tpu_torch.amg.transfers import (
     downsample_sum_nd,
 )
 from parallel_amg_tpu_torch.config import AMGConfig
-from parallel_amg_tpu_torch.ops import ordered_stencil, ordered_sum, prng
+from parallel_amg_tpu_torch.ops import bucket_stage, ordered_stencil, ordered_sum, prng
 from parallel_amg_tpu_torch.ops.stencil import Stencil, bucket_add, shift_nd
 
 
@@ -57,15 +57,14 @@ def power_iteration_lambda_max(A: Stencil, d_inv, iters: int, seed: int = 0):
     oracle); no host read.  The matvec D⁻¹·A·x adds its products in the JAX
     package's CPU order (``ops/ordered_stencil.py``: one
     ``ordered_stencil_matvec`` launch an iteration on the card, the centre
-    unfused where ``_unfused_centre`` says) and the norm's sum is
+    unfused on the rows ``_unfused_centre`` gives) and the norm's sum is
     ``ordered_sum.sumsq``, so a float32 λ is the JAX package's bit for bit
     (other types take torch's order); the solve path's ``Stencil.matvec``
     keeps torch's order."""
     x = start_vector(A.dims, A.weights.dtype, A.weights.device, seed)
     ordered = A.weights.dtype == torch.float32
     if ordered:
-        plan = ordered_stencil.Plan.one_device(A, d_inv, _unfused_centre(
-            A, ordered_stencil.chain_order(len(A.offsets))))
+        plan = power_plan(A, d_inv)
     lam = torch.ones((), dtype=x.dtype, device=x.device)
     for _ in range(iters):
         if ordered:
@@ -134,18 +133,20 @@ def eager_block_scale(counts):
     return (1.0 / root.double()).float()
 
 
-def _unfused_centre(A: Stencil, order):
-    """Where XLA's CPU code for the power iteration's matvec is LLVM's loop
-    vectorised across the middle axis of a 7-point 3-D grid (n1 = 8 and 5 ≤
-    n2 ≤ 8; read off the object code, held by tests/test_torch_ordered_sum.py),
-    its centre product is added rounded, not fused: the centre's position in
-    ``order``, else None (one fma chain)."""
-    dims = A.dims
-    zero = tuple(0 for _ in dims)
-    if (len(dims) == 3 and A.n_points == 7 and zero in A.offsets
-            and dims[1] == 8 and 5 <= dims[2] <= 8):
-        return order.index(A.offsets.index(zero))
-    return None
+def power_plan(A: Stencil, d_inv) -> ordered_stencil.Plan:
+    """The plan of the power iteration's matvec D⁻¹·A·x on one device, the
+    centre unfused on the rows ``_unfused_centre`` gives."""
+    return ordered_stencil.Plan.one_device(A, d_inv, *_unfused_centre(A))
+
+
+def _unfused_centre(A: Stencil):
+    """(split, rows) of the power iteration's matvec on A, one device:
+    where XLA's CPU code for it is LLVM's loop vectorised across the middle
+    axis of a 7-point 3-D grid with 5 ≤ n2 ≤ 8, the centre's position in
+    the chain and the rows i1 < rows on which its product is added rounded,
+    not fused (``ordered_stencil.unfused_centre``); (None, 0) for one fma
+    chain."""
+    return ordered_stencil.unfused_centre(A.offsets, A.dims, sharded=False)
 
 
 def diag_inverse(A):
@@ -490,116 +491,11 @@ def select_product_path(A: Stencil, config) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _delta_support(off, b: int):
-    """Support of δ(p) = (p%b + off)//b, per axis then product."""
-    axes = [sorted({(r + off[i]) // b for r in range(b)})
-            for i in range(len(off))]
-    return list(itertools.product(*axes))
-
-
-def _residue_mask(dims, off, delta, b: int, dtype, device):
-    """Indicator of δ_off(p) == delta, broadcastable to dims."""
-    m = None
-    for i in range(len(dims)):
-        shape = [1] * len(dims)
-        shape[i] = dims[i]
-        r = torch.arange(dims[i], device=device).reshape(shape) % b
-        c = ((r + off[i]) // b) == delta[i]
-        m = c if m is None else (m & c)
-    return m.to(dtype)
-
-
 def _cum_box(reach, b: int):
     """Coarse-offset range per axis after a total fine shift ≤ reach:
     O = (r + shift)//b with r ∈ [0,b), |shift| ≤ reach."""
     return tuple((-(reach[i]) // b if reach[i] else 0,
                   (b - 1 + reach[i]) // b) for i in range(len(reach)))
-
-
-def _bucket_stage(factors, offsets, X, box_in, box_out, b: int, dims):
-    """Y[O](p) = Σ_off factor_off(p) · X[O − δ_off(p)](p + off).
-
-    Writes landing outside box_out are structurally zero and are dropped by
-    the slice intersection.  In the order the JAX package's CPU backend
-    compiles it to (read off its optimised HLO and object code): XLA first
-    sums every update that covers the whole box (δ = 0), in program order,
-    then applies the sliced updates in program order, each a fused
-    multiply-add into its slice, with factor·mask as select(mask, factor,
-    0); the whole-box sum takes the first product fused into the rounded
-    second, each later one fused.  A stage with no whole-box update starts
-    from its first slice's rounded product.  Float32 fused multiply-adds go
-    through ``ordered_sum.fma``.  That is the JAX package's code for 3-D
-    7-point levels such as 7 × 6 × 5, 12³, 14³, 20³, 26³, 44³ and 48³; on
-    others (2-D, 27 points, 32³, 13 × 12 × 11) LLVM leaves other products of
-    the whole-box sum unfused (ROADMAP C7c).
-    """
-    nd = len(dims)
-    out_shape = tuple(h - l + 1 for l, h in box_out)
-    fused = X.dtype == torch.float32
-    full, part = [], []
-    for off, fac in zip(offsets, factors):
-        for delta in _delta_support(off, b):
-            tgt, src = [], []
-            for i in range(nd):
-                lo = max(box_out[i][0], box_in[i][0] + delta[i])
-                hi = min(box_out[i][1], box_in[i][1] + delta[i])
-                if lo > hi:
-                    break
-                tgt.append(slice(lo - box_out[i][0], hi - box_out[i][0] + 1))
-                src.append(slice(lo - delta[i] - box_in[i][0],
-                                 hi - delta[i] - box_in[i][0] + 1))
-            else:
-                whole = all(t.stop - t.start == n for t, n in zip(tgt, out_shape))
-                (full if whole else part).append(
-                    (off, fac, delta, tuple(tgt), tuple(src)))
-
-    shifted = {}
-
-    def operands(u):
-        """(factor·mask, X shifted and sliced) of one update; the shifted
-        copy of X is made contiguous (so an update's X slice is whole grid
-        planes) and kept for the next update of the same offset only, so one
-        copy of X is alive at a time."""
-        off, fac, delta, _, src = u
-        if off not in shifted:
-            shifted.clear()
-            shifted[off] = shift_nd(X, off, dims).contiguous()
-        mask = _residue_mask(dims, off, delta, b, torch.bool, X.device)
-        return torch.where(mask, fac, 0.0), shifted[off][src]
-
-    def fmadd(Yt, u):
-        """Yt ← fma(factor·mask, X slice, Yt) in place, one launch per
-        contiguous block: the whole box where the target and the X slice are
-        contiguous, else a launch for each index of the fewest leading box
-        axes after which both are (a shifted X whose grid is strided is
-        copied one grid plane at a time, never a box's size)."""
-        fm, xs = operands(u)
-        if not fused:
-            Yt += fm * xs
-            return
-        j = next(j for j in range(nd + 1) if Yt[(0,) * j].is_contiguous()
-                 and (xs[(0,) * j].is_contiguous() or j == nd))
-        for s in itertools.product(*[range(n) for n in Yt.shape[:j]]):
-            ordered_sum.fma(fm, xs[s], Yt[s], out=Yt[s])
-
-    if full:
-        # the first product fused into the rounded second, then the rest
-        order = [full[1], full[0]] + full[2:] if len(full) >= 2 else full
-        fm, xs = operands(order[0])
-        Y = (fm * xs).contiguous()
-        del fm, xs
-        for u in order[1:]:
-            fmadd(Y, u)
-    else:
-        Y = torch.zeros(out_shape + tuple(dims), dtype=X.dtype, device=X.device)
-        fm, xs = operands(part[0])
-        Y[part[0][3]] = fm * xs
-        del fm, xs
-        part = part[1:]
-    for u in part:
-        fmadd(Y[u[3]], u)
-    shifted.clear()
-    return Y
 
 
 def _window_sum(N, cdims, b: int, lead: int):
@@ -630,32 +526,24 @@ def _window_sum(N, cdims, b: int, lead: int):
     return acc
 
 
-def bucketed_coarse_operator(A: Stencil, d_inv, coef, cdims, block: int,
-                             scale) -> Stencil:
-    """Exact A_c = Tᵀ Sᵀ A S T with coarse-offset-bucketed intermediates.
-
-    Three bucket stages (S·T seed, A·, Sᵀ·) each keep box_shape·n values,
-    27·n at b=3 whatever the fine stencil's width, then one sum-pool reduces
-    rows to the coarse grid.  No intermediate sparsification: the result is
-    the exact Galerkin operator of the smoothed transfers.
-    """
+def bucket_stage_factors(A: Stencil, d_inv, coef, b: int):
+    """The bucketed product's three stages (S·T seed, A·, Sᵀ·): their
+    (K, *dims) factor planes and the four coarse-offset boxes (the seed's
+    single box, then after each stage).  S's planes are m·w with m =
+    (−coef)·D⁻¹, Sᵀ's (−coef·w)·D⁻¹ shifted, each centre 1 + a·b one fused
+    multiply-add in float32, XLA's CPU order (other types a rounded add)."""
     nd = len(A.dims)
-    b = block
     dims = A.dims
     rA = tuple(max(abs(o[i]) for o in A.offsets) for i in range(nd))
     zero = tuple(0 for _ in range(nd))
-    box0 = tuple((0, 0) for _ in range(nd))
-    box1 = _cum_box(rA, b)                                   # after S·T
-    box2 = _cum_box(tuple(2 * r for r in rA), b)             # after A·
-    box3 = _cum_box(tuple(3 * r for r in rA), b)             # after Sᵀ·
-
+    boxes = [tuple((0, 0) for _ in range(nd))] + [
+        _cum_box(tuple(k * r for r in rA), b) for k in (1, 2, 3)]
     d_idx = A.offsets.index(zero)
     coef = torch.as_tensor(coef, dtype=A.weights.dtype, device=A.weights.device)
     m = -coef * d_inv
-    s_planes = [m * A.weights[d] for d in range(A.n_points)]
-    st_planes = [(-coef * A.weights[d]) * shift_nd(d_inv, A.offsets[d], dims)
-                 for d in range(A.n_points)]
-    # the centre planes' 1 + a·b: one fused multiply-add in XLA's CPU order
+    s_planes = m * A.weights
+    st_planes = torch.stack([(-coef * A.weights[d]) * shift_nd(d_inv, A.offsets[d], dims)
+                             for d in range(A.n_points)])
     if A.weights.dtype == torch.float32:
         one = torch.ones((), dtype=A.weights.dtype, device=A.weights.device)
         s_planes[d_idx] = ordered_sum.fma(m, A.weights[d_idx], one)
@@ -663,17 +551,31 @@ def bucketed_coarse_operator(A: Stencil, d_inv, coef, cdims, block: int,
     else:
         s_planes[d_idx] = s_planes[d_idx] + 1.0
         st_planes[d_idx] = st_planes[d_idx] + 1.0
+    return [s_planes, A.weights, st_planes], boxes
 
-    X0 = torch.ones((1,) * nd + tuple(dims), dtype=A.weights.dtype,
-                    device=A.weights.device)
-    ST = _bucket_stage(s_planes, A.offsets, X0, box0, box1, b, dims)
-    AST = _bucket_stage(list(A.weights), A.offsets, ST, box1, box2, b, dims)
-    del ST
-    N = _bucket_stage(st_planes, A.offsets, AST, box2, box3, b, dims)
-    del AST
-    pool = _window_sum(N, cdims, b, nd)
-    out_offs = sorted(itertools.product(
-        *[range(box3[i][0], box3[i][1] + 1) for i in range(nd)]))
+
+def bucketed_coarse_operator(A: Stencil, d_inv, coef, cdims, block: int,
+                             scale) -> Stencil:
+    """Exact A_c = Tᵀ Sᵀ A S T with coarse-offset-bucketed intermediates.
+
+    Three bucket stages (S·T seed, A·, Sᵀ·) each keep box_shape·n values,
+    27·n at b=3 whatever the fine stencil's width, then one sum-pool reduces
+    rows to the coarse grid.  No intermediate sparsification: the result is
+    the exact Galerkin operator of the smoothed transfers.  The stages are
+    ``bucket_stage.stage``: one ``ordered_bucket_stage`` launch each for a
+    float32 grid of one to three axes on the card (a grid of more axes
+    raises there), the plain version on the CPU and for other types.
+    """
+    nd = len(A.dims)
+    b = block
+    dims = A.dims
+    factors, boxes = bucket_stage_factors(A, d_inv, coef, b)
+    X = torch.ones((1,) * nd + tuple(dims), dtype=A.weights.dtype,
+                   device=A.weights.device)
+    for F, box_in, box_out in zip(factors, boxes, boxes[1:]):
+        X = bucket_stage.stage(F, A.offsets, X, box_in, box_out, b, dims)
+    pool = _window_sum(X, cdims, b, nd)
+    out_offs = sorted(itertools.product(*[range(lo, hi + 1) for lo, hi in boxes[3]]))
     planes = pool.reshape((len(out_offs),) + tuple(cdims))
     return Stencil(_normalize(planes, out_offs, tuple(cdims), scale),
                    tuple(out_offs), tuple(cdims))

@@ -44,9 +44,10 @@
 // acc = +0.0, then acc = fma(W[d][p], x[p + off_d], acc) over the chain's
 // planes in the JAX package's order, x read as 0 off the slab on axis 0 or
 // off the grid on the other axes (that zero term is kept: it turns a -0
-// into +0); at a split position (one device, a 7-point grid LLVM vectorises)
-// the product is rounded and added.  Then, where the grid is split into
-// parts, each offset with o0 != 0 in offset order adds fma(W[d][p], halo,
+// into +0); at a split position (a 7-point grid or part LLVM vectorises
+// across i1) the product is rounded and added on the rows i1 < rows that
+// its vector loop covers, fused on the rest.  Then, where the grid is split
+// into parts, each offset with o0 != 0 in offset order adds fma(W[d][p], halo,
 // acc) on the |o0| planes at the slab's end it reaches past, from the
 // neighbor's (h, n1, n2) halo (a view of its slab on this card, or a landing
 // buffer), 0 at the grid's ends.  Then y = D^-1 * acc, one rounded multiply.
@@ -339,7 +340,7 @@ __device__ __forceinline__ void ordered_term(float (&acc)[V],
 template <int V>
 __global__ void __launch_bounds__(kBlock)
     ordered_kernel(HaloParts parts, HaloTerms terms, int chain, int split,
-                   int m0, int n1, int n2, int h) {
+                   int rows, int m0, int n1, int n2, int h) {
   const int part = blockIdx.y;
   const int plane = n1 * n2;
   const long long n = static_cast<long long>(m0) * plane;
@@ -359,7 +360,9 @@ __global__ void __launch_bounds__(kBlock)
   for (int v = 0; v < V; ++v) {
     acc[v] = 0.f;
   }
-  // the chain: every plane in the JAX package's order, 0 off the slab
+  // the chain: every plane in the JAX package's order, 0 off the slab; the
+  // centre unfused on rows i1 < rows (a thread's V points share one row)
+  const int unfused = i1 < rows ? split : -1;
   for (int t = 0; t < chain; ++t) {
     const int j0 = i0 + terms.o0[t];
     const int j1 = i1 + terms.o1[t];
@@ -368,7 +371,7 @@ __global__ void __launch_bounds__(kBlock)
                                 static_cast<long long>(j1) * n2
                           : nullptr;
     ordered_term<V>(acc, w0 + terms.d[t] * n, xr, i2 + terms.o2[t], n2,
-                    t == split);
+                    t == unfused);
   }
   // the halo terms, in offset order, on the |o0| planes at the slab's end
   // each reaches past (a zero plane where there is no neighbor)
@@ -496,17 +499,19 @@ extern "C" int halo_stencil_boundary(HaloBoundary parts, int m0, int n1,
 
 // The power iterations' y = D^-1 (A x) of every part in the table, in one
 // launch: terms[0, chain) are the chain in its order (split: the position
-// whose product is added rounded, -1 for none), terms[chain, count) the halo
-// terms (o0 != 0, offset order; none for a grid that is not split); left
-// and right are (h, n1, n2) halos or null, h <= m0.
+// whose product is added rounded on the rows i1 < rows, fused on the rest;
+// -1 for none), terms[chain, count) the halo terms (o0 != 0, offset order;
+// none for a grid that is not split); left and right are (h, n1, n2) halos
+// or null, h <= m0.
 extern "C" int ordered_stencil_matvec(HaloParts parts, int m0, int n1, int n2,
                                       int h, HaloTerms terms, int chain,
-                                      int split, int vec, void* stream) {
+                                      int split, int rows, int vec,
+                                      void* stream) {
   if (parts.count < 0 || parts.count > kMaxParts || m0 < 0 || n1 <= 0 ||
       n2 <= 0 || static_cast<long long>(n1) * n2 >= (1LL << 31) || h < 0 ||
       (m0 > 0 && h > m0) || (vec != 0 && n2 % 4 != 0) || terms.count < 0 ||
       terms.count > kMaxPoints || chain < 0 || chain > terms.count ||
-      split < -1 || split >= chain) {
+      split < -1 || split >= chain || rows < 0 || rows > n1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (parts.count == 0 || m0 == 0) {
@@ -518,11 +523,11 @@ extern "C" int ordered_stencil_matvec(HaloParts parts, int m0, int n1, int n2,
   const dim3 grid(static_cast<unsigned>((groups + kBlock - 1) / kBlock),
                   parts.count);
   if (vec != 0) {
-    ordered_kernel<4><<<grid, kBlock, 0, cs>>>(parts, terms, chain, split, m0,
-                                               n1, n2, h);
+    ordered_kernel<4><<<grid, kBlock, 0, cs>>>(parts, terms, chain, split,
+                                               rows, m0, n1, n2, h);
   } else {
-    ordered_kernel<1><<<grid, kBlock, 0, cs>>>(parts, terms, chain, split, m0,
-                                               n1, n2, h);
+    ordered_kernel<1><<<grid, kBlock, 0, cs>>>(parts, terms, chain, split,
+                                               rows, m0, n1, n2, h);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,9 +43,22 @@
 //
 // ordered_fma: out[i] = fma(a, b, c) rounded once (__fmaf_rn), the product
 // and add XLA's CPU backend contracts in an elementwise loop (the centre
-// planes of the Galerkin smoothers, the bucketed product's updates); an
-// operand shorter than out repeats (a scalar, or a grid broadcast over the
-// leading axes).
+// planes of the Galerkin smoothers); an operand shorter than out repeats (a
+// scalar, or a grid broadcast over the leading axes).
+//
+// ordered_bucket_stage: one stage of the structured setups' bucketed
+// Galerkin product (ops/bucket_stage.py has the order), Y[o](p) = the terms
+// applied to output box o in order, each select(mask, F[k](p), 0) *
+// X[src](p + off): the first a rounded product (__fmul_rn), the rest
+// __fmaf_rn, a masked-off term computed, not skipped (fma(+0, x, -0) is
+// +0).  It replaces, per stage, a shifted copy of X for every offset, a mask
+// tensor and an ordered_fma launch per contiguous block of every update (a
+// launch per box plane on 27-point levels).  A thread a grid point and up to
+// 27 output boxes, their sums in registers: each term's mask, factor and
+// neighbor are computed once for the point and applied to every box of its
+// target (a host table of source boxes, uniform over the block), so F is
+// read once and X's reads are the boxes' own.  Bound: device-memory bytes,
+// F, X and Y each once; a point's reads of X's neighbors go through L1/L2.
 //
 // Every add is __fadd_rn and every fused multiply-add __fmaf_rn (no other
 // contraction, no reassociation, no atomics: the file is built without fast
@@ -450,6 +463,73 @@ __global__ void __launch_bounds__(kBlock)
                        c[nc == n ? i : i % nc]);
 }
 
+// One term of ordered_bucket_stage's table, kTermInts int32s: kind (0: store
+// the rounded product, 1: fused multiply-add into y), the factor plane k, the
+// fine offset, and the residue window's start lo = delta * b - off on each
+// axis (the point's delta is the term's where lo <= p mod b < lo + b).  Beside
+// it, per term, the source box (a linear index of X's box) of every output
+// box, -1 where the output box is not in the term's target.
+constexpr int kTermInts = 8;
+// output boxes a thread accumulates in registers (a box of 3 x 3 x 3)
+constexpr int kBoxGroup = 27;
+
+// A thread a grid point p and a group of up to kBoxGroup output boxes
+// (blockIdx.y): the y of each box from +0, then every term in order, its
+// mask (the residue window on every axis), select(mask, F[k](p), 0) and the
+// neighbor p + off computed once for the point, then applied to each box of
+// the group in the term's target, x read in place in the box's source (0 off
+// the grid).  Each box's chain is the table's order restricted to that box,
+// which is the JAX package's order for it.  A masked-off term is computed
+// (fma(+0, x, y)), never skipped.
+__global__ void __launch_bounds__(kBlock)
+    ordered_bucket_stage_kernel(const float* __restrict__ F, const float* __restrict__ X,
+                                float* __restrict__ Y, const int* __restrict__ terms,
+                                const int* __restrict__ src, int n_terms, int n_box_out,
+                                int n_cols, int n0, int n1, int n2, int b) {
+  const int n = n0 * n1 * n2;  // < 2^31, checked by the entry
+  const int plane = n1 * n2;
+  const int g0 = blockIdx.y * kBoxGroup;
+  const unsigned ub = static_cast<unsigned>(b);
+  for (long long pl = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x; pl < n;
+       pl += static_cast<long long>(gridDim.x) * kBlock) {
+    const int p = static_cast<int>(pl);
+    const int p0 = p / plane;
+    const int rest = p - p0 * plane;
+    const int p1 = rest / n2, p2 = rest - p1 * n2;
+    const int r0 = p0 % b, r1 = p1 % b, r2 = p2 % b;
+    float y[kBoxGroup];
+#pragma unroll
+    for (int j = 0; j < kBoxGroup; ++j) y[j] = 0.f;
+    for (int t = 0; t < n_terms; ++t) {
+      const int* u = terms + t * kTermInts;
+      const int kind = __ldg(u), k = __ldg(u + 1);
+      const int o0 = __ldg(u + 2), o1 = __ldg(u + 3), o2 = __ldg(u + 4);
+      const bool mask = static_cast<unsigned>(r0 - __ldg(u + 5)) < ub &&
+                        static_cast<unsigned>(r1 - __ldg(u + 6)) < ub &&
+                        static_cast<unsigned>(r2 - __ldg(u + 7)) < ub;
+      const float f = mask ? __ldg(F + static_cast<long long>(k) * n + p) : 0.f;
+      const int q0 = p0 + o0, q1 = p1 + o1, q2 = p2 + o2;
+      const bool inside = static_cast<unsigned>(q0) < static_cast<unsigned>(n0) &&
+                          static_cast<unsigned>(q1) < static_cast<unsigned>(n1) &&
+                          static_cast<unsigned>(q2) < static_cast<unsigned>(n2);
+      const int q = q0 * plane + q1 * n2 + q2;
+      const int* s = src + t * n_cols + g0;
+#pragma unroll
+      for (int j = 0; j < kBoxGroup; ++j) {
+        const int box = __ldg(s + j);  // uniform over the block
+        if (box >= 0) {
+          const float x = inside ? __ldg(X + static_cast<long long>(box) * n + q) : 0.f;
+          y[j] = kind == 0 ? __fmul_rn(f, x) : __fmaf_rn(f, x, y[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBoxGroup; ++j) {
+      if (g0 + j < n_box_out) Y[static_cast<long long>(g0 + j) * n + p] = y[j];
+    }
+  }
+}
+
 }  // namespace
 
 // out[i] = fma(a[i % na], b[i % nb], c[i % nc]) for i < n on `stream`: an
@@ -468,6 +548,33 @@ extern "C" int ordered_fma(const void* a, const void* b, const void* c, void* ou
   ordered_fma_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<const float*>(c),
       static_cast<float*>(out), n, na, nb, nc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One bucketed Galerkin stage Y[o](p) = sum over the terms applied to o of
+// select(mask, F[k](p), 0) * X[src](p + off), Y (n_box_out, n0, n1, n2), X
+// (n_box_in, n0, n1, n2), F (K, n0, n1, n2), all float32 and contiguous, in
+// one launch on `stream`: terms (n_terms x kTermInts int32s) in the order
+// the JAX package's CPU code applies them, src (n_terms x n_cols int32s, n_cols
+// a multiple of kBoxGroup covering n_box_out) each term's source box per
+// output box or -1, b the block size of the residue test; fewer than 2^31
+// grid points.  Returns the launch's cudaError_t.
+extern "C" int ordered_bucket_stage(const void* F, const void* X, void* Y, const void* terms,
+                                    const void* src, int n_terms, int n_box_out, int n_cols,
+                                    int n0, int n1, int n2, int b, void* stream) {
+  const long long n = static_cast<long long>(n0) * n1 * n2;
+  if (n_terms < 0 || n_box_out < 0 || n_cols % kBoxGroup != 0 || n_cols < n_box_out ||
+      n0 < 0 || n1 < 0 || n2 < 0 || b < 1 || n >= (1LL << 31) ||
+      static_cast<long long>(n_terms) * n_cols >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_box_out == 0 || n == 0) return 0;
+  const long long chunks = (n + kBlock - 1) / kBlock;
+  const dim3 grid(static_cast<unsigned>(chunks < (1LL << 20) ? chunks : (1LL << 20)),
+                  static_cast<unsigned>(n_cols / kBoxGroup));
+  ordered_bucket_stage_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(F), static_cast<const float*>(X), static_cast<float*>(Y),
+      static_cast<const int*>(terms), static_cast<const int*>(src), n_terms, n_box_out,
+      n_cols, n0, n1, n2, b);
   return static_cast<int>(cudaGetLastError());
 }
 

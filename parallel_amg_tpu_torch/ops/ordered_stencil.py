@@ -12,8 +12,9 @@ hold it):
   ``chain_order`` (``ordered_sum.STENCIL_FIRST``, then offset order), x
   read as 0 where the neighbour lies off the grid, or, for a part of a grid
   split along axis 0, off its slab.  Where LLVM vectorises a 7-point grid
-  across its middle axis (``device_setup._unfused_centre``, one device
-  only) the centre's product is rounded and then added (``split``);
+  across its middle axis (``unfused_centre``: n2 of 5 to 8, on one device
+  and in parts) the centre's product is rounded and then added on the rows
+  its vector loop covers (``split`` and ``rows``);
 - a part of a split grid (``parallel/pdevice_setup._sharded_power``, the
   JAX package's sharded ``_jit_power``, whose matvec is the "xla"
   ``ShardedStencil.matvec``) then adds, in offset order, each offset with
@@ -33,6 +34,8 @@ the launches.
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from parallel_amg_tpu_torch.ops import halo_kernels as hk
@@ -48,13 +51,14 @@ def chain_order(K: int):
     return list(ordered_sum.STENCIL_FIRST) + list(range(2, K)) if K > 1 else [0]
 
 
-def ordered_apply(order, planes, A: Stencil, x, split=None, launch=False):
+def ordered_apply(order, planes, A: Stencil, x, split=None, launch=False, rows=None):
     """A x for float32 ``planes``, A's planes in ``order``
     (``chain_order``), added in that order: one fma chain, or, where
-    ``split`` is the centre's position (``_unfused_centre``), the centre's
-    product added rounded, as LLVM's vector loop adds it.  The chain and
-    fmas are ``ordered_sum``'s plain versions; with ``launch`` its kernels
-    on a CUDA tensor (``planes_dot`` and ``fma``)."""
+    ``split`` is the centre's position (``unfused_centre``), the centre's
+    product added rounded on the rows i1 < ``rows`` of axis 1 (all rows
+    where None), as LLVM's vector loop adds it, and fused on the rest.  The
+    chain and fmas are ``ordered_sum``'s plain versions; with ``launch`` its
+    kernels on a CUDA tensor (``planes_dot`` and ``fma``)."""
     dot = ordered_sum.planes_dot if launch else ordered_sum.planes_dot_plain
     fma = ordered_sum.fma if launch else ordered_sum.fma_plain
     shifted = A.shifted(x)
@@ -62,10 +66,75 @@ def ordered_apply(order, planes, A: Stencil, x, split=None, launch=False):
     if split is None:
         return dot(planes, xs)
     s = dot(planes[:split], xs[:split])
-    s = s + planes[split] * xs[split]
+    unfused = s + planes[split] * xs[split]
+    if rows is None or rows >= s.shape[1]:
+        s = unfused
+    else:
+        s = torch.cat([unfused[:, :rows], fma(planes[split], xs[split], s)[:, rows:]], 1)
     for k in range(split + 1, len(order)):
         s = fma(planes[k], xs[k], s)
     return s
+
+
+# The vector loop LLVM makes of the JAX package's 7-point 3-D matvec when
+# n2 (the last axis) is 5 to 8: it runs over i1 (the middle axis), n2 chains
+# a trip, and adds the centre's product rounded (the centre is x itself, not
+# a slice of the padded x, and its wide product reaches the chains through
+# a shuffle, which the backend does not contract); the scalar loop after it
+# fuses.  Read off the optimised LLVM IR of the matvec's fusion (XLA_FLAGS
+# --xla_dump_to with --xla_dump_hlo_as_text; jaxlib 0.9.0, x86-64 with
+# AVX-512) at n1 = 1 to 100 and 468, one device with n0 = 1, 2, 4 and 16
+# and 8 parts with m0 = 1, 2, 3 and 8 (n1 = 37 to 109 in steps of 8 where
+# the sweep was sparse), and the rows checked on the bits
+# (scripts/jax_p468_power.py --interior):
+# - n1 < 16: LLVM vectorises only a trip count that whole vectors cover:
+#   n1 = 4 and 8 take every row unfused, every other n1 below 16 none;
+# - n2 = 7, 8: vectors of 4 rows and no scalar epilogue: R = 4·⌊n1/4⌋;
+# - n2 = 5, 6: the loads of x interleave with gaps, so at least one trip
+#   runs scalar, R = n1 − (n1 mod vf or vf), and the width vf is the cost
+#   model's for the known trip count, which weighs whole vectors against the
+#   rows left over: with n1 = 8q + r, vf = 4 where r ≥ 4 and q is below a
+#   threshold, else 8.  The threshold (``_VF4_BELOW``) depends on n2 and on
+#   the fusion: one device (D⁻¹ fused into it) with n0 = 1 or more, or the
+#   interior of a part.
+# Not read (``unfused_centre`` warns and takes one chain): a part of one
+# plane (m0 = 1), whose zero neighbour planes XLA folds out of the chain
+# (another chain, not a row bound), and a one-device grid with n1 = 1, whose
+# vector loop runs over i0.
+_VF4_BELOW = {("one_device", 1, 5): 8, ("one_device", 1, 6): 7,
+              ("one_device", 2, 5): 10, ("one_device", 2, 6): 9,
+              ("sharded", 2, 5): 11, ("sharded", 2, 6): 9}
+
+
+def unfused_centre(offsets, slab, sharded: bool):
+    """(split, rows) of the JAX package's power-iteration matvec on a grid
+    (one device) or a part (``sharded``) of shape ``slab`` (m0, n1, n2):
+    the centre's position in ``chain_order`` and R (the comment above), its
+    product added unfused on the rows i1 < R and fused on the rest; (None,
+    0) where every row fuses (any stencil but a 3-D 7-point one, or n2
+    outside 5 to 8)."""
+    offsets = tuple(tuple(o) for o in offsets)
+    if len(slab) != 3 or len(offsets) != 7 or not 5 <= slab[2] <= 8:
+        return None, 0
+    m0, n1, n2 = (int(a) for a in slab)
+    if (m0 == 1 and sharded) or n1 == 1:
+        warnings.warn(f"the JAX package's order of the power iteration's matvec on a "
+                      f"{'part' if sharded else 'grid'} of {tuple(slab)} is not read "
+                      f"(ROADMAP C7a): one fma chain, λ may differ in its last bits",
+                      stacklevel=3)
+        return None, 0
+    if n1 < 16:
+        rows = n1 if n1 in (4, 8) else 0
+    elif n2 >= 7:
+        rows = 4 * (n1 // 4)
+    else:
+        q, r = divmod(n1, 8)
+        key = ("sharded" if sharded else "one_device", min(m0, 2), n2)
+        vf = 4 if r >= 4 and q < _VF4_BELOW[key] else 8
+        rows = n1 - (n1 % vf or vf)
+    if rows == 0 or (0, 0, 0) not in offsets:
+        return None, 0
+    return chain_order(7).index(offsets.index((0, 0, 0))), rows
 
 
 class Plan:
@@ -77,7 +146,7 @@ class Plan:
     tables and the plain version's plane copies are made at their first
     use and kept."""
 
-    def __init__(self, weights, scales, offsets, sharded: bool, split=None):
+    def __init__(self, weights, scales, offsets, sharded: bool, split=None, rows=None):
         self.weights = [W.contiguous() for W in weights]
         self.scales = ([None] * len(self.weights) if scales is None else
                        [None if s is None else s.contiguous() for s in scales])
@@ -85,15 +154,16 @@ class Plan:
         self.slab = tuple(self.weights[0].shape[1:])
         self.order = chain_order(len(self.offsets))
         self.split = split
+        self.rows = rows
         self.corr = [d for d, o in enumerate(self.offsets) if o[0] != 0] if sharded else []
         self.h = max((abs(self.offsets[d][0]) for d in self.corr), default=0)
         self._plain = None
         self._cards = None
 
     @classmethod
-    def one_device(cls, A: Stencil, d_inv, split=None):
+    def one_device(cls, A: Stencil, d_inv, split=None, rows=None):
         """The plan of one device's power iteration on A."""
-        return cls([A.weights], [d_inv], A.offsets, sharded=False, split=split)
+        return cls([A.weights], [d_inv], A.offsets, sharded=False, split=split, rows=rows)
 
     def plain_parts(self):
         """Per part the plain version's Stencil on its slab, its planes in
@@ -146,7 +216,7 @@ def matvec_plain(plan: Plan, xs, halos, launch=False):
     out = []
     for (local, planes, w_rows), xl, sides, scale in zip(plan.plain_parts(), xs, halos,
                                                          plan.scales):
-        y = ordered_apply(plan.order, planes, local, xl, plan.split, launch)
+        y = ordered_apply(plan.order, planes, local, xl, plan.split, launch, plan.rows)
         if plan.corr:  # each side's halo planes, zero-padded on the other axes
             padded = {s: torch.nn.functional.pad(
                 torch.zeros((h,) + rest, dtype=xl.dtype, device=xl.device)
@@ -197,6 +267,7 @@ def _matvec_cuda(plan: Plan, xs, halos):
     step = 4 * m0 * n1 * n2
     chain = len(plan.order)
     split = -1 if plan.split is None else plan.split
+    rows = n1 if plan.rows is None else plan.rows
     ys = [None] * len(xs)
     for card in cards:
         y = torch.empty((len(card.positions) * m0,) + plan.slab[1:], device=card.device)
@@ -211,7 +282,7 @@ def _matvec_cuda(plan: Plan, xs, halos):
                     None if s is None else hk.check_slab(s, halo_shape, card.device, "halo")
                     for s in (left, right))
             hk.launch("ordered_stencil_matvec", card.device, t, m0, n1, n2, h, terms,
-                      chain, split, vec)
+                      chain, split, rows, vec)
             ordered_sum.LAUNCHES["ordered_stencil_matvec"] += 1
         for i, yi in zip(card.positions, y.split(m0)):
             ys[i] = yi

@@ -74,8 +74,8 @@ a loop of two or more iterations (a loop of one is compiled otherwise), and
 
 The structured setups' Galerkin products (``amg/device_setup.py``) take two
 more of XLA's orders: an elementwise a·b + c that the CPU backend contracts
-into one fused multiply-add (``fma``: the smoothers' centre planes, the
-bucketed product's updates), and a sum
+into one fused multiply-add (``fma``: the smoothers' centre planes; the
+bucketed product's updates are ``ops/bucket_stage.py``'s kernel), and a sum
 over the leading (planes) axis of a (D, ...) array, which the windows rule
 orders over D like any reduced axis (``planes_sum``: the lumps of
 ``sparsify_stencil``).
@@ -109,11 +109,13 @@ CHAIN = (1, 1, 0)    # lanes of one chain, left to right (any row length)
 # the first two products of a Stencil matvec in XLA's order (see the module)
 STENCIL_FIRST = (1, 0)
 
-# kernel launches by kernel, counted where each is launched (here, and
-# ``ops/ordered_stencil.py`` for the power iterations' stencil matvec);
-# callers may reset them
+# kernel launches by kernel, counted where each is launched (here,
+# ``ops/ordered_stencil.py`` for the power iterations' stencil matvec and
+# ``ops/bucket_stage.py`` for the bucketed Galerkin stages); callers may
+# reset them
 LAUNCHES = {"ordered_sum_staged": 0, "ordered_sum_windows": 0,
-            "ordered_sum_lanes": 0, "ordered_fma": 0, "ordered_stencil_matvec": 0}
+            "ordered_sum_lanes": 0, "ordered_fma": 0, "ordered_stencil_matvec": 0,
+            "ordered_bucket_stage": 0}
 
 # lanes schedules with a kernel instance in csrc/ordered_sum.cu, besides CHAIN
 _ADD_LANES = {(4, 2, 0), (4, 4, 4), (8, 2, 0)}
@@ -638,14 +640,16 @@ def _planes_chain(x):
 def _kernels():
     lib = _build.load("ordered_sum")
     rows_fn, lanes_fn, fma_fn = lib.ordered_sum, lib.ordered_sum_lanes, lib.ordered_fma
+    stage_fn = lib.ordered_bucket_stage
     rows_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
     lanes_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     fma_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [
         ctypes.c_void_p]
-    rows_fn.restype = lanes_fn.restype = fma_fn.restype = ctypes.c_int
-    return rows_fn, lanes_fn, fma_fn
+    stage_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    rows_fn.restype = lanes_fn.restype = fma_fn.restype = stage_fn.restype = ctypes.c_int
+    return rows_fn, lanes_fn, fma_fn, stage_fn
 
 
 def _kernel_name(d1: int, d2: int) -> str:

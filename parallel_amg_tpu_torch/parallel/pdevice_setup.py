@@ -183,6 +183,16 @@ def _sharded_dinv(A: ShardedStencil) -> PGrid:
     return A.diagonal().map(lambda d: torch.where(d != 0, 1.0 / d, 0.0))
 
 
+def power_plan(A: ShardedStencil, d_inv: PGrid) -> ordered_stencil.Plan:
+    """The plan of the sharded power iteration's matvec D⁻¹·A·x: every
+    part's interior centre unfused on the rows
+    ``ordered_stencil.unfused_centre`` gives for the part's slab."""
+    split, rows = ordered_stencil.unfused_centre(A.offsets, A.weights[0].shape[1:],
+                                                 sharded=True)
+    return ordered_stencil.Plan(A.weights, d_inv.parts, A.offsets, sharded=True,
+                                split=split, rows=rows)
+
+
 def _sharded_power(A: ShardedStencil, d_inv: PGrid, iters: int, seed: int = 0):
     """λ_max(D⁻¹A) on a float32 sharded operator (1.1 safety factor): the
     start vector is ``device_setup.start_vector`` over the padded global
@@ -191,14 +201,15 @@ def _sharded_power(A: ShardedStencil, d_inv: PGrid, iters: int, seed: int = 0):
     CPU order (``ops/ordered_stencil.py``: each part's interior chain with a
     zero halo on axis 0, then one fma per halo term in offset order; read
     off its optimised HLO and IR on a 4-device CPU mesh at 48 × 43 × 43, 27
-    points: one fusion for the interior and one for each halo update; one
+    points: one fusion for the interior and one for each halo update, the
+    interior's centre unfused on the rows ``power_plan`` gives; one
     ``ordered_stencil_matvec`` launch a card an iteration on the card) and
     the norm ``ordered_norm`` (XLA's SPMD order), so λ is the JAX package's
     bits; both take float32 only."""
     x = PGrid.from_global(ds.start_vector(A.dims, A.weights[0].dtype,
                                           A.mesh.home, seed), A.mesh)
     lam = torch.ones((), dtype=x.dtype, device=x.device)
-    plan = ordered_stencil.Plan(A.weights, d_inv.parts, A.offsets, sharded=True)
+    plan = power_plan(A, d_inv)
     for _ in range(iters):
         halos = _halos(x.parts, A.halo, 0) if A.halo else None
         y = PGrid(ordered_stencil.matvec(plan, x.parts, halos), A.mesh)

@@ -44,7 +44,9 @@ iterate after two iterations) against the port's plain matvec with the
 centre fused (one fma chain) and unfused (its product rounded and added),
 one JSON line a grid: "fused", "unfused", or the rows i1 of a part taken
 each way (where a point's two orders give the same float, neither decides
-it).
+it), beside the port's row bound (``ordered_stencil.unfused_centre``, the
+plan its power iteration builds) and whether its matvec gives the JAX
+package's bits.
 """
 
 from __future__ import annotations
@@ -254,17 +256,21 @@ def interior(grids, points: int, seed: int, parts: int) -> None:
         _, x1, y2, _ = run(jA, jds._jit_dinv(jA), x0)
         want = np.asarray(y2).view(np.int32)
         K = len(offs)
+        centre = ordered_stencil.chain_order(K).index(offs.index((0, 0, 0)))
+        d_inv = pd._sharded_dinv(A).parts if parts > 1 else [ds.diag_inverse(A)]
+        weights = A.weights if parts > 1 else [A.weights]
+        port = pd.power_plan(A, pd._sharded_dinv(A)) if parts > 1 else ds.power_plan(
+            A, d_inv[0])
         match = {}
-        for name, split in (("fused", None), ("unfused", ordered_stencil.chain_order(K).index(
-                offs.index((0, 0, 0))))):
+        for name, plan in (("fused", ordered_stencil.Plan(weights, d_inv, offs, parts > 1)),
+                           ("unfused", ordered_stencil.Plan(weights, d_inv, offs, parts > 1,
+                                                            split=centre)),
+                           ("port", port)):
             if parts > 1:
                 x = PGrid.from_global(torch.from_numpy(np.array(x1)), mesh)
-                plan = ordered_stencil.Plan(A.weights, pd._sharded_dinv(A).parts, A.offsets,
-                                            sharded=True, split=split)
                 got = PGrid(ordered_stencil.matvec_plain(plan, x.parts, pd._halos(
                     x.parts, A.halo, 0)), mesh).to_global()
             else:
-                plan = ordered_stencil.Plan.one_device(A, ds.diag_inverse(A), split)
                 got = ordered_stencil.matvec_plain(plan, [torch.from_numpy(np.array(x1))],
                                                    [(None, None)])[0]
             match[name] = got.numpy().view(np.int32) == want
@@ -278,7 +284,8 @@ def interior(grids, points: int, seed: int, parts: int) -> None:
                      "fused_rows_i1": _ranges(np.argwhere(F & ~U)[:, 1])}
         print(json.dumps({"grid": list(dims), "parts": parts,
                           "part": [dims[0] // parts] + list(dims[1:]), "points": points,
-                          "seed": seed, "interior": order}), flush=True)
+                          "seed": seed, "interior": order, "port_rows": port.rows or 0,
+                          "port_equal": bool(match["port"].all())}), flush=True)
 
 
 def main():

@@ -27,7 +27,7 @@ smallest subtree that holds the pair, so all pairs give the whole tree
   product for every padding of a 3-D block of 3 (``device_setup._window_sum``).
 - ``--rsqrt``: XLA's 1/√c for c = 1 … 64 against ``device_setup.block_scale``.
 - ``--bucketed``: the port's bucketed product against the JAX package's, bits
-  differing per shape (``device_setup._bucket_stage``).
+  differing per shape (``ops/bucket_stage.py``).
 - ``--norms``: the setups' λ_max(D⁻¹A), port against the JAX package's
   ``_jit_power``, per grid (``ordered_sum._middle_lanes_vf``,
   ``device_setup._unfused_centre``).

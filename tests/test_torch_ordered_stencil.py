@@ -3,14 +3,15 @@ an independent formulation of the same order, bit for bit.
 
 The reference reads x through global indices: per point a chain of
 ``ordered_sum.fma_plain`` from +0.0 over the planes in ``chain_order`` (the
-centre's product rounded and added where there is a split), x read as 0 off
-the part's slab on axis 0 and off the grid on the other axes; then, for a
-split grid, each offset with o₀ ≠ 0 in offset order adds fma(W, x, y) on the
-|o₀| planes at the slab's end it reaches past, x read in the neighbour's
-slab (0 past the grid's ends); then D⁻¹.  Cases: config #3's two split
-levels in 4 parts and 468³'s in 8 parts scaled down, a part of one plane
-(m0 = h), a reach-2 stencil, one device with the centre unfused and one
-without.  On the card (``-m cuda``) the kernel ``ordered_stencil_matvec``
+centre's product rounded and added on the rows i1 below the split's row
+bound), x read as 0 off the part's slab on axis 0 and off the grid on the
+other axes; then, for a split grid, each offset with o₀ ≠ 0 in offset order
+adds fma(W, x, y) on the |o₀| planes at the slab's end it reaches past, x
+read in the neighbour's slab (0 past the grid's ends); then D⁻¹.  Cases:
+config #3's two split levels in 4 parts and 468³'s in 8 parts scaled down,
+a part of one plane (m0 = h), a reach-2 stencil, parts and one-device grids
+with the centre unfused on every row, on the rows a row bound gives, and on
+none.  On the card (``-m cuda``) the kernel ``ordered_stencil_matvec``
 against the plain version and against the ``ordered_sum`` launches the
 power iterations took before it, ``==``, one launch a card.
 """
@@ -50,9 +51,10 @@ def _problem(dims, points, parts, seed, reach=1):
     return offs, w, d, x
 
 
-def _reference(offs, w, d, x, parts, split=None):
+def _reference(offs, w, d, x, parts, split=None, rows=None):
     """y = D⁻¹·(A·x) per part in the order of the module, from global
-    indices (see the module docstring)."""
+    indices (see the module docstring); the split's product unfused on the
+    rows i1 < ``rows`` (all where None)."""
     W, D, X = (torch.from_numpy(a) for a in (w, d, x))
     d0, n1, n2 = x.shape
     m0 = d0 // parts
@@ -74,24 +76,27 @@ def _reference(offs, w, d, x, parts, split=None):
         acc = torch.zeros((m0, n1, n2))
         for k, dd in enumerate(chain_order(len(offs))):
             xv = read(p, offs[dd], True)
-            acc = (acc + Wp[dd] * xv if k == split
-                   else ordered_sum.fma_plain(Wp[dd], xv, acc))
+            fused = ordered_sum.fma_plain(Wp[dd], xv, acc)
+            if k == split:
+                row = torch.from_numpy(idx[1] < (n1 if rows is None else rows))
+                fused = torch.where(row, acc + Wp[dd] * xv, fused)
+            acc = fused
         for dd, off in enumerate(offs):
             if not sharded or off[0] == 0:
                 continue
-            rows = slice(0, -off[0]) if off[0] < 0 else slice(m0 - off[0], m0)
-            acc[rows] = ordered_sum.fma_plain(Wp[dd][rows], read(p, off, False)[rows],
-                                              acc[rows])
+            end = slice(0, -off[0]) if off[0] < 0 else slice(m0 - off[0], m0)
+            acc[end] = ordered_sum.fma_plain(Wp[dd][end], read(p, off, False)[end],
+                                             acc[end])
         out.append(D[p * m0:(p + 1) * m0] * acc)
     return out
 
 
-def _plan_and_inputs(offs, w, d, x, parts, device, split=None):
+def _plan_and_inputs(offs, w, d, x, parts, device, split=None, rows=None):
     m0 = x.shape[0] // parts
     t = {k: torch.from_numpy(a).to(device) for k, a in (("w", w), ("d", d), ("x", x))}
     plan = Plan([t["w"][:, p * m0:(p + 1) * m0] for p in range(parts)],
                 [t["d"][p * m0:(p + 1) * m0] for p in range(parts)], offs,
-                sharded=parts > 1, split=split)
+                sharded=parts > 1, split=split, rows=rows)
     xs = [t["x"][p * m0:(p + 1) * m0].contiguous() for p in range(parts)]
     h = plan.h
     halos = [(xs[p - 1][m0 - h:] if p > 0 else None,
@@ -110,31 +115,41 @@ CASES = [((24, 16, 12), 7, 4, 1), ((12, 9, 7), 27, 4, 1), ((16, 20, 8), 7, 8, 1)
          ((8, 12, 12), 27, 8, 1), ((8, 6, 5), 27, 8, 1), ((12, 10, 9), 13, 3, 2)]
 
 
-@pytest.mark.parametrize("dims,points,parts,reach", CASES)
+@pytest.mark.parametrize("dims,points,parts,reach", CASES + [((16, 21, 8), 7, 8, 1),
+                                                             ((16, 45, 6), 7, 8, 1)])
 def test_sharded_matvec_bit_equal_to_reference(dims, points, parts, reach):
+    """The parts' chains (the centre unfused on the rows ``unfused_centre``
+    gives for a 7-point part with 5 ≤ n2 ≤ 8), halo terms and D⁻¹."""
     offs, w, d, x = _problem(dims, points, parts, seed=sum(dims) + points, reach=reach)
-    plan, xs, halos = _plan_and_inputs(offs, w, d, x, parts, "cpu")
+    split, rows = ordered_stencil.unfused_centre(offs, (dims[0] // parts,) + dims[1:],
+                                                 sharded=True)
+    plan, xs, halos = _plan_and_inputs(offs, w, d, x, parts, "cpu", split, rows)
     got = ordered_stencil.matvec(plan, xs, halos)
-    for g, want in zip(got, _reference(offs, w, d, x, parts)):
+    for g, want in zip(got, _reference(offs, w, d, x, parts, split, rows)):
         assert torch.equal(_bits(g), _bits(want))
 
 
-@pytest.mark.parametrize("dims,points", [((6, 8, 5), 7), ((4, 8, 8), 7), ((9, 7, 6), 7),
-                                         ((5, 6, 7), 27)])
-def test_one_device_matvec_bit_equal_to_reference(dims, points):
-    """One device: no halo terms; n1 = 8 with 5 ≤ n2 ≤ 8 takes the centre
-    unfused (``_unfused_centre``), the others one chain."""
+@pytest.mark.parametrize("dims,points,rows", [
+    ((6, 8, 5), 7, 8), ((4, 8, 8), 7, 8), ((9, 7, 6), 7, 0), ((5, 6, 7), 27, 0),
+    ((3, 21, 5), 7, 20), ((2, 18, 8), 7, 16)])
+def test_one_device_matvec_bit_equal_to_reference(dims, points, rows):
+    """One device: no halo terms; a 7-point grid with 5 ≤ n2 ≤ 8 takes the
+    centre unfused on the rows ``_unfused_centre`` gives (n1 = 8 all, n1 = 7
+    none, n1 = 21 and 18 all but the rows past whole vectors), the others
+    one chain."""
     offs, w, d, x = _problem(dims, points, 1, seed=7 * sum(dims))
     A = Stencil(torch.from_numpy(w), offs, dims)
-    split = ds._unfused_centre(A, chain_order(len(offs)))
-    assert (split is not None) == (dims[1] == 8 and points == 7)
-    plan = Plan.one_device(A, torch.from_numpy(d), split)
+    split, got_rows = ds._unfused_centre(A)
+    assert got_rows == rows and (split is not None) == (rows > 0)
+    plan = Plan.one_device(A, torch.from_numpy(d), split, rows)
     (got,) = ordered_stencil.matvec(plan, [torch.from_numpy(x)])
-    (want,) = _reference(offs, w, d, x, 1, split)
+    (want,) = _reference(offs, w, d, x, 1, split, rows)
     assert torch.equal(_bits(got), _bits(want))
-    if split is not None:  # the split decides these bits
-        (fused,) = _reference(offs, w, d, x, 1)
-        assert not torch.equal(_bits(fused), _bits(want))
+    if split is not None:  # the split and its rows decide these bits
+        for other in (0, dims[1]):
+            if other != rows:
+                (fused,) = _reference(offs, w, d, x, 1, split, other)
+                assert not torch.equal(_bits(fused), _bits(want)), other
 
 
 def test_matvec_refuses_other_devices():
@@ -166,26 +181,27 @@ def test_card_tables_carry_weights_and_d_inv(n2, with_scale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims,points,parts,reach", CASES + [((6, 8, 5), 7, 1, 1),
-                                                             ((33, 20, 17), 27, 1, 1)])
+@pytest.mark.parametrize("dims,points,parts,reach", CASES + [
+    ((6, 8, 5), 7, 1, 1), ((33, 20, 17), 27, 1, 1), ((3, 21, 5), 7, 1, 1),
+    ((2, 18, 8), 7, 1, 1), ((16, 21, 8), 7, 8, 1), ((16, 45, 6), 7, 8, 1)])
 def test_kernel_bit_equal_to_plain_cuda(dims, points, parts, reach):
     """The kernel against the plain version and the earlier launch sequence
-    (a stack, ``ordered_sum_lanes`` and ``ordered_fma``), one launch."""
+    (a stack, ``ordered_sum_lanes`` and ``ordered_fma``), one launch; the
+    centre unfused on the rows ``unfused_centre`` gives (n2 = 8 with four
+    points a thread, n2 = 5 and 6 with one)."""
     if not torch.cuda.is_available():
         pytest.skip("ordered_stencil_matvec is CUDA C++ and needs a CUDA card")
     offs, w, d, x = _problem(dims, points, parts, seed=sum(dims) + points, reach=reach)
-    split = None
-    if parts == 1:
-        split = ds._unfused_centre(Stencil(torch.from_numpy(w), offs, dims),
-                                   chain_order(len(offs)))
-    plan, xs, halos = _plan_and_inputs(offs, w, d, x, parts, "cuda", split)
+    split, rows = ordered_stencil.unfused_centre(offs, (dims[0] // parts,) + dims[1:],
+                                                 sharded=parts > 1)
+    plan, xs, halos = _plan_and_inputs(offs, w, d, x, parts, "cuda", split, rows)
     before = ordered_sum.LAUNCHES["ordered_stencil_matvec"]
     got = ordered_stencil.matvec(plan, xs, halos)
     assert ordered_sum.LAUNCHES["ordered_stencil_matvec"] == before + 1
     halos = halos or [(None, None)] * parts
     plain = ordered_stencil.matvec_plain(plan, xs, halos)
     seq = ordered_stencil.matvec_plain(plan, xs, halos, launch=True)
-    for g, p, s, want in zip(got, plain, seq, _reference(offs, w, d, x, parts, split)):
+    for g, p, s, want in zip(got, plain, seq, _reference(offs, w, d, x, parts, split, rows)):
         assert torch.equal(_bits(g), _bits(p))
         assert torch.equal(_bits(g), _bits(s))
         assert torch.equal(_bits(g), _bits(want))

@@ -13,12 +13,13 @@ against the JAX package on an 8-device CPU mesh, at the part shapes of
   sharded array inside a loop == ``ordered_norm`` (the parts' sums left to
   right) on every draw, and the sums right to left or as a pairwise tree
   differ on some.
-- The known fault (ROADMAP C7a): at a 7-point part with 5 ≤ n2 ≤ 8 LLVM
-  vectorises the JAX package's interior across its middle axis and adds the
-  centre's product rounded on the rows of its vector loop.  At 16 × 468 × 8
-  in 8 parts every row is taken so: the JAX package's D⁻¹A·x equals the
-  port's matvec with the centre unfused, and not the port's (a strict
-  xfail, which turns into a failure once the order is repaired).
+- ROADMAP C7a: at a 7-point part with 5 ≤ n2 ≤ 8 LLVM vectorises the JAX
+  package's interior across its middle axis and adds the centre's product
+  rounded on the rows of its vector loop.  At 16 × 468 × 8 in 8 parts every
+  row is taken so: the JAX package's D⁻¹A·x equals the port's matvec (its
+  power iteration's plan, ``pdevice_setup.power_plan``, with the centre
+  unfused on all 468 rows) and the plain plan with the centre unfused
+  (``tests/test_torch_centre_rows.py`` holds the row bound at other shapes).
 """
 
 import functools
@@ -97,21 +98,18 @@ def test_power_step_8_parts_bit_equal_to_jax(dims, points, seed):
     assert_bits(ordered_norm(got["port"]), nrm2, "‖D⁻¹A·x‖")
 
 
-@pytest.mark.parametrize("variant", [
-    pytest.param("port", marks=pytest.mark.xfail(strict=True, raises=AssertionError, reason=(
-        "ROADMAP C7a: at a 7-point part with 5 ≤ n2 ≤ 8 the JAX package adds the "
-        "interior's centre unfused on the rows of LLVM's vector loop; the port's "
-        "chain is fused"))),
-    "unfused_centre"])
+@pytest.mark.parametrize("variant", ["port", "unfused_centre"])
 def test_power_step_8_parts_unfused_centre_rows(variant):
     dims = (16, 468, 8)
     w, offs, x1, want, _ = _jax_step(dims, 7, 1)
     mesh = ptt.make_row_mesh(8, device="cpu")
     A = ShardedStencil.from_global(torch.from_numpy(w), offs, dims, mesh)
     x = PGrid.from_global(torch.from_numpy(x1), mesh)
-    plan = ordered_stencil.Plan(A.weights, pd._sharded_dinv(A).parts, A.offsets, sharded=True)
+    plan = pd.power_plan(A, pd._sharded_dinv(A))
+    assert plan.rows == 468
     if variant == "unfused_centre":
-        plan.split = ordered_stencil.chain_order(7).index(offs.index((0, 0, 0)))
+        plan = ordered_stencil.Plan(A.weights, pd._sharded_dinv(A).parts, A.offsets,
+                                    sharded=True, split=plan.split)
     got = PGrid(ordered_stencil.matvec(plan, x.parts, pd._halos(x.parts, A.halo, 0)), mesh)
     assert_bits(got.to_global(), want, "D⁻¹A·x")
 
