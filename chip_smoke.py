@@ -372,12 +372,15 @@ KERNELS = {
                     "parallel_amg_tpu/amg/device_setup.py:357-386); it replaces the "
                     "ordered_fma launches, shifted copies of X and masks of the port's "
                     "earlier stage",
-        "design": "a thread a grid point and up to 27 output boxes, their sums in "
-                  "registers: the terms from a host table in order, each one's mask "
-                  "(the residue window), masked factor and neighbour computed once "
-                  "for the point and applied to every box of its target, X read in "
-                  "place (0 off the grid), __fmul_rn then __fmaf_rn, masked-off terms "
-                  "computed as fma(+0, x, y)"},
+        "design": "2.5-D blocking: a block of 8 x 32 threads owns a tile of (n1, n2) "
+                  "points and marches along axis 0 over a chunk of planes; a ring of "
+                  "the 2 r0 + 2 planes of every input box over the tile and its halo "
+                  "and two planes of the factors in shared memory, the next plane "
+                  "prefetched with cp.async while the current one is computed; the "
+                  "term table and the block's source boxes in shared memory; a thread "
+                  "a point and up to 27 output boxes, their sums in registers; per "
+                  "term its kind (__fmul_rn, __fmaf_rn or __fadd_rn of __fmul_rn, "
+                  "another from its tail column on), masked-off terms computed"},
 }
 # the __global__ functions of csrc/, as the profiler names them
 PORT_KERNEL_NAMES = ("twell_stream_kernel", "flatdia_spmv_kernel",
@@ -1534,18 +1537,31 @@ def galerkin_order_phase(c, h3):
 def bucket_stage_phase(c, A3, d_inv3, gen):
     """``ordered_bucket_stage`` on the three stages of config #3's level-0
     bucketed product (A3 and its D⁻¹, 128³, 7 points) and of the 468³ setup's
-    gathered tail (a seeded 27-point operator of its 52³ level), each against
-    its plain version (``bucket_stage.stage_plain`` on the card) and the
-    earlier ``ordered_fma`` sequence (``tests/bucket_sequence.py``, the
+    gathered tail (a seeded 27-point operator of its 52³ level), in the JAX
+    package's order for each grid (``bucket_stage.product_orders``), each
+    against its plain version (``bucket_stage.stage_plain`` on the card) and
+    the earlier ``ordered_fma`` sequence (``tests/bucket_sequence.py``, the
     setup's route before the kernel), bit for bit, one launch a stage; the
-    kernel's and the sequence's device ms in turns (``bucket_stage.stage``
-    timed as the setup calls it, its table built and copied to the card on
-    every call), the plain version's, the bound (X, the factor planes and Y
-    each once; 2 operations a term an element)."""
+    kernel's device ms launched alone (its table already on the card) and
+    ``bucket_stage.stage`` as the setup calls it, the plain version's, the
+    byte and operation bounds (X, the factor planes and Y each once; 2
+    operations a (term, output box) pair a point).  Then the kernel with each
+    kind of departure (``tests/test_torch_bucket_stage.py``'s
+    ``DEPARTURE_CASES``: rounded products, tails, a stored product, alt reads
+    and outputs) against its plain version, and the 52³ tail's whole
+    bucketed product against the JAX package's record
+    (``scripts/jax_bucketed_record.py``, line ``p468_tail_vs_jax_record``).
+    The earlier kernel is timed in turns with this one by
+    ``scripts/bench_bucket_stage.py --parent DIR``."""
+    import json
+
     import torch
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import jax_bucketed_record
     from bucket_sequence import earlier_sequence
+    from test_torch_bucket_stage import DEPARTURE_CASES, _orders, _stages
 
     from parallel_amg_tpu_torch.amg import device_setup as ds
     from parallel_amg_tpu_torch.ops import bucket_stage, ordered_sum
@@ -1563,61 +1579,110 @@ def bucket_stage_phase(c, A3, d_inv3, gen):
     ok = True
     for op_label, (A, d_inv) in operators.items():
         factors, boxes = ds.bucket_stage_factors(A, d_inv, coef, 3)
+        orders = bucket_stage.product_orders(A.offsets, A.dims, 3)
+        offs = tuple(A.offsets)
         X = torch.ones((1, 1, 1) + A.dims, device=dev)
         for s, (F, box_in, box_out) in enumerate(zip(factors, boxes, boxes[1:])):
             label = f"{op_label}_stage{s + 1}"
-            table = bucket_stage.terms(A.offsets, box_in, box_out, 3)
+            order = orders[s]
+            table = bucket_stage.terms(offs, box_in, box_out, 3, order)
             before = ordered_sum.LAUNCHES["ordered_bucket_stage"]
             fma_before = ordered_sum.LAUNCHES["ordered_fma"]
-            got = bucket_stage.stage(F, A.offsets, X, box_in, box_out, 3, A.dims)
+            got = bucket_stage.stage(F, offs, X, box_in, box_out, 3, A.dims, order)
             launched = ordered_sum.LAUNCHES["ordered_bucket_stage"] - before
             fma_launched = ordered_sum.LAUNCHES["ordered_fma"] - fma_before
-            plain = bucket_stage.stage_plain(F, A.offsets, X, box_in, box_out, 3, A.dims)
+            plain = bucket_stage.stage_plain(F, offs, X, box_in, box_out, 3, A.dims, order)
             equal_plain = bits_equal(got, plain)
             del plain
-            before = ordered_sum.LAUNCHES["ordered_fma"]
-            seq = earlier_sequence(list(F), A.offsets, X, box_in, box_out, 3, A.dims)
-            seq_launches = ordered_sum.LAUNCHES["ordered_fma"] - before
-            equal_seq = bits_equal(got, seq)
-            del seq
+            equal_seq = None
+            if order == bucket_stage.Order():  # the earlier sequence has the stage order
+                seq = earlier_sequence(list(F), offs, X, box_in, box_out, 3, A.dims)
+                equal_seq = bits_equal(got, seq)
+                del seq
             finite = bool(torch.isfinite(got).all())
             n = A.n
             _, src = bucket_stage.kernel_table(table, box_in, box_out, 3)
-            applied = sum(v >= 0 for cols in src for v in cols)  # (term, box) pairs
+            applied = int((src >= 0).sum())  # (term, box) pairs a point
             n_bytes = 4 * n * (F.shape[0] + X.numel() // n + got.numel() // n)
             b_ms, b_by = c.bound_ms(n_bytes, 2 * applied * n)
-            kernel_ms, seq_ms = [], []
-            for _ in range(2):  # in turns: kernel, sequence, kernel, sequence
-                kernel_ms.append(c.device_ms(lambda: bucket_stage.stage(
-                    F, A.offsets, X, box_in, box_out, 3, A.dims), reps=3, samples=7))
-                seq_ms.append(c.device_ms(lambda: earlier_sequence(
-                    list(F), A.offsets, X, box_in, box_out, 3, A.dims), reps=1, samples=3,
-                    warmup=1))
+            bytes_ms = 1e3 * n_bytes / PEAK_BYTES_S
+            ops_ms = 1e3 * 2 * applied * n / PEAK_F32_FLOP_S
+            flat, n_terms, n_cols, _, _ = bucket_stage._device_table(
+                offs, box_in, box_out, 3, order, dev)
+            n_in, n_out = X.numel() // n, got.numel() // n
+            Yl = torch.empty_like(got)
+
+            def launch_alone():
+                err = ordered_sum._kernels()[3](
+                    F.data_ptr(), X.data_ptr(), None, Yl.data_ptr(), None, flat.data_ptr(),
+                    flat[n_terms * bucket_stage.TERM_INTS:].data_ptr(), n_terms, n_in,
+                    n_out, n_cols, F.shape[0], *A.dims, 3, 1, 1, 1,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"ordered_bucket_stage launch failed: {err}")
+
+            launch_ms, stage_ms = [], []
+            for _ in range(2):  # in turns: launch alone, stage, launch alone, stage
+                launch_ms.append(c.device_ms(launch_alone, reps=3, samples=7))
+                stage_ms.append(c.device_ms(lambda: bucket_stage.stage(
+                    F, offs, X, box_in, box_out, 3, A.dims, order), reps=3, samples=7))
+            stage_host_ms = c.host_ms(lambda: bucket_stage.stage(
+                F, offs, X, box_in, box_out, 3, A.dims, order), n=10)
             plain_ms = c.device_ms(lambda: bucket_stage.stage_plain(
-                F, A.offsets, X, box_in, box_out, 3, A.dims), reps=1, samples=3, warmup=1)
-            ms = statistics.median(kernel_ms)
-            fields = dict(grid=list(A.dims), points=A.n_points, box_in=X.numel() // n,
-                          box_out=got.numel() // n, terms=len(table),
-                          element_terms=applied, launches=launched,
+                F, offs, X, box_in, box_out, 3, A.dims, order), reps=1, samples=3, warmup=1)
+            ms = statistics.median(launch_ms)
+            fields = dict(grid=list(A.dims), points=A.n_points, box_in=n_in, box_out=n_out,
+                          terms=len(table), element_terms=applied, launches=launched,
                           ordered_fma_launches=fma_launched,
-                          earlier_sequence_ordered_fma_launches=seq_launches,
                           bit_equal_plain=equal_plain, bit_equal_earlier_sequence=equal_seq,
-                          ms=ms, ms_in_turns=kernel_ms, earlier_sequence_ms=seq_ms,
+                          ms=ms, ms_in_turns=launch_ms, stage_ms=statistics.median(stage_ms),
+                          stage_ms_in_turns=stage_ms, stage_host_ms=stage_host_ms,
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          bound_bytes_ms=bytes_ms, bound_ops_ms=ops_ms,
                           share_of_bound=b_ms / ms, copy_bound_ms=c.copy_bound_ms(n_bytes))
             c.emit("kernel", name="ordered_bucket_stage", case=label, **fields)
             cases[label] = {k: fields[k] for k in (
-                "ms", "earlier_sequence_ms", "plain_ms", "bound_ms", "launches")}
-            ok &= (equal_plain and equal_seq and finite and launched == 1
+                "ms", "stage_ms", "plain_ms", "bound_ms", "bound_bytes_ms", "bound_ops_ms",
+                "launches")}
+            ok &= (equal_plain and equal_seq is not False and finite and launched == 1
                    and fma_launched == 0)
             if label == "config3_128^3_level0_stage3":
                 r.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None, copy_bound_ms=c.copy_bound_ms(n_bytes),
-                         main_case=label, earlier_sequence_ms=seq_ms,
+                         main_case=label, stage_ms=statistics.median(stage_ms),
                          share_of_bound=b_ms / ms, max_abs_err=0.0,
                          library_kind="none (no single PyTorch call computes the stage)")
             X = got
+            del Yl
         del X, factors
+    # each kind of departure from the stage order, on the card
+    for dims, kind, key in DEPARTURE_CASES:
+        for s, ((F, X, offs, box_in, box_out), order) in enumerate(zip(_stages(dims, kind),
+                                                                         _orders(key))):
+            X_alt = X + 0.25 if order.alt else None
+            plain = bucket_stage.stage(F, offs, X, box_in, box_out, 3, dims, order, X_alt,
+                                       alt_out=True)
+            before = ordered_sum.LAUNCHES["ordered_bucket_stage"]
+            got = bucket_stage.stage(F.to(dev), offs, X.to(dev), box_in, box_out, 3, dims,
+                                     order, None if X_alt is None else X_alt.to(dev),
+                                     alt_out=True)
+            launched = ordered_sum.LAUNCHES["ordered_bucket_stage"] - before
+            equal = all(bits_equal(g.cpu(), p) for g, p in zip(got, plain))
+            label = f"departures_{'x'.join(map(str, dims))}_{kind}_stage{s + 1}"
+            c.emit("kernel", name="ordered_bucket_stage", case=label, order=str(order),
+                   launches=launched, bit_equal_plain=equal)
+            ok &= equal and launched == 1
+    # the 468³ tail's whole bucketed product against the JAX package's record
+    with open(jax_bucketed_record.RECORD) as f:
+        record = json.load(f)
+    tail = "p468_tail_52^3_27pt"
+    held = jax_bucketed_record.held(tail, jax_bucketed_record.port_planes(tail, "cuda"),
+                                    record)
+    c.emit("p468_tail_vs_jax_record", case=tail, equal=held,
+           sha256=record["cases"][tail]["sha256"], jax=record["jax"], cpu=record["cpu"])
+    if not held:
+        raise AssertionError("the 52³ tail's bucketed product on the card differs from the "
+                             "JAX package's record")
     if not ok:
         raise AssertionError(f"ordered_bucket_stage: a case differs from its plain version "
                              f"or the earlier sequence, or took other launches: {cases}")
@@ -2329,7 +2394,7 @@ def main():
 
     kctx = types.SimpleNamespace(emit=emit, device_ms=device_ms, bound_ms=bound_ms,
                                  copy_bound_ms=copy_bound_ms, library_ms=library_ms,
-                                 results=results)
+                                 host_ms=host_ms, results=results)
     # the power iterations' matvec on one device: config #3's level 0, and a
     # grid whose centre the JAX package adds unfused (n1 = 8, 5 ≤ n2 ≤ 8)
     g_os = torch.Generator(device=dev).manual_seed(18)

@@ -564,16 +564,23 @@ def bucketed_coarse_operator(A: Stencil, d_inv, coef, cdims, block: int,
     the exact Galerkin operator of the smoothed transfers.  The stages are
     ``bucket_stage.stage``: one ``ordered_bucket_stage`` launch each for a
     float32 grid of one to three axes on the card (a grid of more axes
-    raises there), the plain version on the CPU and for other types.
+    raises there), the plain version on the CPU and for other types, in the
+    JAX package's order for this grid (``bucket_stage.product_orders``: a
+    stage whose successor reads an ``alt`` X hands it on).
     """
     nd = len(A.dims)
     b = block
     dims = A.dims
     factors, boxes = bucket_stage_factors(A, d_inv, coef, b)
+    orders = bucket_stage.product_orders(A.offsets, dims, b)
     X = torch.ones((1,) * nd + tuple(dims), dtype=A.weights.dtype,
                    device=A.weights.device)
-    for F, box_in, box_out in zip(factors, boxes, boxes[1:]):
-        X = bucket_stage.stage(F, A.offsets, X, box_in, box_out, b, dims)
+    X_alt = None
+    for s, (F, box_in, box_out) in enumerate(zip(factors, boxes, boxes[1:])):
+        alt_out = s < 2 and bool(orders[s + 1].alt)
+        X = bucket_stage.stage(F, A.offsets, X, box_in, box_out, b, dims, orders[s],
+                               X_alt, alt_out)
+        X, X_alt = X if alt_out else (X, None)
     pool = _window_sum(X, cdims, b, nd)
     out_offs = sorted(itertools.product(*[range(lo, hi + 1) for lo, hi in boxes[3]]))
     planes = pool.reshape((len(out_offs),) + tuple(cdims))

@@ -47,18 +47,40 @@
 // scalar, or a grid broadcast over the leading axes).
 //
 // ordered_bucket_stage: one stage of the structured setups' bucketed
-// Galerkin product (ops/bucket_stage.py has the order), Y[o](p) = the terms
-// applied to output box o in order, each select(mask, F[k](p), 0) *
-// X[src](p + off): the first a rounded product (__fmul_rn), the rest
-// __fmaf_rn, a masked-off term computed, not skipped (fma(+0, x, -0) is
-// +0).  It replaces, per stage, a shifted copy of X for every offset, a mask
-// tensor and an ordered_fma launch per contiguous block of every update (a
-// launch per box plane on 27-point levels).  A thread a grid point and up to
-// 27 output boxes, their sums in registers: each term's mask, factor and
-// neighbor are computed once for the point and applied to every box of its
-// target (a host table of source boxes, uniform over the block), so F is
-// read once and X's reads are the boxes' own.  Bound: device-memory bytes,
-// F, X and Y each once; a point's reads of X's neighbors go through L1/L2.
+// Galerkin product (ops/bucket_stage.py has the order).  It replaces no TPU
+// kernel: it carries XLA's CPU order of the JAX package's bucketed stage, so
+// that the port's coarse operators are the JAX package's bits.  Y[o](p) = the
+// terms applied to output box o in order, each select(mask, F[k](p), 0) *
+// X[src](p + off): stored rounded (__fmul_rn), fused (__fmaf_rn) or added
+// rounded (__fadd_rn of __fmul_rn) by the term's kind, another kind on the
+// last axis from the term's tail column on; a masked-off term is computed,
+// not skipped (fma(+0, x, -0) is +0).  Bounds on an H100: bytes F, X and Y
+// once each (config #3's stage 3 at 128^3: 7 + 27 + 27 planes of 2^21
+// floats); operations two a (term, output box) pair a point, which at 27
+// points is 2 x 2,197 a point and bounds 52^3 rather than its bytes.  Design
+// (2.5-D blocking): a block of kTile1 x kTile2 threads owns a tile of (n1, n2)
+// points and marches along axis 0 over a chunk of planes, keeping in shared
+// memory a ring of 2 r0 + 2 planes (the stencil's reach r, and the plane
+// prefetched) of every input box over the tile and its halo, zero off the
+// grid, and two planes of the factors; so each of a point's term-box reads is
+// a shared-memory load, and X and F come from device memory once a chunk plus
+// the halo.  The next plane is fetched while the current one is computed:
+// X as float4 loads into registers stored to the ring after the step (rows of
+// whole float4s, n2 % 4 == 0; else 4-byte cp.async), F by cp.async.  The
+// term table (per term its kind, tail kind, tail, alt, plane, offset and
+// residue window) and the block's source entries (a box's offset in the ring)
+// are copied to shared memory once a block.  A thread owns a point and up to
+// kBoxGroup output boxes (blockIdx.z a group), their sums in registers; a
+// term with more than kSparseMax boxes reads all of its 27 entries in three
+// passes (entries, x, updates) with no branch, so the loads issue back to
+// back, and one with fewer (every term of a stage whose X is one box) walks
+// its packed boxes.  The chunk length is chosen for the fewest steps a block
+// runs in sequence at the occupancy the launch gets.  A term flagged alt
+// reads X_alt from device memory (the JAX package's consumer fusions that
+// recompute the previous stage's last update with its product rounded); with
+// Y_alt the last term is also added rounded into Y_alt.  Where the ring would
+// not fit in shared memory (many input boxes or a wide reach) X and F are read
+// from device memory.
 //
 // Every add is __fadd_rn and every fused multiply-add __fmaf_rn (no other
 // contraction, no reassociation, no atomics: the file is built without fast
@@ -464,69 +486,333 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 // One term of ordered_bucket_stage's table, kTermInts int32s: kind (0: store
-// the rounded product, 1: fused multiply-add into y), the factor plane k, the
-// fine offset, and the residue window's start lo = delta * b - off on each
-// axis (the point's delta is the term's where lo <= p mod b < lo + b).  Beside
-// it, per term, the source box (a linear index of X's box) of every output
-// box, -1 where the output box is not in the term's target.
-constexpr int kTermInts = 8;
+// the rounded product, 1: fused multiply-add into y, 2: add the rounded
+// product), the kind from the tail column on, the tail column (on the last
+// axis), alt (read X_alt), the factor plane k, the fine offset, and the
+// residue window's start lo = delta * b - off on each axis (the point's delta
+// is the term's where lo <= p mod b < lo + b), 0.  Beside it, per term, the
+// source box (a linear index of X's box) of every output box, -1 where the
+// output box is not in the term's target.
+constexpr int kTermInts = 12;
 // output boxes a thread accumulates in registers (a box of 3 x 3 x 3)
 constexpr int kBoxGroup = 27;
+// a block's tile of (n1, n2) points and its threads
+constexpr int kTile1 = 8;
+constexpr int kTile2 = 32;
+constexpr int kStageThreads = kTile1 * kTile2;
+// a term's source entries in shared memory, padded to whole int4 loads
+constexpr int kEntStride = 28;
+// a term's row in shared memory: its kTermInts (the last, 11, replaced by the
+// number of boxes it targets), then up to kSparseMax packed boxes
+constexpr int kRowStride = 16;
+// float4 a thread holds in registers for one plane of the ring (vec path:
+// rows of n2 % 4 == 0 floats, a halo of at most 4 columns)
+constexpr int kMaxVec = 12;
+constexpr int kVecCols = (kTile2 + 8) / 4;
+// shared memory a block may take (the H100's opt-in limit)
+constexpr size_t kStageSmemMax = 227 * 1024;
 
-// A thread a grid point p and a group of up to kBoxGroup output boxes
-// (blockIdx.y): the y of each box from +0, then every term in order, its
-// mask (the residue window on every axis), select(mask, F[k](p), 0) and the
-// neighbor p + off computed once for the point, then applied to each box of
-// the group in the term's target, x read in place in the box's source (0 off
-// the grid).  Each box's chain is the table's order restricted to that box,
-// which is the JAX package's order for it.  A masked-off term is computed
-// (fma(+0, x, y)), never skipped.
-__global__ void __launch_bounds__(kBlock)
+struct StageShape {
+  int n_terms, n_in, n_out, n_cols, n_f, n0, n1, n2, b, r0, r1, r2, chunk, tiles2;
+};
+
+// The block's shared memory: the table (rows, then the int32 source entries:
+// a box's offset in the ring, staged, else its index; -1 where absent);
+// then, staged, a ring of 2 r0 + 2 slots (the planes a
+// step reads and the one prefetched) of every input box over the tile and its
+// halo, and two slots of the factor planes over the tile.
+__host__ __device__ inline size_t stage_table_bytes(int n_terms) {
+  return sizeof(int) * n_terms * (kRowStride + kEntStride);
+}
+__host__ __device__ inline int stage_slots(const StageShape& s) { return 2 * s.r0 + 2; }
+__host__ __device__ inline size_t stage_ring_floats(const StageShape& s) {
+  return static_cast<size_t>(s.n_in) * stage_slots(s) * (kTile1 + 2 * s.r1) *
+             (kTile2 + 2 * s.r2) +
+         2 * static_cast<size_t>(s.n_f) * kStageThreads;
+}
+
+// 4 bytes global -> shared without a register, zero-filled where !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One term on the y of every box of the group: kind K (0 store, 1 fma, 2 add
+// rounded), the x of entry e (>= 0; -1: the box is not in the term's target,
+// y kept) read by `read`.  No branch, in three passes (the entries, then
+// every x, then the updates, a select keeping y where absent), so the 27
+// loads of each pass issue back to back.
+template <int K, typename Read>
+__device__ __forceinline__ void stage_apply(float (&y)[kBoxGroup], const int* entries,
+                                            float f, Read read) {
+  int e[kEntStride];
+  const int4* e4 = reinterpret_cast<const int4*>(entries);
+#pragma unroll
+  for (int v = 0; v < kEntStride / 4; ++v) {
+    const int4 w = e4[v];  // uniform over the block
+    e[4 * v] = w.x;
+    e[4 * v + 1] = w.y;
+    e[4 * v + 2] = w.z;
+    e[4 * v + 3] = w.w;
+  }
+  float x[kBoxGroup];
+#pragma unroll
+  for (int j = 0; j < kBoxGroup; ++j) x[j] = read(e[j] >= 0 ? e[j] : 0);
+#pragma unroll
+  for (int j = 0; j < kBoxGroup; ++j) {
+    const float v = K == 0 ? __fmul_rn(f, x[j])
+                           : (K == 1 ? __fmaf_rn(f, x[j], y[j])
+                                     : __fadd_rn(y[j], __fmul_rn(f, x[j])));
+    y[j] = e[j] >= 0 ? v : y[j];
+  }
+}
+
+// One term on the y of the few boxes it targets (terms with at most
+// kSparseMax boxes, as every term of a stage whose X is one box): the packed
+// (j << 24 | entry) list, each box's y picked by a switch on j.
+constexpr int kSparseMax = 4;
+template <int K>
+__device__ __forceinline__ void stage_one(float (&y)[kBoxGroup], int j, float f, float x) {
+  switch (j) {
+#define STAGE_ONE_CASE(J)                                                                 \
+  case J:                                                                                 \
+    y[J] = K == 0 ? __fmul_rn(f, x)                                                       \
+                  : (K == 1 ? __fmaf_rn(f, x, y[J]) : __fadd_rn(y[J], __fmul_rn(f, x))); \
+    break;
+    STAGE_ONE_CASE(0) STAGE_ONE_CASE(1) STAGE_ONE_CASE(2) STAGE_ONE_CASE(3)
+    STAGE_ONE_CASE(4) STAGE_ONE_CASE(5) STAGE_ONE_CASE(6) STAGE_ONE_CASE(7)
+    STAGE_ONE_CASE(8) STAGE_ONE_CASE(9) STAGE_ONE_CASE(10) STAGE_ONE_CASE(11)
+    STAGE_ONE_CASE(12) STAGE_ONE_CASE(13) STAGE_ONE_CASE(14) STAGE_ONE_CASE(15)
+    STAGE_ONE_CASE(16) STAGE_ONE_CASE(17) STAGE_ONE_CASE(18) STAGE_ONE_CASE(19)
+    STAGE_ONE_CASE(20) STAGE_ONE_CASE(21) STAGE_ONE_CASE(22) STAGE_ONE_CASE(23)
+    STAGE_ONE_CASE(24) STAGE_ONE_CASE(25) STAGE_ONE_CASE(26)
+#undef STAGE_ONE_CASE
+    default:
+      break;
+  }
+}
+template <int K, typename Read>
+__device__ __forceinline__ void stage_sparse(float (&y)[kBoxGroup], const int* packed, int count,
+                                             float f, Read read) {
+  for (int i = 0; i < count; ++i) {
+    const int pk = packed[i];  // uniform over the block
+    stage_one<K>(y, pk >> 24, f, read(pk & 0xffffff));
+  }
+}
+
+// NV: float4 a thread holds for a plane of the ring (the vec path), 0: the
+// ring filled by 4-byte asynchronous copies
+template <bool STAGED, int NV>
+__global__ void __launch_bounds__(kStageThreads)
     ordered_bucket_stage_kernel(const float* __restrict__ F, const float* __restrict__ X,
-                                float* __restrict__ Y, const int* __restrict__ terms,
-                                const int* __restrict__ src, int n_terms, int n_box_out,
-                                int n_cols, int n0, int n1, int n2, int b) {
-  const int n = n0 * n1 * n2;  // < 2^31, checked by the entry
+                                const float* __restrict__ Xalt, float* __restrict__ Y,
+                                float* __restrict__ Yalt, const int* __restrict__ terms,
+                                const int* __restrict__ src, const StageShape sh) {
+  extern __shared__ __align__(16) float stage_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(stage_smem);
+  int* s_rows = reinterpret_cast<int*>(base);
+  int* s_ent = s_rows + sh.n_terms * kRowStride;
+  float* ring = reinterpret_cast<float*>(base + stage_table_bytes(sh.n_terms));
+  const int tid = threadIdx.y * kTile2 + threadIdx.x;
+  const int g0 = blockIdx.z * kBoxGroup;
+  const int S = stage_slots(sh), H1 = kTile1 + 2 * sh.r1, H2 = kTile2 + 2 * sh.r2;
+  const int slot_floats = H1 * H2, box_floats = S * slot_floats;
+  for (int i = tid; i < sh.n_terms * kTermInts; i += kStageThreads)
+    s_rows[i / kTermInts * kRowStride + i % kTermInts] = terms[i];
+  for (int i = tid; i < sh.n_terms * kEntStride; i += kStageThreads) {
+    const int t = i / kEntStride, j = i - t * kEntStride;
+    const int box = j < kBoxGroup ? src[static_cast<long long>(t) * sh.n_cols + g0 + j] : -1;
+    // a term read from the ring (staged, not alt) keeps the box's offset
+    s_ent[i] = box >= 0 && STAGED && !terms[t * kTermInts + 3] ? box * box_floats : box;
+  }
+  __syncthreads();
+  for (int t = tid; t < sh.n_terms; t += kStageThreads) {  // each term's boxes, packed
+    int count = 0;
+    for (int j = 0; j < kBoxGroup; ++j) {
+      const int e = s_ent[t * kEntStride + j];
+      if (e >= 0) {
+        if (count < kSparseMax) s_rows[t * kRowStride + kTermInts + count] = (j << 24) | e;
+        ++count;
+      }
+    }
+    s_rows[t * kRowStride + 11] = count;
+  }
+  const int n1 = sh.n1, n2 = sh.n2, n0 = sh.n0, b = sh.b;
   const int plane = n1 * n2;
-  const int g0 = blockIdx.y * kBoxGroup;
+  const long long n = static_cast<long long>(n0) * plane;
+  const int base1 = (blockIdx.x / sh.tiles2) * kTile1;
+  const int base2 = (blockIdx.x % sh.tiles2) * kTile2;
+  const int i1 = base1 + threadIdx.y, i2 = base2 + threadIdx.x;
+  float* fring = ring + static_cast<size_t>(sh.n_in) * box_floats;  // 2 x n_f x tile
+  const int c0 = blockIdx.y * sh.chunk;
+  const int c1 = min(c0 + sh.chunk, n0);
+  const bool own = i1 < n1 && i2 < n2;
   const unsigned ub = static_cast<unsigned>(b);
-  for (long long pl = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x; pl < n;
-       pl += static_cast<long long>(gridDim.x) * kBlock) {
-    const int p = static_cast<int>(pl);
-    const int p0 = p / plane;
-    const int rest = p - p0 * plane;
-    const int p1 = rest / n2, p2 = rest - p1 * n2;
-    const int r0 = p0 % b, r1 = p1 % b, r2 = p2 % b;
-    float y[kBoxGroup];
-#pragma unroll
-    for (int j = 0; j < kBoxGroup; ++j) y[j] = 0.f;
-    for (int t = 0; t < n_terms; ++t) {
-      const int* u = terms + t * kTermInts;
-      const int kind = __ldg(u), k = __ldg(u + 1);
-      const int o0 = __ldg(u + 2), o1 = __ldg(u + 3), o2 = __ldg(u + 4);
-      const bool mask = static_cast<unsigned>(r0 - __ldg(u + 5)) < ub &&
-                        static_cast<unsigned>(r1 - __ldg(u + 6)) < ub &&
-                        static_cast<unsigned>(r2 - __ldg(u + 7)) < ub;
-      const float f = mask ? __ldg(F + static_cast<long long>(k) * n + p) : 0.f;
-      const int q0 = p0 + o0, q1 = p1 + o1, q2 = p2 + o2;
-      const bool inside = static_cast<unsigned>(q0) < static_cast<unsigned>(n0) &&
-                          static_cast<unsigned>(q1) < static_cast<unsigned>(n1) &&
-                          static_cast<unsigned>(q2) < static_cast<unsigned>(n2);
-      const int q = q0 * plane + q1 * n2 + q2;
-      const int* s = src + t * n_cols + g0;
-#pragma unroll
-      for (int j = 0; j < kBoxGroup; ++j) {
-        const int box = __ldg(s + j);  // uniform over the block
-        if (box >= 0) {
-          const float x = inside ? __ldg(X + static_cast<long long>(box) * n + q) : 0.f;
-          y[j] = kind == 0 ? __fmul_rn(f, x) : __fmaf_rn(f, x, y[j]);
+  auto slot_of = [S](int q0) { return ((q0 % S) + S) % S; };
+  // asynchronous copies of plane q0 of every input box (tile and halo) into
+  // its ring slot, zero off the grid
+  auto issue_x = [&](int q0) {
+    float* dst = ring + slot_of(q0) * slot_floats;
+    const bool in0 = q0 >= 0 && q0 < n0;
+    for (int box = 0; box < sh.n_in; ++box) {
+      const float* xs = X + (static_cast<long long>(box) * n0 + (in0 ? q0 : 0)) * plane;
+      for (int h1 = threadIdx.y; h1 < H1; h1 += kTile1) {
+        const int g1 = base1 - sh.r1 + h1;
+        const bool in1 = in0 && g1 >= 0 && g1 < n1;
+        for (int h2 = threadIdx.x; h2 < H2; h2 += kTile2) {
+          const int g2 = base2 - sh.r2 + h2;
+          const bool in = in1 && g2 >= 0 && g2 < n2;
+          cp_async4(dst + box * box_floats + h1 * H2 + h2, in ? xs + g1 * n2 + g2 : X, in);
         }
       }
     }
+  };
+  // vec path: plane q0 of every input box (the tile's rows, 4 columns of halo
+  // each side) as float4 loads into registers, then into its ring slot
+  const int n_vec = sh.n_in * H1 * kVecCols;
+  float4 vbuf[NV > 0 ? NV : 1];
+  auto load_x4 = [&](int q0) {
+    const bool in0 = q0 >= 0 && q0 < n0;
 #pragma unroll
-    for (int j = 0; j < kBoxGroup; ++j) {
-      if (g0 + j < n_box_out) Y[static_cast<long long>(g0 + j) * n + p] = y[j];
+    for (int m = 0; m < NV; ++m) {
+      const int c = tid + m * kStageThreads;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c < n_vec && in0) {
+        const int box = c / (H1 * kVecCols), rem = c - box * (H1 * kVecCols);
+        const int h1 = rem / kVecCols, c4 = rem - h1 * kVecCols;
+        const int g1 = base1 - sh.r1 + h1, g2 = base2 - 4 + 4 * c4;
+        if (g1 >= 0 && g1 < n1 && g2 >= 0 && g2 < n2)
+          v = __ldg(reinterpret_cast<const float4*>(
+              X + (static_cast<long long>(box) * n0 + q0) * plane + g1 * n2 + g2));
+      }
+      vbuf[m] = v;
     }
+  };
+  auto store_x4 = [&](int q0) {
+    float* dst = ring + slot_of(q0) * slot_floats;
+#pragma unroll
+    for (int m = 0; m < NV; ++m) {
+      const int c = tid + m * kStageThreads;
+      if (c < n_vec) {
+        const int box = c / (H1 * kVecCols), rem = c - box * (H1 * kVecCols);
+        const int h1 = rem / kVecCols, c4 = rem - h1 * kVecCols;
+        float* row = dst + box * box_floats + h1 * H2;
+        const int h2 = 4 * c4 - 4 + sh.r2;  // the ring column of the float4's first
+        const float e[4] = {vbuf[m].x, vbuf[m].y, vbuf[m].z, vbuf[m].w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (h2 + k >= 0 && h2 + k < H2) row[h2 + k] = e[k];
+      }
+    }
+  };
+  // the factor planes of plane q0 over the tile into F slot `fs`
+  auto issue_f = [&](int q0, int fs) {
+    float* dst = fring + fs * sh.n_f * kStageThreads + tid;
+    const long long at = static_cast<long long>(q0) * plane + i1 * n2 + i2;
+    for (int k = 0; k < sh.n_f; ++k)
+      cp_async4(dst + k * kStageThreads, own ? F + k * n + at : F, own);
+  };
+  if (STAGED) {
+    for (int q0 = c0 - sh.r0; q0 <= c0 + sh.r0; ++q0) {
+      if (NV > 0) {
+        load_x4(q0);
+        store_x4(q0);
+      } else {
+        issue_x(q0);
+      }
+    }
+    issue_f(c0, 0);
+    cp_async_commit();
+    cp_async_wait_all();
+  }
+  __syncthreads();
+  const int r1m = i1 % b, r2m = i2 % b;
+  for (int i0 = c0; i0 < c1; ++i0) {
+    const bool ahead = STAGED && i0 + 1 < c1;
+    if (ahead) {  // prefetch the next step's plane
+      if (NV > 0) load_x4(i0 + 1 + sh.r0);
+      else issue_x(i0 + 1 + sh.r0);
+      issue_f(i0 + 1, (i0 + 1 - c0) & 1);
+      cp_async_commit();
+    }
+    if (own) {
+      const int r0m = i0 % b;
+      const long long p = static_cast<long long>(i0) * plane + i1 * n2 + i2;
+      const float* fs = fring + ((i0 - c0) & 1) * sh.n_f * kStageThreads + tid;
+      const int slot0 = slot_of(i0);
+      // this thread's point in slot 0 of box 0 of the ring
+      const float* at0 = ring + (threadIdx.y + sh.r1) * H2 + threadIdx.x + sh.r2;
+      float y[kBoxGroup];
+#pragma unroll
+      for (int j = 0; j < kBoxGroup; ++j) y[j] = 0.f;
+      for (int t = 0; t < sh.n_terms; ++t) {
+        const int* u = s_rows + t * kRowStride;
+        const int k = u[4], o0 = u[5], o1 = u[6], o2 = u[7];
+        const bool mask = static_cast<unsigned>(r0m - u[8]) < ub &&
+                          static_cast<unsigned>(r1m - u[9]) < ub &&
+                          static_cast<unsigned>(r2m - u[10]) < ub;
+        const float fk = STAGED ? fs[k * kStageThreads] : __ldg(F + k * n + p);
+        const float f = mask ? fk : 0.f;
+        const int kind = i2 >= u[2] ? u[1] : u[0];
+        const int* boxes = s_ent + t * kEntStride;
+        const int q0 = i0 + o0, q1 = i1 + o1, q2 = i2 + o2;
+        const bool inside = static_cast<unsigned>(q0) < static_cast<unsigned>(n0) &&
+                            static_cast<unsigned>(q1) < static_cast<unsigned>(n1) &&
+                            static_cast<unsigned>(q2) < static_cast<unsigned>(n2);
+        const long long q = static_cast<long long>(q0) * plane + q1 * n2 + q2;
+        auto apply = [&](auto read) {
+          if (t == sh.n_terms - 1 && Yalt != nullptr) {
+            // the last term also added rounded, into Y_alt (boxes out of
+            // its target keep y)
+#pragma unroll
+            for (int j = 0; j < kBoxGroup; ++j) {
+              if (g0 + j >= sh.n_out) continue;
+              const int e = boxes[j];
+              const float x = read(e >= 0 ? e : 0);
+              Yalt[(g0 + j) * n + p] = e >= 0 ? __fadd_rn(y[j], __fmul_rn(f, x)) : y[j];
+            }
+          }
+          const int count = u[11];
+          if (count <= kSparseMax) {
+            const int* packed = u + kTermInts;
+            if (kind == 1) stage_sparse<1>(y, packed, count, f, read);
+            else if (kind == 0) stage_sparse<0>(y, packed, count, f, read);
+            else stage_sparse<2>(y, packed, count, f, read);
+          } else if (kind == 1) {
+            stage_apply<1>(y, boxes, f, read);
+          } else if (kind == 0) {
+            stage_apply<0>(y, boxes, f, read);
+          } else {
+            stage_apply<2>(y, boxes, f, read);
+          }
+        };
+        if (u[3]) {  // alt: X_alt from device memory, entries are box indices
+          apply([&](int box) { return inside ? __ldg(Xalt + box * n + q) : 0.f; });
+        } else if (STAGED) {  // entries are ring offsets
+          int sl = slot0 + o0;
+          sl += sl < 0 ? S : 0;
+          sl -= sl >= S ? S : 0;
+          const float* at = at0 + sl * slot_floats + o1 * H2 + o2;
+          apply([&](int e) { return at[e]; });
+        } else {
+          apply([&](int box) { return inside ? __ldg(X + box * n + q) : 0.f; });
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBoxGroup; ++j) {
+        if (g0 + j < sh.n_out) Y[(g0 + j) * n + p] = y[j];
+      }
+    }
+    if (ahead && NV > 0) store_x4(i0 + 1 + sh.r0);  // its slot is not read this step
+    if (STAGED) cp_async_wait_all();
+    __syncthreads();
   }
 }
 
@@ -552,29 +838,82 @@ extern "C" int ordered_fma(const void* a, const void* b, const void* c, void* ou
 }
 
 // One bucketed Galerkin stage Y[o](p) = sum over the terms applied to o of
-// select(mask, F[k](p), 0) * X[src](p + off), Y (n_box_out, n0, n1, n2), X
-// (n_box_in, n0, n1, n2), F (K, n0, n1, n2), all float32 and contiguous, in
-// one launch on `stream`: terms (n_terms x kTermInts int32s) in the order
-// the JAX package's CPU code applies them, src (n_terms x n_cols int32s, n_cols
-// a multiple of kBoxGroup covering n_box_out) each term's source box per
-// output box or -1, b the block size of the residue test; fewer than 2^31
-// grid points.  Returns the launch's cudaError_t.
-extern "C" int ordered_bucket_stage(const void* F, const void* X, void* Y, const void* terms,
-                                    const void* src, int n_terms, int n_box_out, int n_cols,
-                                    int n0, int n1, int n2, int b, void* stream) {
+// select(mask, F[k](p), 0) * X[src](p + off), Y (n_out, n0, n1, n2), X and
+// X_alt (n_in, n0, n1, n2), F (K, n0, n1, n2), all float32 and contiguous, in
+// one launch on `stream`: F has n_f planes, terms (n_terms x kTermInts int32s)
+// in the order the JAX package's CPU code applies them, src (n_terms x n_cols int32s, n_cols a
+// multiple of kBoxGroup covering n_out) each term's source box per output box
+// or -1, b the block size of the residue test, r0..r2 the terms' reach on
+// each axis; X_alt may be null where no term reads it, Y_alt null or Y's
+// shape (Y with the last term added rounded); fewer than 2^31 grid points.
+// Returns the launch's cudaError_t.
+extern "C" int ordered_bucket_stage(const void* F, const void* X, const void* Xalt, void* Y,
+                                    void* Yalt, const void* terms, const void* src,
+                                    int n_terms, int n_in, int n_out, int n_cols, int n_f,
+                                    int n0, int n1, int n2, int b, int r0, int r1, int r2,
+                                    void* stream) {
   const long long n = static_cast<long long>(n0) * n1 * n2;
-  if (n_terms < 0 || n_box_out < 0 || n_cols % kBoxGroup != 0 || n_cols < n_box_out ||
-      n0 < 0 || n1 < 0 || n2 < 0 || b < 1 || n >= (1LL << 31) ||
-      static_cast<long long>(n_terms) * n_cols >= (1LL << 31))
+  if (n_terms < 0 || n_in < 1 || n_out < 0 || n_cols % kBoxGroup != 0 || n_cols < n_out ||
+      n_f < 1 ||
+      n0 < 0 || n1 < 0 || n2 < 0 || b < 1 || r0 < 0 || r1 < 0 || r2 < 0 ||
+      n >= (1LL << 31) || n_in >= (1 << 15) ||
+      static_cast<long long>(n_terms) * n_cols >= (1LL << 31) ||
+      static_cast<long long>(n_in) * n >= (1LL << 31) ||
+      static_cast<long long>(n_out) * n >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_box_out == 0 || n == 0) return 0;
-  const long long chunks = (n + kBlock - 1) / kBlock;
-  const dim3 grid(static_cast<unsigned>(chunks < (1LL << 20) ? chunks : (1LL << 20)),
-                  static_cast<unsigned>(n_cols / kBoxGroup));
-  ordered_bucket_stage_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(F), static_cast<const float*>(X), static_cast<float*>(Y),
-      static_cast<const int*>(terms), static_cast<const int*>(src), n_terms, n_box_out,
-      n_cols, n0, n1, n2, b);
+  if (n_out == 0 || n == 0) return 0;
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  StageShape sh{n_terms, n_in, n_out, n_cols, n_f, n0, n1, n2, b, r0, r1, r2, 1,
+                (n2 + kTile2 - 1) / kTile2};
+  // the vec path where rows are whole float4s and a plane fits the registers
+  const int vec_chunks = n_in * (kTile1 + 2 * r1) * kVecCols;
+  const int nv = n2 % 4 != 0 || r2 > 4 ? 0
+                 : vec_chunks <= kStageThreads ? 1
+                 : vec_chunks <= kMaxVec * kStageThreads ? kMaxVec : 0;
+  const int tiles = ((n1 + kTile1 - 1) / kTile1) * sh.tiles2;
+  const int groups = n_cols / kBoxGroup;
+  const size_t table = stage_table_bytes(n_terms);
+  const size_t staged = table + sizeof(float) * stage_ring_floats(sh);
+  const bool use_ring = staged <= kStageSmemMax;
+  const size_t smem = use_ring ? staged : table;
+  if (smem > kStageSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = !use_ring ? ordered_bucket_stage_kernel<false, 0>
+                     : nv == 1 ? ordered_bucket_stage_kernel<true, 1>
+                     : nv == kMaxVec ? ordered_bucket_stage_kernel<true, kMaxVec>
+                                     : ordered_bucket_stage_kernel<true, 0>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  int per_sm = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStageThreads, smem);
+  // chunks of axis 0: the fewest steps a block runs one after another
+  // (waves x planes a chunk, the halo planes counted), an SM holding per_sm
+  // blocks at once
+  const long long slots = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  long long best = -1;
+  for (int c = 1; c <= n0; ++c) {
+    const int chunk = (n0 + c - 1) / c;
+    const int chunks = (n0 + chunk - 1) / chunk;
+    const long long waves = (static_cast<long long>(tiles) * groups * chunks + slots - 1) / slots;
+    const long long cost = waves * (chunk + 2 * r0);
+    if (best < 0 || cost < best) {
+      best = cost;
+      sh.chunk = chunk;
+    }
+  }
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>((n0 + sh.chunk - 1) / sh.chunk),
+                  static_cast<unsigned>(groups));
+  const dim3 block(kTile2, kTile1);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const float*>(F);
+  const auto* x = static_cast<const float*>(X);
+  const auto* xa = static_cast<const float*>(Xalt);
+  auto* y = static_cast<float*>(Y);
+  auto* ya = static_cast<float*>(Yalt);
+  const auto* t = static_cast<const int*>(terms);
+  const auto* sc = static_cast<const int*>(src);
+  kernel<<<grid, block, smem, s>>>(f, x, xa, y, ya, t, sc, sh);
   return static_cast<int>(cudaGetLastError());
 }
 

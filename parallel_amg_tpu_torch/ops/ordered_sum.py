@@ -647,7 +647,7 @@ def _kernels():
         ctypes.c_int] * 5 + [ctypes.c_void_p]
     fma_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [
         ctypes.c_void_p]
-    stage_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    stage_fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     rows_fn.restype = lanes_fn.restype = fma_fn.restype = stage_fn.restype = ctypes.c_int
     return rows_fn, lanes_fn, fma_fn, stage_fn
 

@@ -27,7 +27,22 @@ smallest subtree that holds the pair, so all pairs give the whole tree
   product for every padding of a 3-D block of 3 (``device_setup._window_sum``).
 - ``--rsqrt``: XLA's 1/√c for c = 1 … 64 against ``device_setup.block_scale``.
 - ``--bucketed``: the port's bucketed product against the JAX package's, bits
-  differing per shape (``ops/bucket_stage.py``).
+  differing per shape (``ops/bucket_stage.py``; ~30 s a 27-point shape).
+- ``--bucketed-solve [DIMSxPOINTS ...]``: reads the departures of the JAX
+  package's whole jitted product from the stage order (``bucket_stage.Order``)
+  at each shape (default: those of ``bucket_stage._DEPARTURES``).  The
+  jitted product is run again with one stage's output as an extra result
+  (its coarse weights checked unchanged), and each stage of the port, fed the
+  JAX package's input, is brought to that output one term at a time: at the
+  differing points, the terms whose rounded (kind 2) or stored (kind 0)
+  product gives the JAX package's float, tried over the whole stage, from
+  each column R of the last axis that the points name (a tail) or
+  everywhere; the change that leaves the fewest floats differing is kept.
+  Prints each stage's changes beside ``product_orders``' for the shape.
+  It cannot find an alt read (32³: a consumer fusion that rounds the
+  previous stage's last update), which shows as a stage it leaves
+  differing; read those off the pad fusions' ``*ir-with-opt.ll``
+  (``XLA_FLAGS=--xla_dump_to=DIR``: an fadd fed by a phi of two fmuls).
 - ``--norms``: the setups' λ_max(D⁻¹A), port against the JAX package's
   ``_jit_power``, per grid (``ordered_sum._middle_lanes_vf``,
   ``device_setup._unfused_centre``).
@@ -240,16 +255,9 @@ def probe_bucketed():
     b = 3
     for dims, pts in [((7, 6, 5), 7), ((12, 12, 12), 7), ((14, 14, 14), 7),
                       ((20, 20, 20), 7), ((44, 44, 44), 7), ((32, 32, 32), 7),
-                      ((13, 12, 11), 7), ((8, 7, 6), 27), ((11, 10), 5)]:
-        nd = len(dims)
-        rng = np.random.default_rng(3)
-        offs = tuple(o for o in itertools.product((-1, 0, 1), repeat=nd)
-                     if pts == 3 ** nd or sum(map(abs, o)) <= 1)
-        W = rng.standard_normal((len(offs),) + dims).astype(F32)
-        d = rng.standard_normal(dims).astype(F32)
-        coef = F32(0.37)
-        cdims = tuple(-(-x // b) for x in dims)
-        sc = (rng.random(cdims) + 0.5).astype(F32)
+                      ((13, 12, 11), 7), ((8, 7, 6), 27), ((16, 16, 16), 27),
+                      ((52, 52, 52), 27), ((11, 10), 5), ((11, 10), 9)]:
+        offs, W, d, coef, cdims, sc = _bucketed_inputs(dims, pts)
         j = np.asarray(jds._jit_bucketed(JStencil(jnp.asarray(W), offs, dims),
                                          jnp.asarray(d), jnp.asarray(coef), cdims, b,
                                          jnp.asarray(sc)).weights)
@@ -259,6 +267,165 @@ def probe_bucketed():
         print(dims, pts, "points: floats differing",
               int((t.view(np.int32) != j.view(np.int32)).sum()), "of", t.size,
               flush=True)
+
+
+def _bucketed_inputs(dims, pts):
+    """The probe's seeding: default_rng(3), standard-normal weights and D⁻¹,
+    coef 0.37, the scale uniform in [0.5, 1.5)."""
+    nd = len(dims)
+    rng = np.random.default_rng(3)
+    offs = tuple(o for o in itertools.product((-1, 0, 1), repeat=nd)
+                 if pts == 3 ** nd or sum(map(abs, o)) <= 1)
+    W = rng.standard_normal((len(offs),) + dims).astype(F32)
+    d = rng.standard_normal(dims).astype(F32)
+    cdims = tuple(-(-x // 3) for x in dims)
+    sc = (rng.random(cdims) + 0.5).astype(F32)
+    return offs, W, d, F32(0.37), cdims, sc
+
+
+def _jax_stage_outputs(dims, pts):
+    """The JAX package's jitted bucketed product run three times, each with
+    one stage's output as an extra result: those outputs, after checking
+    that the coarse weights stay the product's own."""
+    offs, W, d, coef, cdims, sc = _bucketed_inputs(dims, pts)
+    nd, b = len(dims), 3
+    whole = np.asarray(jds._jit_bucketed(JStencil(jnp.asarray(W), offs, dims), jnp.asarray(d),
+                                         jnp.asarray(coef), cdims, b, jnp.asarray(sc)).weights)
+    outs = []
+    for want in range(3):
+        def f(w, d_inv, c, scale, want=want):
+            A = JStencil(w, offs, dims)
+            rA = tuple(max(abs(o[i]) for o in offs) for i in range(nd))
+            boxes = [tuple((0, 0) for _ in range(nd))] + [
+                jds._cum_box(tuple(k * r for r in rA), b) for k in (1, 2, 3)]
+            zero = offs.index((0,) * nd)
+            s_pl = [-c * d_inv * A.weights[i] for i in range(len(offs))]
+            s_pl[zero] = s_pl[zero] + 1.0
+            st_pl = [-c * A.weights[i] * jds._shift_field(d_inv, offs[i], dims)
+                     for i in range(len(offs))]
+            st_pl[zero] = st_pl[zero] + 1.0
+            X = jnp.ones((1,) * nd + tuple(dims), w.dtype)
+            stages = []
+            for fac, bi, bo in zip((s_pl, list(A.weights), st_pl), boxes, boxes[1:]):
+                X = jds._bucket_stage(fac, offs, X, bi, bo, b, dims)
+                stages.append(X)
+            pool = jax.lax.reduce_window(
+                jnp.pad(X, [(0, 0)] * nd + [(0, cdims[i] * b - dims[i]) for i in range(nd)]),
+                jnp.zeros((), w.dtype), jax.lax.add, (1,) * nd + (b,) * nd,
+                (1,) * nd + (b,) * nd, "VALID")
+            out_offs = sorted(itertools.product(*[range(lo, hi + 1) for lo, hi in boxes[3]]))
+            r = [max(abs(o[i]) for o in out_offs) for i in range(nd)]
+            sp = jnp.pad(scale, [(r[i], r[i]) for i in range(nd)])
+            col = jnp.stack([jax.lax.slice(sp, [r[i] + o[i] for i in range(nd)],
+                                           [r[i] + o[i] + cdims[i] for i in range(nd)])
+                             for o in out_offs])
+            planes = pool.reshape((len(out_offs),) + tuple(cdims)) * scale[None] * col
+            return planes, stages[want]
+        planes, out = jax.jit(f)(jnp.asarray(W), jnp.asarray(d), jnp.asarray(coef),
+                                 jnp.asarray(sc))
+        same = np.array_equal(np.asarray(planes).view(np.int32), whole.view(np.int32))
+        outs.append((np.asarray(out), same))
+    return outs
+
+
+def _solve_stage(dims, pts, s, X, want, max_changes=12):
+    """Per-term kind changes that bring the port's stage ``s`` (fed X) to
+    ``want``: list of ((off, δ), kind or (kind, R)), and the floats left."""
+    from parallel_amg_tpu_torch.ops import bucket_stage
+    from parallel_amg_tpu_torch.ops.stencil import shift_nd
+
+    offs, W, d, coef, cdims, sc = _bucketed_inputs(dims, pts)
+    A = Stencil(torch.from_numpy(W), offs, dims)
+    factors, boxes = ds.bucket_stage_factors(A, torch.from_numpy(d), torch.tensor(coef), 3)
+    F, nd = factors[s], len(dims)
+    table = bucket_stage.terms(offs, boxes[s], boxes[s + 1], 3)
+    out_shape = tuple(h - l + 1 for l, h in boxes[s + 1])
+    Xt = torch.from_numpy(np.array(X))
+    want = want.view(np.int32)
+    ops = [(torch.where(bucket_stage.residue_mask(dims, t.off, t.delta, 3, "cpu"), F[t.k],
+                        0.0).reshape((1,) * nd + dims), shift_nd(Xt, t.off, dims)[t.src])
+           for t in table]
+    cols = torch.arange(dims[-1])
+
+    def one(k, fm, xs, y):
+        return fm * xs if k == 0 else (
+            ordered_sum.fma_plain(fm, xs, y) if k == 1 else y + fm * xs)
+
+    def run(kinds):
+        Y = torch.zeros(out_shape + dims)
+        for t, (fm, xs), k in zip(table, ops, kinds):
+            km, kt, R = (k, k, 0) if isinstance(k, int) else (t.kind, k[0], k[1])
+            y = one(km, fm, xs, Y[t.tgt])
+            if kt != km:
+                y = torch.where(cols >= R, one(kt, fm, xs, Y[t.tgt]), y)
+            Y[t.tgt] = y
+        return Y.numpy().view(np.int32)
+
+    def exact(kind, f, x, y):
+        if kind == 0:
+            return F32(f * x)
+        if kind == 1:  # through fma_plain: Fraction would lose the sign of 0
+            return ordered_sum.fma_plain(*(torch.tensor(v) for v in (f, x, y))).numpy()[()]
+        return F32(y + F32(f * x))
+
+    kinds = [t.kind for t in table]
+    cur = int((run(kinds) != want).sum())
+    changes = []
+    for _ in range(max_changes):
+        if not cur:
+            break
+        y = run(kinds)
+        votes = {}
+        for r in [tuple(map(int, v)) for v in np.argwhere(y != want)][:200]:
+            box, p = r[:nd], r[nd:]
+            seq = []
+            for i, t in enumerate(table):
+                if not all(g.start <= c < g.stop for g, c in zip(t.tgt, box)):
+                    continue
+                m = all((p[a] % 3 + t.off[a]) // 3 == t.delta[a] for a in range(nd))
+                sb = tuple(c - g.start + q.start for c, g, q in zip(box, t.tgt, t.src))
+                q = tuple(a + o for a, o in zip(p, t.off))
+                x = X[sb + q] if all(0 <= v < n for v, n in zip(q, dims)) else F32(0)
+                seq.append((i, F[t.k].numpy()[p] if m else F32(0), x))
+            for i, _, _ in seq:
+                for k in (0, 2):
+                    acc = F32(0)
+                    for j, f, x in seq:
+                        kk = kinds[j] if isinstance(kinds[j], int) else (
+                            kinds[j][0] if p[-1] >= kinds[j][1] else table[j].kind)
+                        acc = exact(k if j == i else kk, f, x, acc)
+                    if acc.view(np.int32) == want[r] and kinds[i] != k:
+                        votes.setdefault((i, k), set()).add(p[-1])
+        best = None
+        for (i, k), cs in sorted(votes.items(), key=lambda kv: -len(kv[1]))[:15]:
+            for opt in [k] + ([(k, R) for R in sorted(cs)] if k == 2 else []):
+                trial = list(kinds)
+                trial[i] = opt
+                n_left = int((run(trial) != want).sum())
+                if best is None or n_left < best[0]:
+                    best = (n_left, i, opt)
+        if best is None or best[0] >= cur:
+            break
+        cur, i, opt = best
+        kinds[i] = opt
+        changes.append(((table[i].off, table[i].delta), opt))
+    return changes, cur
+
+
+def probe_bucketed_solve(shapes=None):
+    from parallel_amg_tpu_torch.ops import bucket_stage
+
+    shapes = shapes or [(dims, pts) for (nd, pts, dims) in bucket_stage._DEPARTURES]
+    for dims, pts in shapes:
+        outs = _jax_stage_outputs(dims, pts)
+        X = np.ones((1,) * len(dims) + dims, F32)
+        orders = bucket_stage.product_orders(_bucketed_inputs(dims, pts)[0], dims, 3)
+        for s, (want, same) in enumerate(outs):
+            changes, left = _solve_stage(dims, pts, s, X, want)
+            print(dims, pts, f"stage {s + 1}: product unchanged with the extra result {same}, "
+                  f"changes {changes}, floats left {left}; product_orders {orders[s]}",
+                  flush=True)
+            X = want
 
 
 def probe_norms():
@@ -289,8 +456,15 @@ def main():
     ap = argparse.ArgumentParser()
     for name in ("dot", "pool", "rsqrt", "bucketed", "norms"):
         ap.add_argument(f"--{name}", action="store_true")
+    ap.add_argument("--bucketed-solve", nargs="*", default=None, metavar="DIMSxPOINTS",
+                    help="e.g. 8x7x6x27 (the last number the points)")
     args = ap.parse_args()
     torch.set_num_threads(2)
+    if args.bucketed_solve is not None:
+        shapes = [(tuple(int(v) for v in a.split("x")[:-1]), int(a.split("x")[-1]))
+                  for a in args.bucketed_solve]
+        probe_bucketed_solve(shapes or None)
+        return
     chosen = [n for n in ("dot", "pool", "rsqrt", "bucketed", "norms")
               if getattr(args, n)] or ["dot", "pool", "rsqrt", "bucketed", "norms"]
     for name in chosen:

@@ -68,21 +68,25 @@ def _bits(t):
     return t.contiguous().view(torch.int32)
 
 
-def _emulate_kernel(F, X, rows, src, box_out, dims, skip_masked=False):
+def _emulate_kernel(F, X, rows, src, box_out, dims, skip_masked=False, X_alt=None):
     """The kernel's walk on the CPU: every term in order, its mask from the
     residues (lo ≤ p mod b < lo + b on every axis) and its factor, applied
-    to every output box whose source box ``src`` names, X read at p + off (0
-    off the grid); with ``skip_masked`` a masked-off term is skipped (the
-    wrong design)."""
+    to every output box whose source box ``src`` names, X (``X_alt`` where
+    the term's alt is set) read at p + off (0 off the grid), as a rounded
+    product (kind 0), a fused multiply-add (1) or a rounded product added
+    (2), the tail kind on the last axis from the term's tail on; with
+    ``skip_masked`` a masked-off term is skipped (the wrong design)."""
     nd = len(dims)
     out_shape = tuple(h - l + 1 for l, h in box_out)
     n_out = int(np.prod(out_shape))
     Xf = X.reshape((-1,) + tuple(dims))
+    Xa = None if X_alt is None else X_alt.reshape((-1,) + tuple(dims))
+    cols = torch.arange(dims[-1])
     y = [torch.zeros(dims) for _ in range(n_out)]
-    for row, boxes in zip(rows, src):
-        kind, k = row[0], row[1]
-        off, lo = row[2 + 3 - nd:5], row[5 + 3 - nd:8]
-        assert all(v == 0 for v in row[2:2 + 3 - nd] + row[5:5 + 3 - nd])
+    for row, boxes in zip(rows.tolist(), src.tolist()):
+        kind, tail_kind, tail, alt, k = row[:5]
+        off, lo = row[5 + 3 - nd:8], row[8 + 3 - nd:11]
+        assert all(v == 0 for v in row[5:5 + 3 - nd] + row[8:8 + 3 - nd]) and row[11] == 0
         assert len(boxes) % bucket_stage.BOX_GROUP == 0 and all(v == -1 for v in boxes[n_out:])
         mask = torch.ones(dims, dtype=torch.bool)
         for i, n in enumerate(dims):
@@ -92,14 +96,41 @@ def _emulate_kernel(F, X, rows, src, box_out, dims, skip_masked=False):
         for o in range(n_out):
             if boxes[o] < 0:
                 continue
-            x = shift_nd(Xf[boxes[o]], off, dims)
-            if kind == 0:
-                y[o] = f * x
-            elif skip_masked:
-                y[o] = torch.where(mask, ordered_sum.fma_plain(f, x, y[o]), y[o])
-            else:
-                y[o] = ordered_sum.fma_plain(f, x, y[o])
+            x = shift_nd((Xa if alt else Xf)[boxes[o]], off, dims)
+            ys = {0: f * x, 1: ordered_sum.fma_plain(f, x, y[o]), 2: y[o] + f * x}
+            new = torch.where(cols >= tail, ys[tail_kind], ys[kind])
+            if skip_masked:
+                new = torch.where(mask, new, y[o])
+            y[o] = new
     return torch.stack(y).reshape(out_shape + tuple(dims))
+
+
+def _loop_kernel_table(table, box_in, box_out, b):
+    """The kernel's table as it was built before (frozen): Python loops over
+    the terms and their target boxes, per term (kind, k, off, lo) padded to
+    three axes, and the source box of every output box."""
+    nd = len(box_out)
+    pad = (0,) * (3 - nd)
+    in_shape = tuple(h - l + 1 for l, h in box_in)
+    out_shape = tuple(h - l + 1 for l, h in box_out)
+    n_cols = -(-int(np.prod(out_shape)) // bucket_stage.BOX_GROUP) * bucket_stage.BOX_GROUP
+
+    def linear(idx, shape):
+        out = 0
+        for i, n in zip(idx, shape):
+            out = out * n + i
+        return out
+
+    rows, src = [], []
+    for t in table:
+        lo = tuple(d * b - c for d, c in zip(t.delta, t.off))
+        rows.append((t.kind, t.k) + pad + tuple(t.off) + pad + lo)
+        cols = [-1] * n_cols
+        for o in itertools.product(*[range(g.start, g.stop) for g in t.tgt]):
+            s = tuple(c - g.start + r.start for c, g, r in zip(o, t.tgt, t.src))
+            cols[linear(o, out_shape)] = linear(s, in_shape)
+        src.append(cols)
+    return rows, src
 
 
 @pytest.mark.parametrize("dims,kind", CASES)
@@ -125,10 +156,66 @@ def test_kernel_table_walk_equals_plain(dims, kind, s):
     F, X, offs, box_in, box_out = _stages(dims, kind)[s]
     table = bucket_stage.terms(offs, box_in, box_out, B)
     rows, src = bucket_stage.kernel_table(table, box_in, box_out, B)
-    assert all(len(r) == bucket_stage.TERM_INTS for r in rows) and len(src) == len(rows)
+    assert rows.shape == (len(table), bucket_stage.TERM_INTS) and len(src) == len(rows)
     plain = bucket_stage.stage_plain(F, offs, X, box_in, box_out, B, dims)
     got = _emulate_kernel(F, X, rows, src, box_out, dims)
     assert torch.equal(_bits(got), _bits(plain))
+
+
+@pytest.mark.parametrize("dims,kind", CASES)
+@pytest.mark.parametrize("s", [0, 1, 2])
+def test_kernel_table_equals_loop_built(dims, kind, s):
+    """``kernel_table`` (numpy index arithmetic over the output boxes) gives
+    the loop-built table's kinds, planes, offsets, residue windows and
+    source boxes, with no tail and no alt read in the stage order."""
+    _, _, offs, box_in, box_out = _stages(dims, kind)[s]
+    table = bucket_stage.terms(offs, box_in, box_out, B)
+    rows, src = bucket_stage.kernel_table(table, box_in, box_out, B)
+    old_rows, old_src = _loop_kernel_table(table, box_in, box_out, B)
+    assert rows.dtype == np.int32 and src.dtype == np.int32
+    assert rows[:, [0, 4, 5, 6, 7, 8, 9, 10]].tolist() == [list(r) for r in old_rows]
+    assert (rows[:, 1] == 2).all() and (rows[:, 2] == bucket_stage.NO_TAIL).all()
+    assert (rows[:, 3] == 0).all() and (rows[:, 11] == 0).all()
+    assert src.tolist() == old_src
+
+
+# Each kind of departure at a grid of CASES with its stencil: the stage
+# orders of ``bucket_stage._DEPARTURES`` at 11 × 10 (the centre rounded; 9
+# points: the first two rounded, a sliced update rounded from column 8) and
+# 8 × 7 × 6 (27 points: a stored product, sliced updates rounded from
+# columns 4 and 5), and an alt read and output on 7 × 6 × 5.
+_ALT = bucket_stage.Order(alt=((0, 0, -1), (0, 0, 1)))
+DEPARTURE_CASES = [((11, 10), "star", (2, 5, (11, 10))), ((10, 9), "box", (2, 9, (11, 10))),
+                   ((8, 7, 6), "box", (3, 27, (8, 7, 6))), ((7, 6, 5), "star", None)]
+
+
+def _orders(key):
+    return (bucket_stage.Order(), bucket_stage.Order(), _ALT) if key is None else \
+        bucket_stage._DEPARTURES[key]
+
+
+@pytest.mark.parametrize("dims,kind,key", DEPARTURE_CASES)
+@pytest.mark.parametrize("s", [0, 1, 2])
+def test_kernel_table_walk_equals_plain_departures(dims, kind, key, s):
+    """With a departing order (rounded products, tails on the last axis,
+    stored products, alt reads), the kernel's table walked as the kernel
+    walks it gives the plain version's bits, and the plain version's alt
+    output is its Y with the last update's product added rounded."""
+    F, X, offs, box_in, box_out = _stages(dims, kind)[s]
+    order = _orders(key)[s]
+    X_alt = X + 0.25 if order.alt else None
+    table = bucket_stage.terms(offs, box_in, box_out, B, order)
+    rows, src = bucket_stage.kernel_table(table, box_in, box_out, B)
+    plain, plain_alt = bucket_stage.stage_plain(F, offs, X, box_in, box_out, B, dims, order,
+                                                X_alt, alt_out=True)
+    got = _emulate_kernel(F, X, rows, src, box_out, dims, X_alt=X_alt)
+    assert torch.equal(_bits(got), _bits(plain))
+    last = rows.copy()
+    last[-1, 0] = last[-1, 1] = 2
+    got_alt = _emulate_kernel(F, X, last, src, box_out, dims, X_alt=X_alt)
+    assert torch.equal(_bits(got_alt), _bits(plain_alt))
+    plain_table = bucket_stage.terms(offs, box_in, box_out, B)
+    assert (table != plain_table) == (order != bucket_stage.Order())
 
 
 @pytest.mark.parametrize("dims,kind", [((7, 6, 5), "star"), ((10, 9), "box")])
@@ -201,3 +288,43 @@ def test_kernel_bit_equal_to_plain_cuda(dims, kind):
         seq = earlier_sequence(list(Fc), offs, Xc, box_in, box_out, B, dims)
         assert torch.equal(_bits(got.cpu()), _bits(plain))
         assert torch.equal(_bits(seq.cpu()), _bits(plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,kind,key", DEPARTURE_CASES)
+def test_kernel_departures_bit_equal_to_plain_cuda(dims, kind, key):
+    """The kernel with each kind of departure (and the alt read and output)
+    against the plain version, every stage, one launch a stage."""
+    if not torch.cuda.is_available():
+        pytest.skip("ordered_bucket_stage is CUDA C++ and needs a CUDA card")
+    for (F, X, offs, box_in, box_out), order in zip(_stages(dims, kind), _orders(key)):
+        X_alt = X + 0.25 if order.alt else None
+        plain = bucket_stage.stage(F, offs, X, box_in, box_out, B, dims, order, X_alt,
+                                   alt_out=True)
+        before = ordered_sum.LAUNCHES["ordered_bucket_stage"]
+        got = bucket_stage.stage(F.cuda(), offs, X.cuda(), box_in, box_out, B, dims, order,
+                                 None if X_alt is None else X_alt.cuda(), alt_out=True)
+        assert ordered_sum.LAUNCHES["ordered_bucket_stage"] == before + 1
+        for g, p in zip(got, plain):
+            assert torch.equal(_bits(g.cpu()), _bits(p))
+
+
+@pytest.mark.parametrize("dims,kind,warns", [((128, 128, 128), "star", False),
+                                             ((52, 52, 52), "box", False),
+                                             ((13, 12, 11), "star", False),
+                                             ((9, 9, 9), "star", True),
+                                             ((17, 5), "box", True)])
+def test_product_orders_warn_where_not_read(dims, kind, warns):
+    """``product_orders`` gives the read departures (or none) at the grids
+    read, and warns and takes the stage order elsewhere."""
+    import warnings
+
+    offs = _offsets(len(dims), kind)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        orders = bucket_stage.product_orders(offs, dims, B)
+    assert len(orders) == 3 and bool(caught) == warns
+    if warns:
+        assert "not read" in str(caught[0].message)
+        assert orders == (bucket_stage.Order(),) * 3
+    assert orders == bucket_stage._DEPARTURES.get((len(dims), len(offs), dims), orders)

@@ -147,9 +147,10 @@ def _case_slab(rng, dims):
     return mine.weights, theirs
 
 
-def _case_bucketed(rng, dims):
-    """The bucketed (transfer-first) product of a random 7-point level."""
-    st, jst, d, coef = _smooth_inputs(rng, dims)
+def _case_bucketed(rng, dims, kind="star"):
+    """The bucketed (transfer-first) product of a random level, a star (5 or
+    7 points) or a box (9 or 27 points) on ``dims`` (2 or 3 axes)."""
+    st, jst, d, coef = _smooth_inputs(rng, dims, kind)
     b = 3
     cdims = tuple(-(-n // b) for n in dims)
     scale = rng.uniform(0.2, 1.0, size=cdims).astype(np.float32)
@@ -159,6 +160,15 @@ def _case_bucketed(rng, dims):
                                jnp.asarray(scale))
     assert mine.offsets == theirs.offsets
     return mine.weights, theirs.weights
+
+
+# Grids where the JAX package's whole jitted product departs from the stage
+# order (``bucket_stage._DEPARTURES``), held live: (dims, kind).
+BUCKETED_DEPARTURES = {
+    "bucketed_2d_5pt_11x10": ((11, 10), "star"),
+    "bucketed_2d_9pt_11x10": ((11, 10), "box"),
+    "bucketed_3d_7pt_13x12x11": ((13, 12, 11), "star"),
+}
 
 
 def _case_dense_level(rng, dims):
@@ -210,6 +220,18 @@ def test_product_bits_equal_jax(name):
     fn, dims = CASES[name]
     rng = np.random.default_rng(sorted(CASES).index(name) + 11)
     mine, theirs = fn(rng, dims)
+    _assert_bits(mine.numpy(), theirs)
+
+
+@pytest.mark.parametrize("name", sorted(BUCKETED_DEPARTURES))
+def test_bucketed_departures_equal_jax(name):
+    """The bucketed product at grids where XLA rounds some products before
+    adding them (the centre's and the first two whole-box ones, a sliced
+    update's scalar remainder): the port's ``product_orders`` gives the JAX
+    package's bits."""
+    dims, kind = BUCKETED_DEPARTURES[name]
+    rng = np.random.default_rng(sorted(BUCKETED_DEPARTURES).index(name) + 41)
+    mine, theirs = _case_bucketed(rng, dims, kind)
     _assert_bits(mine.numpy(), theirs)
 
 
