@@ -50,6 +50,21 @@
    plain version's and the bound.  The CPU references of config #3 (its
    levels' λ and its 128³ levels) start in host processes after these
    timings; a line ``host_reference`` for each reference says when it ran.
+   Then poisson2d: 2-D 5-point Poisson 1024² on the structured setup
+   (block SA b=3, Chebyshev, n_coarse_max=64) on the card, its launches (one
+   ``ordered_stencil_matvec`` an iteration of every level's power
+   iteration, the 2-D norms through ``ordered_sum_lanes``), every level
+   held against the JAX package's CPU record
+   (artifacts/poisson2d_jax_levels.json, line ``poisson2d_vs_jax_record``)
+   and against the port's CPU run of the same setup in a host process (line
+   ``poisson2d_vs_cpu``, with its PCG count); amg_pcg to 1e-6 with the
+   record's iteration count and the float64 true residual held to 1e-6 +
+   (iters + 1)·floor; the setup's ordered sums on the card against their
+   plain version, the largest 2-D norm in (vf, 1, 0) lanes timed
+   (``ordered_sum_lanes`` case ``poisson2d_norm``); and
+   ``ordered_stencil_matvec`` on three 2-D plans (1000 × 6 with 9 points,
+   the centre rounded on rows 0–991; 1000 × 9 with 9 points, the last
+   column's chain swapped; 1024 × 8 with 5 points, every row).
 6. Kernel B2 (flatdia_spmv) against its plain version on a random 7-point
    128³ stencil, config #3's level-1 coarse stencil, config #2's widest DIA
    level and a tiny grid whose flattened planes alias, in float32 and
@@ -624,6 +639,57 @@ def hold_jax_record(h, dims, key, label):
     if not same:
         raise AssertionError(f"{label}: a level differs from the JAX package's "
                              f"record ({key}): {rows}")
+
+
+POISSON2D_N = 1024  # the 2-D record's grid (artifacts/poisson2d_jax_levels.json)
+
+
+def poisson2d_rhs(n):
+    """b of the 2-D Poisson solve: ``np.random.default_rng(0).normal``,
+    float32, on the n² grid (scripts/jax_poisson2d_levels.py's)."""
+    import numpy as np
+
+    return np.random.default_rng(0).normal(size=n * n).astype(np.float32).reshape(n, n)
+
+
+def cpu_poisson2d(n, config):
+    """(the levels' ``level_digests``, PCG iterations to 1e-6, setup seconds)
+    of the 2-D Poisson n² structured setup and its solve on the CPU."""
+    import torch
+
+    import parallel_amg_tpu_torch as ptt
+    from parallel_amg_tpu_torch.problems import poisson_stencil
+    from parallel_amg_tpu_torch.utils.metrics import level_digests
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    A = poisson_stencil((n, n), device="cpu")
+    h = ptt.setup(A, config, device="cpu")
+    secs = time.perf_counter() - t0
+    res = ptt.amg_pcg(A, h, torch.from_numpy(poisson2d_rhs(n)), tol=1e-6)
+    return level_digests(h), int(res.iters), secs
+
+
+def hold_poisson2d_record(h, n, label):
+    """The 2-D Poisson levels of hierarchy ``h`` on the n² grid against the
+    JAX package's CPU record (artifacts/poisson2d_jax_levels.json, written by
+    scripts/jax_poisson2d_levels.py), line ``poisson2d_vs_jax_record``;
+    returns the record.  A mismatch, or a grid other than the record's,
+    raises."""
+    from parallel_amg_tpu_torch.utils.metrics import compare_levels, level_digests
+
+    with open(os.path.join(HERE, "artifacts", "poisson2d_jax_levels.json")) as f:
+        rec = json.load(f)
+    if n != rec["n"]:
+        raise AssertionError(f"{label}: grid {n}², the JAX record's is {rec['n']}²")
+    rows, same = compare_levels(rec["levels"], level_digests(h))
+    emit("poisson2d_vs_jax_record", setup=label, equal=same, levels=rows,
+         jax=rec["jax"], jaxlib=rec["jaxlib"], record_cpu=rec["cpu"],
+         jax_pcg_iterations=rec["pcg_iterations"])
+    if not same:
+        raise AssertionError(f"{label}: a level differs from the JAX package's record: "
+                             f"{rows}")
+    return rec
 
 
 def nvidia_smi():
@@ -1205,7 +1271,8 @@ def scaled_stencil_csr(W, offsets, dims, row_scale):
     return torch.sparse_csr_tensor(crow, cols[keep], vals[keep], (n, n))
 
 
-def ordered_stencil_case(c, label, A, d_inv, gen, main=False, want_rows=None):
+def ordered_stencil_case(c, label, A, d_inv, gen, main=False, want_rows=None,
+                         want_swap=None):
     """``ordered_stencil_matvec`` on the power iterations' matvec of A (a
     Stencil with its D⁻¹, or a ShardedStencil with its D⁻¹ PGrid) at a
     random x, against its plain version and against the ordered-sum
@@ -1214,7 +1281,8 @@ def ordered_stencil_case(c, label, A, d_inv, gen, main=False, want_rows=None):
     sequence's device ms in turns, the plain version's, the bound, and one
     cuSPARSE CSR product by the rows of D⁻¹A (``library_ms``: the same
     function, its products in another order).  ``want_rows``: the rows of
-    the centre unfused that the plan must carry."""
+    the centre unfused that the plan must carry; ``want_swap``: the first
+    column whose chain starts the other way round (a 2-D plan)."""
     import torch
 
     from parallel_amg_tpu_torch.amg import device_setup
@@ -1227,7 +1295,7 @@ def ordered_stencil_case(c, label, A, d_inv, gen, main=False, want_rows=None):
         weights = A.weights
     else:
         plan = device_setup.power_plan(A, d_inv)
-        weights = [A.weights]
+        weights = plan.weights  # a 2-D grid's on its (1, n0, n1) view
     xs = [torch.rand(W.shape[1:], generator=gen, device=W.device) - 0.5 for W in weights]
     halos = (exchange.halos(xs, plan.h, 0) if plan.h else [(None, None)] * len(xs))
     before = ordered_sum.LAUNCHES["ordered_stencil_matvec"]
@@ -1262,7 +1330,8 @@ def ordered_stencil_case(c, label, A, d_inv, gen, main=False, want_rows=None):
         lib_ms, lib_err = None, "parts on more than one card"
     ms = statistics.median(kernel_ms)
     fields = dict(points=K, parts=len(weights), slab=list(plan.slab), split=plan.split,
-                  unfused_rows=plan.rows, halo_terms=len(plan.corr), launches=launched,
+                  unfused_rows=plan.rows, swap_from=plan.swap_from,
+                  halo_terms=len(plan.corr), launches=launched,
                   cards=n_cards,
                   bit_equal_plain=equal_plain, bit_equal_earlier_sequence=equal_seq,
                   ms=ms, ms_in_turns=kernel_ms, earlier_sequence_ms=seq_ms, plain_ms=plain_ms,
@@ -1271,11 +1340,13 @@ def ordered_stencil_case(c, label, A, d_inv, gen, main=False, want_rows=None):
                   copy_bound_ms=c.copy_bound_ms(n_bytes))
     c.emit("kernel", name="ordered_stencil_matvec", case=label, **fields)
     if not (equal_plain and equal_seq and finite and launched == n_cards
-            and (want_rows is None or plan.rows == want_rows)):
+            and (want_rows is None or plan.rows == want_rows)
+            and (want_swap is None or plan.swap_from == want_swap)):
         raise AssertionError(f"ordered_stencil_matvec {label}: bit-equal to plain "
                              f"{equal_plain}, to the earlier sequence {equal_seq}, finite "
                              f"{finite}, {launched} launches for {n_cards} card(s), "
-                             f"unfused rows {plan.rows} (want {want_rows})")
+                             f"unfused rows {plan.rows} (want {want_rows}), swapped from "
+                             f"column {plan.swap_from} (want {want_swap})")
     r = c.results["ordered_stencil_matvec"]
     r.setdefault("cases", {})[label] = {k: fields[k] for k in (
         "ms", "earlier_sequence_ms", "plain_ms", "library_ms", "bound_ms", "launches")}
@@ -2171,6 +2242,7 @@ def main():
         load_hierarchy,
         save_hierarchy,
     )
+    from parallel_amg_tpu_torch.utils.metrics import level_digests
     from parallel_amg_tpu_torch.utils.tree import tensors
 
     dev = torch.device("cuda")
@@ -2431,6 +2503,109 @@ def main():
                                     l.d_inv.cpu().numpy()) for l in h3.levels],
                                   cfg3.lambda_power_iters), hold_lams3)
     galerkin_order_phase(kctx, h3)
+
+    # -- poisson2d: 2-D Poisson 1024² on the structured setup ------------------
+    # the JAX package's levels (artifacts/poisson2d_jax_levels.json) and the
+    # port's CPU run of the same setup; its PCG; the 2-D norms' lanes kernels
+    # and the 2-D matvec's rows and swapped last column
+    n2d = POISSON2D_N
+    cfg2d = ptt.AMGConfig(coarsening="sa", aggregate="block", block_size=3,
+                          smoother="chebyshev", n_coarse_max=64, on_device_setup=True)
+    A2d = poisson_stencil((n2d, n2d))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    h2d = ptt.setup(A2d, cfg2d)
+    torch.cuda.synchronize()
+    setup2d_s = time.perf_counter() - t0
+    launches_setup2d = {k: v for k, v in ordered_sum.LAUNCHES.items() if v}
+    levels2d = [{"dims": list(l.A.dims), "points": l.A.n_points, "lam_max": l.lam_max,
+                 "product_path": (device_setup.select_product_path(l.A, cfg2d)
+                                  if l.P is not None else None)} for l in h2d.levels]
+    emit("poisson2d_setup", problem=f"poisson_stencil(({n2d}, {n2d}))", seconds=setup2d_s,
+         levels=levels2d, launches=launches_setup2d,
+         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if launches_setup2d.get("ordered_stencil_matvec") != (cfg2d.lambda_power_iters
+                                                           * h2d.n_levels):
+        raise AssertionError(f"poisson2d: {launches_setup2d}, want "
+                             f"{cfg2d.lambda_power_iters} ordered_stencil_matvec a level")
+    if not launches_setup2d.get("ordered_sum_lanes"):
+        raise AssertionError(f"poisson2d: no 2-D norm through the lanes kernel: "
+                             f"{launches_setup2d}")
+    rec2d = hold_poisson2d_record(h2d, n2d, "poisson2d_1024^2")
+    digests2d = level_digests(h2d)
+
+    def hold_2d_cpu(result):
+        cpu_levels, cpu_iters, cpu_s = result
+        from parallel_amg_tpu_torch.utils.metrics import compare_levels
+
+        rows, same = compare_levels(cpu_levels, digests2d)
+        emit("poisson2d_vs_cpu", equal=same, levels=rows, cpu_pcg_iterations=cpu_iters,
+             cpu_setup_s=cpu_s)
+        if not same or cpu_iters != pcg2d_iters:
+            raise AssertionError(f"poisson2d: the card's levels or PCG count ({pcg2d_iters}) "
+                                 f"differ from the CPU's ({cpu_iters}): {rows}")
+
+    on_host(cpu_poisson2d, (n2d, cfg2d), hold_2d_cpu)
+    b2d = torch.from_numpy(poisson2d_rhs(n2d)).to(dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res2d = ptt.amg_pcg(A2d, h2d, b2d, tol=1e-6, maxiter=100)
+    torch.cuda.synchronize()
+    solve2d_s = time.perf_counter() - t0
+    launches_pcg2d = {**spmv_counts(), **{k: v for k, v in ordered_sum.LAUNCHES.items()
+                                          if v}}
+    pcg2d_iters = int(res2d.iters)
+    b64 = b2d.double()
+
+    def true_rel_2d(x):
+        r = b64 - A2d._matmat_plain(x.double()[..., None])[..., 0]
+        return float(torch.linalg.norm(r) / torch.linalg.norm(b64))
+
+    true2d = true_rel_2d(res2d.x)
+    # float32 storage alone: a float64 solve to 1e-8 rounded to float32
+    x_mp = ptt.amg_pcg_mp(None, h2d, b2d, tol=1e-8).x
+    floor2d = true_rel_2d(x_mp.reshape(n2d, n2d).float())
+    limit2d = 1e-6 + (pcg2d_iters + 1) * floor2d
+    emit("poisson2d_pcg", pcg_iters=pcg2d_iters, jax_pcg_iters=rec2d["pcg_iterations"],
+         converged=res2d.converged, solve_s=solve2d_s, true_rel_residual=true2d,
+         f32_rounding_floor=floor2d, true_rel_residual_limit=limit2d,
+         launches=launches_pcg2d,
+         residual_history=res2d.residual_history[:pcg2d_iters + 1].cpu().tolist())
+    if not (res2d.converged and pcg2d_iters == rec2d["pcg_iterations"]
+            and true2d <= limit2d):
+        raise AssertionError(f"poisson2d PCG: {pcg2d_iters} iterations (the JAX package's "
+                             f"{rec2d['pcg_iterations']}), true residual {true2d} "
+                             f"(limit {limit2d})")
+    del b64, x_mp
+    # the 2-D norms' sums on the card against their plain version, one input
+    # of each shape; the longest new lanes schedule timed
+    _, captured2d = capture_row_sums(lambda: ptt.setup(A2d, cfg2d))
+    by_kernel2d, equal2d = ordered_sum_check(kctx, captured2d, "poisson2d_1024^2_setup")
+    if not equal2d:
+        raise AssertionError("poisson2d: an ordered sum differs from its plain version")
+    rows_lanes2d = [(name, args) for name, args in captured2d
+                    if name in ("row_sum", "row_dot")
+                    and tuple(args[-1] or ()) in ((2, 1, 0), (4, 1, 0), (8, 1, 0))]
+    if not rows_lanes2d:
+        raise AssertionError("poisson2d: no 2-D norm took a (vf, 1, 0) lanes schedule")
+    name, args = max(rows_lanes2d, key=lambda t: t[1][0].numel())
+    time_ordered_sum(kctx, "ordered_sum_lanes", name, args,
+                     f"poisson2d 1024², the 2-D norm's rows in {args[-1][0]} lanes, "
+                     f"{list(args[0].shape)}", key="poisson2d_norm")
+    del captured2d, by_kernel2d, rows_lanes2d
+    # the 2-D matvec's rounded centre rows and swapped last column
+    g2d = torch.Generator(device=dev).manual_seed(21)
+    for dims_c, pts_c, rows_c, swap_c in (((1000, 6), 9, 992, None), ((1000, 9), 9, 0, 8),
+                                          ((1024, 8), 5, 1024, None)):
+        w_c, offs_c = seeded_stencil(dims_c, pts_c, 3)
+        A_c = Stencil(torch.from_numpy(w_c).to(dev), offs_c, dims_c)
+        ordered_stencil_case(kctx, f"plan2d_{dims_c[0]}x{dims_c[1]}_{pts_c}pt", A_c,
+                             device_setup.diag_inverse(A_c), g2d, want_rows=rows_c,
+                             want_swap=swap_c)
+    del w_c, A_c, h2d, A2d, b2d, res2d
 
     # -- kernel B2: flatdia_spmv ---------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -4256,6 +4431,8 @@ def main():
                 "ordered_stencil_matvec":
                     info468["ordered_sum_launches"]["ordered_stencil_matvec"]}
     by_path = {"config3_setup": launches_setup3,
+               "poisson2d_1024^2_setup": launches_setup2d,
+               "poisson2d_1024^2_pcg": launches_pcg2d,
                "config3_dist_4parts_setup": info_d3["ordered_sum_launches"],
                "config3_dist_4parts_sharded_power": info_d3["sharded_power_launches"],
                "dist_468^3_8parts_setup": info468["ordered_sum_launches"],

@@ -68,8 +68,8 @@ def power_iteration_lambda_max(A: Stencil, d_inv, iters: int, seed: int = 0):
     lam = torch.ones((), dtype=x.dtype, device=x.device)
     for _ in range(iters):
         if ordered:
-            y = ordered_stencil.matvec(plan, [x])[0]
-            nrm = ordered_sum.norm(y, structured=True)
+            y = ordered_stencil.matvec(plan, [x.reshape(plan.slab)])[0].reshape(A.dims)
+            nrm = ordered_sum.norm(y, structured=True, points=A.n_points)
         else:
             y = d_inv * A.matvec(x)
             nrm = torch.linalg.norm(y)
@@ -135,7 +135,14 @@ def eager_block_scale(counts):
 
 def power_plan(A: Stencil, d_inv) -> ordered_stencil.Plan:
     """The plan of the power iteration's matvec D⁻¹·A·x on one device, the
-    centre unfused on the rows ``_unfused_centre`` gives."""
+    centre unfused on the rows ``_unfused_centre`` gives; a 2-D grid's on
+    its (1, n0, n1) view (``ordered_stencil.plan_2d``), whose slab the
+    matvec takes x in."""
+    if len(A.dims) == 2:
+        A3 = Stencil(A.weights[:, None], tuple((0,) + tuple(o) for o in A.offsets),
+                     (1,) + tuple(A.dims))
+        return ordered_stencil.Plan.one_device(
+            A3, d_inv[None], *ordered_stencil.plan_2d(A.offsets, A.dims))
     return ordered_stencil.Plan.one_device(A, d_inv, *_unfused_centre(A))
 
 

@@ -45,8 +45,11 @@
 // planes in the JAX package's order, x read as 0 off the slab on axis 0 or
 // off the grid on the other axes (that zero term is kept: it turns a -0
 // into +0); at a split position (a 7-point grid or part LLVM vectorises
-// across i1) the product is rounded and added on the rows i1 < rows that
-// its vector loop covers, fused on the rest.  Then, where the grid is split
+// across i1, or a 2-D grid, seen as (1, n0, n1), across i0) the product is
+// rounded and added on the rows i1 < rows that its vector loop covers,
+// fused on the rest; on a 2-D grid's columns i2 >= swap (the scalar last
+// column of a 9-point grid 9 columns wide) the chain's first two planes
+// are taken the other way round.  Then, where the grid is split
 // into parts, each offset with o0 != 0 in offset order adds fma(W[d][p], halo,
 // acc) on the |o0| planes at the slab's end it reaches past, from the
 // neighbor's (h, n1, n2) halo (a view of its slab on this card, or a landing
@@ -340,7 +343,7 @@ __device__ __forceinline__ void ordered_term(float (&acc)[V],
 template <int V>
 __global__ void __launch_bounds__(kBlock)
     ordered_kernel(HaloParts parts, HaloTerms terms, int chain, int split,
-                   int rows, int m0, int n1, int n2, int h) {
+                   int rows, int swap, int m0, int n1, int n2, int h) {
   const int part = blockIdx.y;
   const int plane = n1 * n2;
   const long long n = static_cast<long long>(m0) * plane;
@@ -363,7 +366,11 @@ __global__ void __launch_bounds__(kBlock)
   // the chain: every plane in the JAX package's order, 0 off the slab; the
   // centre unfused on rows i1 < rows (a thread's V points share one row)
   const int unfused = i1 < rows ? split : -1;
-  for (int t = 0; t < chain; ++t) {
+  // from column `swap` on (V = 1 there) the chain's first two terms are
+  // taken the other way round (a 2-D grid's scalar last column)
+  const bool swapped = i2 >= swap;
+  for (int u = 0; u < chain; ++u) {
+    const int t = swapped && u < 2 ? 1 - u : u;
     const int j0 = i0 + terms.o0[t];
     const int j1 = i1 + terms.o1[t];
     const float* xr = (j0 >= 0 && j0 < m0 && j1 >= 0 && j1 < n1)
@@ -500,18 +507,20 @@ extern "C" int halo_stencil_boundary(HaloBoundary parts, int m0, int n1,
 // The power iterations' y = D^-1 (A x) of every part in the table, in one
 // launch: terms[0, chain) are the chain in its order (split: the position
 // whose product is added rounded on the rows i1 < rows, fused on the rest;
-// -1 for none), terms[chain, count) the halo terms (o0 != 0, offset order;
-// none for a grid that is not split); left and right are (h, n1, n2) halos
-// or null, h <= m0.
+// -1 for none; on the columns i2 >= swap the first two terms the other way
+// round, n2 for none, which vec needs), terms[chain, count) the halo terms
+// (o0 != 0, offset order; none for a grid that is not split); left and
+// right are (h, n1, n2) halos or null, h <= m0.
 extern "C" int ordered_stencil_matvec(HaloParts parts, int m0, int n1, int n2,
                                       int h, HaloTerms terms, int chain,
-                                      int split, int rows, int vec,
+                                      int split, int rows, int swap, int vec,
                                       void* stream) {
   if (parts.count < 0 || parts.count > kMaxParts || m0 < 0 || n1 <= 0 ||
       n2 <= 0 || static_cast<long long>(n1) * n2 >= (1LL << 31) || h < 0 ||
       (m0 > 0 && h > m0) || (vec != 0 && n2 % 4 != 0) || terms.count < 0 ||
       terms.count > kMaxPoints || chain < 0 || chain > terms.count ||
-      split < -1 || split >= chain || rows < 0 || rows > n1) {
+      split < -1 || split >= chain || rows < 0 || rows > n1 || swap < 0 ||
+      swap > n2 || (swap < n2 && (vec != 0 || chain < 2))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (parts.count == 0 || m0 == 0) {
@@ -524,10 +533,10 @@ extern "C" int ordered_stencil_matvec(HaloParts parts, int m0, int n1, int n2,
                   parts.count);
   if (vec != 0) {
     ordered_kernel<4><<<grid, kBlock, 0, cs>>>(parts, terms, chain, split,
-                                               rows, m0, n1, n2, h);
+                                               rows, swap, m0, n1, n2, h);
   } else {
     ordered_kernel<1><<<grid, kBlock, 0, cs>>>(parts, terms, chain, split,
-                                               rows, m0, n1, n2, h);
+                                               rows, swap, m0, n1, n2, h);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,7 +39,7 @@
 // Row-major rows of at most 32 are staged in shared memory as above (16-byte
 // loads where the span is aligned); with
 // `planes` the operands are (len, rows) planes, read coalesced as they are;
-// vf = 1 (one chain) takes rows of any length.
+// vf = 1 (one chain) and the 2-D norms' (vf, 1, 0) take rows of any length.
 //
 // ordered_fma: out[i] = fma(a, b, c) rounded once (__fmaf_rn), the product
 // and add XLA's CPU backend contracts in an elementwise loop (the centre
@@ -956,8 +956,11 @@ extern "C" int ordered_sum(const void* x, void* out, void* scratch, void* counte
 // nullptr adds a, otherwise each step is a fused multiply-add of a and b.
 // Instances: vf = 1 (one chain, any len, both modes); the weak-coupling sums
 // (4, 2, 0), (4, 4, 4), (8, 2, 0) adding; the ELL products (8, 1, 4),
-// (8, 1, 0) with FMA.  Anything else, or another length than at most 32 for
-// vf > 1, returns cudaErrorInvalidValue.
+// (8, 1, 0) with FMA; the 2-D norms' lanes across the grid's first axis
+// (2, 1, 0), (4, 1, 0), (8, 1, 0) in both modes, rows of any length (a
+// row past 32 floats is read from global memory, as planes are).  Anything
+// else, or another length than at most 32 for the others, returns
+// cudaErrorInvalidValue.
 extern "C" int ordered_sum_lanes(const void* a, const void* b, void* out, long long rows,
                                  int len, int vf, int ic, int evf, int planes,
                                  void* stream) {
@@ -970,6 +973,15 @@ extern "C" int ordered_sum_lanes(const void* a, const void* b, void* out, long l
   if (vf == 1 && ic == 1 && evf == 0)
     return fma ? launch_lanes<1, 1, 0, true>(af, bf, of, rows, len, planes, s)
                : launch_lanes<1, 1, 0, false>(af, bf, of, rows, len, planes, s);
+  if (ic == 1 && evf == 0 && vf == 2)
+    return fma ? launch_lanes<2, 1, 0, true>(af, bf, of, rows, len, planes, s)
+               : launch_lanes<2, 1, 0, false>(af, bf, of, rows, len, planes, s);
+  if (ic == 1 && evf == 0 && vf == 4)
+    return fma ? launch_lanes<4, 1, 0, true>(af, bf, of, rows, len, planes, s)
+               : launch_lanes<4, 1, 0, false>(af, bf, of, rows, len, planes, s);
+  if (ic == 1 && evf == 0 && vf == 8)
+    return fma ? launch_lanes<8, 1, 0, true>(af, bf, of, rows, len, planes, s)
+               : launch_lanes<8, 1, 0, false>(af, bf, of, rows, len, planes, s);
   if (len > kWindow) return static_cast<int>(cudaErrorInvalidValue);
   if (!fma) {
     if (vf == 4 && ic == 2 && evf == 0)
@@ -981,8 +993,6 @@ extern "C" int ordered_sum_lanes(const void* a, const void* b, void* out, long l
   } else {
     if (vf == 8 && ic == 1 && evf == 4)
       return launch_lanes<8, 1, 4, true>(af, bf, of, rows, len, planes, s);
-    if (vf == 8 && ic == 1 && evf == 0)
-      return launch_lanes<8, 1, 0, true>(af, bf, of, rows, len, planes, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -56,7 +56,7 @@ _ARGTYPES = {
                               ctypes.c_void_p],
     # the table, the chain's length and split, vec
     "ordered_stencil_matvec": [Parts, *_GRID, Terms, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 
 

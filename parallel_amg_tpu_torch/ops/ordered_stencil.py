@@ -51,18 +51,28 @@ def chain_order(K: int):
     return list(ordered_sum.STENCIL_FIRST) + list(range(2, K)) if K > 1 else [0]
 
 
-def ordered_apply(order, planes, A: Stencil, x, split=None, launch=False, rows=None):
+def ordered_apply(order, planes, A: Stencil, x, split=None, launch=False, rows=None,
+                  swap_from=None):
     """A x for float32 ``planes``, A's planes in ``order``
     (``chain_order``), added in that order: one fma chain, or, where
     ``split`` is the centre's position (``unfused_centre``), the centre's
     product added rounded on the rows i1 < ``rows`` of axis 1 (all rows
-    where None), as LLVM's vector loop adds it, and fused on the rest.  The
-    chain and fmas are ``ordered_sum``'s plain versions; with ``launch`` its
-    kernels on a CUDA tensor (``planes_dot`` and ``fma``)."""
+    where None), as LLVM's vector loop adds it, and fused on the rest; on
+    the columns from ``swap_from`` on (the last axis; ``plan_2d``) the
+    chain's first two planes are taken the other way round.  The chain and
+    fmas are ``ordered_sum``'s plain versions; with ``launch`` its kernels
+    on a CUDA tensor (``planes_dot`` and ``fma``)."""
     dot = ordered_sum.planes_dot if launch else ordered_sum.planes_dot_plain
     fma = ordered_sum.fma if launch else ordered_sum.fma_plain
     shifted = A.shifted(x)
     xs = torch.stack([shifted[d] for d in order])
+    if swap_from is not None:
+        head = dot(planes[:2], xs[:2])
+        swapped = dot(planes[[1, 0]], xs[[1, 0]])
+        s = torch.cat([head[..., :swap_from], swapped[..., swap_from:]], -1)
+        for k in range(2, len(order)):
+            s = fma(planes[k], xs[k], s)
+        return s
     if split is None:
         return dot(planes, xs)
     s = dot(planes[:split], xs[:split])
@@ -123,18 +133,68 @@ def unfused_centre(offsets, slab, sharded: bool):
                       f"(ROADMAP C7a): one fma chain, λ may differ in its last bits",
                       stacklevel=3)
         return None, 0
-    if n1 < 16:
-        rows = n1 if n1 in (4, 8) else 0
-    elif n2 >= 7:
-        rows = 4 * (n1 // 4)
-    else:
-        q, r = divmod(n1, 8)
-        key = ("sharded" if sharded else "one_device", min(m0, 2), n2)
-        vf = 4 if r >= 4 and q < _VF4_BELOW[key] else 8
-        rows = n1 - (n1 % vf or vf)
+    key = ("sharded" if sharded else "one_device", min(m0, 2), n2)
+    rows = _vector_rows(n1, n2, _VF4_BELOW.get(key))
     if rows == 0 or (0, 0, 0) not in offsets:
         return None, 0
     return chain_order(7).index(offsets.index((0, 0, 0))), rows
+
+
+def _vector_rows(n, m: int, vf4_below) -> int:
+    """R of the vector loop over n rows of m floats (5 ≤ m ≤ 8; the comment
+    above): every row where n is 4 or 8, none for other n below 16, 4·⌊n/4⌋
+    for m of 7 or 8, else n − (n mod vf or vf) with vf 4 where n = 8q + r
+    has r ≥ 4 and q < ``vf4_below``, else 8."""
+    if n < 16:
+        return n if n in (4, 8) else 0
+    if m >= 7:
+        return 4 * (n // 4)
+    q, r = divmod(n, 8)
+    vf = 4 if r >= 4 and q < vf4_below else 8
+    return n - (n % vf or vf)
+
+
+# A 2-D grid (n0, n1), read off the matvec fusion's object code the same
+# way and on the bits of the JAX package's jitted matvec (5 and 9 points,
+# n1 of 1 to 12 at n0 of 1 to 70 and up to 342, n1 of 5 and 6 at n0 up to
+# 140, n1 of 9 to 80 at a few n0; ``scripts/probe_xla_galerkin_order.py
+# --norms2d`` re-reads n1 of 1 to 12): where n1 is 5 to 8, LLVM
+# vectorises the loop over i0 as it does the 3-D grid's over i1, n1 chains
+# a trip, the centre added rounded on the rows i0 < R (``_vector_rows``,
+# thresholds ``_VF4_BELOW_2D`` by points and n1); where n1 is 9 on 9
+# points it vectorises i1 by 8 and the scalar code of the last column
+# contracts the chain's first add the other way: the first two planes
+# taken (0, 1).  The matvec runs on the (1, n0, n1) view of the grid, so
+# that R bounds axis 1 as on a 3-D grid.  Grids small enough that XLA
+# compiles the whole loop body into one function (``ordered_sum.ONE_CALL``)
+# keep one chain.
+_VF4_BELOW_2D = {(5, 5): 9, (5, 6): 8, (9, 5): 8, (9, 6): 7}
+
+
+def plan_2d(offsets, dims):
+    """(split, rows, swap_from) of the JAX package's power-iteration matvec
+    on a 2-D grid ``dims`` (the comment above): the centre's position in
+    ``chain_order`` and R of its rounded rows, and the first column whose
+    chain starts the other way round; (None, 0, None) for one fma chain.
+    Another stencil than one of 5 or 9 points on a grid of 5 to 9 columns
+    is not read: a warning and one chain."""
+    offsets = tuple(tuple(int(c) for c in o) for o in offsets)
+    n0, n1 = (int(n) for n in dims)
+    pts = len(offsets)
+    one_call = ordered_sum.ONE_CALL.get(pts)
+    if not 5 <= n1 <= 9 or (0, 0) not in offsets or (one_call and one_call(n0, n1)):
+        return None, 0, None
+    if pts not in (5, 9):
+        warnings.warn(f"the JAX package's order of the power iteration's matvec on a 2-D "
+                      f"grid of {(n0, n1)} with {pts} points is not read (ROADMAP C7b): "
+                      f"one fma chain, λ may differ in its last bits", stacklevel=3)
+        return None, 0, None
+    if n1 == 9:
+        return (None, 0, 8) if pts == 9 else (None, 0, None)
+    rows = _vector_rows(n0, n1, _VF4_BELOW_2D.get((pts, n1)))
+    if rows == 0:
+        return None, 0, None
+    return chain_order(pts).index(offsets.index((0, 0))), rows, None
 
 
 class Plan:
@@ -142,11 +202,12 @@ class Plan:
     the local parts' float32 weights (K, m0, *rest) and D⁻¹ (m0, *rest; None:
     no scaling), the offsets, the chain's plane order and ``split``, and
     the halo terms (``sharded``: the offsets with o₀ ≠ 0 in offset order;
-    one device: none).  Built once per power iteration; the kernel's part
-    tables and the plain version's plane copies are made at their first
-    use and kept."""
+    one device: none), and ``swap_from`` (``ordered_apply``; one device).
+    Built once per power iteration; the kernel's part tables and the plain
+    version's plane copies are made at their first use and kept."""
 
-    def __init__(self, weights, scales, offsets, sharded: bool, split=None, rows=None):
+    def __init__(self, weights, scales, offsets, sharded: bool, split=None, rows=None,
+                 swap_from=None):
         self.weights = [W.contiguous() for W in weights]
         self.scales = ([None] * len(self.weights) if scales is None else
                        [None if s is None else s.contiguous() for s in scales])
@@ -155,15 +216,17 @@ class Plan:
         self.order = chain_order(len(self.offsets))
         self.split = split
         self.rows = rows
+        self.swap_from = swap_from
         self.corr = [d for d, o in enumerate(self.offsets) if o[0] != 0] if sharded else []
         self.h = max((abs(self.offsets[d][0]) for d in self.corr), default=0)
         self._plain = None
         self._cards = None
 
     @classmethod
-    def one_device(cls, A: Stencil, d_inv, split=None, rows=None):
+    def one_device(cls, A: Stencil, d_inv, split=None, rows=None, swap_from=None):
         """The plan of one device's power iteration on A."""
-        return cls([A.weights], [d_inv], A.offsets, sharded=False, split=split, rows=rows)
+        return cls([A.weights], [d_inv], A.offsets, sharded=False, split=split, rows=rows,
+                   swap_from=swap_from)
 
     def plain_parts(self):
         """Per part the plain version's Stencil on its slab, its planes in
@@ -216,7 +279,8 @@ def matvec_plain(plan: Plan, xs, halos, launch=False):
     out = []
     for (local, planes, w_rows), xl, sides, scale in zip(plan.plain_parts(), xs, halos,
                                                          plan.scales):
-        y = ordered_apply(plan.order, planes, local, xl, plan.split, launch, plan.rows)
+        y = ordered_apply(plan.order, planes, local, xl, plan.split, launch, plan.rows,
+                          plan.swap_from)
         if plan.corr:  # each side's halo planes, zero-padded on the other axes
             padded = {s: torch.nn.functional.pad(
                 torch.zeros((h,) + rest, dtype=xl.dtype, device=xl.device)
@@ -268,10 +332,11 @@ def _matvec_cuda(plan: Plan, xs, halos):
     chain = len(plan.order)
     split = -1 if plan.split is None else plan.split
     rows = n1 if plan.rows is None else plan.rows
+    swap = n2 if plan.swap_from is None else plan.swap_from
     ys = [None] * len(xs)
     for card in cards:
         y = torch.empty((len(card.positions) * m0,) + plan.slab[1:], device=card.device)
-        vec = int(card.vec and y.data_ptr() % 16 == 0)
+        vec = int(card.vec and y.data_ptr() % 16 == 0 and swap == n2)
         for c0, t in card.interior_tables:
             pos = card.positions[c0:c0 + t.count]
             t.x[:t.count] = [hk.check_slab(xs[i], plan.slab, card.device, "x") for i in pos]
@@ -282,7 +347,7 @@ def _matvec_cuda(plan: Plan, xs, halos):
                     None if s is None else hk.check_slab(s, halo_shape, card.device, "halo")
                     for s in (left, right))
             hk.launch("ordered_stencil_matvec", card.device, t, m0, n1, n2, h, terms,
-                      chain, split, rows, vec)
+                      chain, split, rows, swap, vec)
             ordered_sum.LAUNCHES["ordered_stencil_matvec"] += 1
         for i, yi in zip(card.positions, y.split(m0)):
             ys[i] = yi

@@ -68,9 +68,10 @@ a loop of two or more iterations (a loop of one is compiled otherwise), and
   is longer than 32, otherwise the windows rule on the rounded squares (on
   a grid of three axes: blocks of up to 32 per axis, then the partials in
   row-major order, or in lanes across their middle axis where it is 2, 4
-  or 8 long); over parts (``pgrid.ordered_norm``) each part's Σ y²,
-  then the parts' sums left to right; then the correctly rounded square
-  root (``sqrt``).
+  or 8 long; a structured 2-D grid's squares or partials in lanes across
+  its first axis, ``_sumsq_2d``); over parts (``pgrid.ordered_norm``) each
+  part's Σ y², then the parts' sums left to right; then the correctly
+  rounded square root (``sqrt``).
 
 The structured setups' Galerkin products (``amg/device_setup.py``) take two
 more of XLA's orders: an elementwise a·b + c that the CPU backend contracts
@@ -96,6 +97,7 @@ import ctypes
 import functools
 import math
 import struct
+import warnings
 
 import numpy as np
 import torch
@@ -118,8 +120,10 @@ LAUNCHES = {"ordered_sum_staged": 0, "ordered_sum_windows": 0,
             "ordered_bucket_stage": 0}
 
 # lanes schedules with a kernel instance in csrc/ordered_sum.cu, besides CHAIN
-_ADD_LANES = {(4, 2, 0), (4, 4, 4), (8, 2, 0)}
-_FMA_LANES = {(8, 1, 4), (8, 1, 0)}
+# (the 2-D norms' ``_rows_lanes`` take (vf, 1, 0) over rows of any length)
+_ADD_LANES = {(4, 2, 0), (4, 4, 4), (8, 2, 0), (2, 1, 0), (4, 1, 0), (8, 1, 0)}
+_FMA_LANES = {(8, 1, 4), (8, 1, 0), (2, 1, 0), (4, 1, 0)}
+_ANY_LENGTH = {(2, 1, 0), (4, 1, 0), (8, 1, 0)}
 
 
 def windows(d: int):
@@ -195,7 +199,7 @@ def _check_lanes(width: int, lanes) -> None:
     vf, ic, evf = lanes
     if tuple(lanes) == CHAIN:
         return
-    if width > WINDOW:
+    if width > WINDOW and tuple(lanes) not in _ANY_LENGTH:
         raise ValueError(f"lanes {lanes} order a row of at most {WINDOW}, "
                          f"not {width}")
     if not (vf in (2, 4, 8, 16) and 1 <= ic and vf * ic <= 32
@@ -264,7 +268,7 @@ def planes_dot_plain(a, b):
     return s
 
 
-def sumsq(y, structured: bool = False):
+def sumsq(y, structured: bool = False, points: int = 0):
     """Σ y² over every axis of float32 ``y`` (1 to 3 axes), in the order of
     ``jnp.linalg.norm``'s sum on the JAX package's CPU backend inside its
     power iterations: where no axis is longer than 32, one fma chain
@@ -277,8 +281,13 @@ def sumsq(y, structured: bool = False):
     per-part sums) and LLVM unrolls the last axis and vectorises the loop
     before it (read off the optimised IR of the norm's fusion), the grid is
     summed in lanes across the axis before the last (``_middle_lanes_vf``,
-    ``_middle_lanes``).  Other small grids that LLVM vectorises (8², (12,
-    4), (7, 16, 5)) still take the rule above: ROADMAP C7b.
+    ``_middle_lanes``).  Other small 3-D grids that LLVM vectorises (7 ×
+    16 × 5) still take the rule above: ROADMAP C7b.
+
+    A structured 2-D grid (``_sumsq_2d``; ``points`` is its stencil's
+    count) is read whole: its squares or, past 32 on an axis, its window
+    partials are summed in ``_middle_lanes_vf`` lanes across the first
+    axis.
 
     A three-axis grid longer than 32 on some axis: XLA rounds the squares
     (a fusion of their own), sums each window of up to 32³ as one chain in
@@ -296,6 +305,8 @@ def sumsq(y, structured: bool = False):
     """
     if y.dim() == 0 or y.dim() > 3:
         raise ValueError(f"sumsq takes 1 to 3 axes, not {y.dim()}")
+    if structured and y.dim() == 2:
+        return _sumsq_2d(y, points)
     vf = _middle_lanes_vf(tuple(y.shape)) if structured else 0
     if vf:
         return _middle_lanes(y if y.dim() == 3 else y[None], vf)
@@ -315,21 +326,31 @@ def sumsq(y, structured: bool = False):
     return row_sum(parts.reshape(1, -1), 1, CHAIN)[0]
 
 
-def _middle_lanes_vf(shape) -> int:
+def _middle_lanes_vf(shape, square: bool = False) -> int:
     """The lanes LLVM gives a power iteration's Σ y² across the axis before
     the last, or 0 (read with jax and jaxlib 0.9.0 on AVX-512, held by
     tests/test_torch_ordered_sum.py).  Three axes: 4 for (n0, 4, n2 ≤ 5), 8
-    for (n0, 8 or 16, n2) with n1·n2 ≤ 64.  Two axes (n0, n1), rows of at
-    most 4 floats: 8 where n0 is 8, 16, 24 or 32; 4 where n0 is 4 or 20 and
-    the rows are 3 or 4 floats ((4, 2) and (12, 4) take the chain, longer
-    rows other orders: ROADMAP C7b)."""
+    for (n0, 8 or 16, n2) with n1·n2 ≤ 64.  Two axes (p0, p1): the squares
+    of a grid of at most 32 a side (``square``), or a larger grid's window
+    partials (adds): the vector loop runs over p0, the p1 floats of a row
+    unrolled, where 2 ≤ p1 ≤ 8 and p0 ≤ 32 (the trip count LLVM's cost
+    model weighs): p0 lanes where p0 is 2, 4 or 8, none for other p0 below
+    16 (a loop that short is vectorised only without a remainder), and from
+    16 on 8 lanes, or 4 where p0 mod 8 is 4 to 7 (but 8 at p0 28 to 31 with
+    rows of 2) or, adding partials, the rows are 7 or 8 floats.
+    ``scripts/probe_xla_galerkin_order.py --norms2d`` reads both tables off
+    the JAX package's reductions."""
     if len(shape) == 2:
-        n0, n1 = shape
-        if n1 > 4 or n0 > WINDOW:
+        p0, p1 = shape
+        if not (2 <= p1 <= 8 and 2 <= p0 <= WINDOW):
             return 0
-        if n0 % 8 == 0:
-            return 8
-        return 4 if n0 % 16 == 4 and n1 >= 3 else 0
+        if p0 in (2, 4, 8):
+            return p0
+        if p0 < 16:
+            return 0
+        if (p1 >= 7 and not square) or (p0 % 8 >= 4 and not (p0 >= 28 and p1 == 2)):
+            return 4
+        return 8
     if len(shape) != 3 or max(shape) > WINDOW:
         return 0
     n0, n1, n2 = shape
@@ -338,6 +359,99 @@ def _middle_lanes_vf(shape) -> int:
     if n1 in (8, 16) and n1 * n2 <= 64:
         return 8
     return 0
+
+
+# 2-D grids small enough that XLA's CPU backend compiles the whole power
+# iteration body into one function (its cost model weighs the stencil's
+# points), whose Σ y² is one fma chain, by the stencil's points
+ONE_CALL = {
+    5: lambda n0, n1: n0 * n1 <= 12 or (min(n0, n1) == 1 and max(n0, n1) <= 13),
+    9: lambda n0, n1: n0 * n1 <= 8 or (n0 == 1 and n1 <= 11) or (n1 == 1 and n0 <= 10),
+}
+ONE_CALL_SPAN = 13  # the longest axis of a grid in ONE_CALL
+
+
+def _sumsq_2d(y, points: int):
+    """Σ y² of a structured power iteration's (n0, n1) D⁻¹A·x, in XLA's CPU
+    order, read off the optimised IR and the machine code of the norm's
+    fusions in the JAX package's power iteration (jax and jaxlib 0.9.0,
+    AVX-512; ``scripts/probe_xla_galerkin_order.py --norms2d``):
+
+    - both axes at most 32: the squares in ``_middle_lanes_vf`` lanes across
+      axis 0 (``_rows_lanes``; fused multiply-adds where the rows are at
+      most 4 floats, the products rounded first on longer rows, the rows
+      past the last whole block fused one at a time), else one fma chain in
+      row-major order; on the grids whose loop body XLA compiles into one
+      function (``ONE_CALL``), one fma chain;
+    - longer: the rounded squares by the windows rule down to partials of at
+      most 32 a side, one level of windows after another
+      (``_block_sums``), then the partials as the squares above, adds in
+      place of fused multiply-adds.
+
+    A tiny grid (no axis past 13) of a stencil whose points ``ONE_CALL``
+    has no entry for is not read: a warning (ROADMAP C7b) and the rule
+    above."""
+    n0, n1 = (int(n) for n in y.shape)
+    if max(n0, n1) <= WINDOW:
+        one_call = ONE_CALL.get(points)
+        if one_call is None and max(n0, n1) <= ONE_CALL_SPAN:
+            _warn_2d(y.shape, points)
+        vf = (0 if one_call is not None and one_call(n0, n1)
+              else _middle_lanes_vf((n0, n1), square=True))
+        if vf:
+            return _rows_lanes(y[None], vf, square=True)[0]
+        flat = y.reshape(1, -1)
+        return row_dot(flat, flat, CHAIN)[0]
+    parts = y * y
+    while max(parts.shape) > WINDOW:
+        parts = _block_sums(parts)
+    vf = _middle_lanes_vf(tuple(parts.shape))
+    if vf:
+        return _rows_lanes(parts[None], vf, square=False)[0]
+    return row_sum(parts.reshape(1, -1), 1, CHAIN)[0]
+
+
+_WARNED_2D: set = set()
+
+
+def _warn_2d(shape, points: int) -> None:
+    key = (tuple(int(n) for n in shape), points)
+    if key in _WARNED_2D:
+        return
+    _WARNED_2D.add(key)
+    warnings.warn(f"the JAX package's order of the power iteration's norm on a 2-D "
+                  f"grid of {key[0]} with a {points}-point stencil is not read "
+                  f"(ROADMAP C7b): λ may differ in its last bits", stacklevel=4)
+
+
+def _rows_lanes(y, vf: int, square: bool):
+    """Σ over each (p0, p1) grid of a (B, p0, p1) batch in vf lanes across
+    axis 0 (``_sumsq_2d``): lane l starts at +0.0 (l = 0) or −0.0, and
+    takes the p1 values of row b + l, in order, for each whole block b of
+    vf rows; the lanes are halved into one sum; the rows left over are
+    added one value at a time.  With ``square`` the values are y², fused
+    into their adds (``fma``) where a row is at most 4 floats and on the
+    rows left over, rounded first elsewhere.  As the ``ordered_sum_lanes``
+    schedule (vf, 1, 0) over the blocks' values in lane order, then one
+    chain from that sum: one launch each on the card."""
+    B, p0, p1 = y.shape
+    j = p0 // vf * vf
+    z = y[:, :j].reshape(B, j // vf, vf, p1).transpose(2, 3).reshape(B, -1)
+    lanes = (vf, 1, 0)
+    if not square:
+        s = row_sum(z, 1, lanes)
+    elif p1 <= 4:
+        s = row_dot(z, z, lanes)
+    else:
+        s = row_sum(z * z, 1, lanes)
+    if j == p0:
+        return s
+    rest = y[:, j:].reshape(B, -1)
+    head = torch.cat([s[:, None], rest], 1)
+    if not square:
+        return row_sum(head, 1, CHAIN)
+    # fma(s, 1, +0.0) = s starts the chain of the rows left over
+    return row_dot(head, torch.cat([torch.ones_like(s)[:, None], rest], 1), CHAIN)
 
 
 def _middle_lanes(y, vf: int, square: bool = True):
@@ -376,24 +490,42 @@ def sqrt(x):
     return torch.sqrt(x.double()).to(x.dtype)
 
 
-def norm(y, structured: bool = False):
+def norm(y, structured: bool = False, points: int = 0):
     """``jnp.linalg.norm(y)`` of the JAX package's power iterations:
-    ``sqrt(sumsq(y, structured))``."""
-    return sqrt(sumsq(y, structured))
+    ``sqrt(sumsq(y, structured, points))``."""
+    return sqrt(sumsq(y, structured, points))
 
 
 def _block_sums(sq):
-    """The first level of windows over a three-axis grid: (n0, n1, n2)
-    block sums, each block added in row-major order (padding +0.0)."""
-    win = [windows(d) for d in sq.shape]
+    """One level of windows over a grid of two or three axes, as XLA's
+    ``reduce-window`` kernel adds them (its loop runs over a window's rows,
+    each row's floats unrolled, and checks the rows and columns that may
+    fall in the padding): the (n0, n1, ...) window sums, each a chain in
+    row-major order (padding +0.0), except
+
+    - where the last axis is padded by exactly one float (lo 0, hi 1: only
+      a window's last column may be padding), where LLVM takes that
+      column's check out of the row loop: each row's first w − 1 floats in
+      row-major order, then the last column's floats down the rows;
+    - on a 2-D grid with no padding, where LLVM vectorises the window loop
+      as it does a reduce of the window's shape: ``_middle_lanes_vf`` lanes
+      across the window's rows (``_rows_lanes``)."""
+    win = [windows(int(d)) for d in sq.shape]
     pads = []
     for (w, n, lo), d in zip(reversed(win), reversed(sq.shape)):
         pads += [lo, n * w - d - lo]
     xp = torch.nn.functional.pad(sq, pads)
-    (w0, n0, _), (w1, n1, _), (w2, n2, _) = win
-    blocks = xp.reshape(n0, w0, n1, w1, n2, w2).permute(0, 2, 4, 1, 3, 5)
-    blocks = blocks.reshape(n0 * n1 * n2, w0 * w1 * w2).contiguous()
-    return row_sum(blocks, 1, CHAIN).reshape(n0, n1, n2)
+    nd = len(win)
+    blocks = xp.reshape([v for w, n, _ in win for v in (n, w)])
+    blocks = blocks.permute(list(range(0, 2 * nd, 2)) + list(range(1, 2 * nd, 2)))
+    counts = [n for _, n, _ in win]
+    blocks = blocks.reshape(math.prod(counts), -1, win[-1][0])
+    vf = 0 if nd != 2 or any(pads) else _middle_lanes_vf(tuple(blocks.shape[1:]))
+    if vf:
+        return _rows_lanes(blocks, vf, square=False).reshape(counts)
+    if pads[:2] == [0, 1]:
+        blocks = torch.cat([blocks[..., :-1].flatten(1), blocks[..., -1]], 1)
+    return row_sum(blocks.flatten(1).contiguous(), 1, CHAIN).reshape(counts)
 
 
 def _as_rows(x, dims: int):

@@ -65,18 +65,20 @@ def anisotropic_stencil(dims, epsilon: float = 1e-3, dtype=torch.float32,
 
 
 def seeded_stencil(dims, points: int, seed: int):
-    """A seeded 3-D operator for holding power iterations: numpy float32
-    weights (points, *dims) and the offsets (``points`` 7 or 27, sorted), off
-    the centre uniform in [−1, 1) and the centre uniform in [4, 8), from
-    ``np.random.default_rng(seed)`` (the off-centre planes drawn first).
-    numpy arrays, so that the JAX package and the port take the same
-    bits on any machine."""
+    """A seeded 2-D or 3-D operator for holding power iterations: numpy
+    float32 weights (points, *dims) and the offsets (``points`` 5 or 9 in
+    2-D, 7 or 27 in 3-D, sorted), off the centre uniform in [−1, 1) and the
+    centre uniform in [4, 8), from ``np.random.default_rng(seed)`` (the
+    off-centre planes drawn first).  numpy arrays, so that the JAX package
+    and the port take the same bits on any machine."""
     dims = tuple(int(d) for d in dims)
-    if len(dims) != 3 or points not in (7, 27):
-        raise ValueError(f"seeded_stencil is 3-D with 7 or 27 points, not {dims}, {points}")
-    offs = tuple(o for o in itertools.product((-1, 0, 1), repeat=3)
-                 if points == 27 or sum(map(abs, o)) <= 1)
+    nd = len(dims)
+    if nd not in (2, 3) or points not in (2 * nd + 1, 3 ** nd):
+        raise ValueError(f"seeded_stencil is 2-D with 5 or 9 points or 3-D with 7 or 27, "
+                         f"not {dims}, {points}")
+    offs = tuple(o for o in itertools.product((-1, 0, 1), repeat=nd)
+                 if points == 3 ** nd or sum(map(abs, o)) <= 1)
     rng = np.random.default_rng(seed)
     w = rng.uniform(-1.0, 1.0, size=(len(offs),) + dims).astype(np.float32)
-    w[offs.index((0, 0, 0))] = rng.uniform(4.0, 8.0, size=dims).astype(np.float32)
+    w[offs.index((0,) * nd)] = rng.uniform(4.0, 8.0, size=dims).astype(np.float32)
     return w, offs

@@ -8,7 +8,7 @@ smallest subtree that holds the pair, so all pairs give the whole tree
 ("FPRev").  Run on the CPU (JAX_PLATFORMS=cpu), a few minutes:
 
     python3 scripts/probe_xla_galerkin_order.py [--dot] [--pool] [--rsqrt]
-        [--bucketed] [--norms]
+        [--bucketed] [--norms] [--norms2d]
 
 - ``--dot``: the one-hot dot of ``galerkin_block`` (onehot (n_out, K) @
   piece (K, nc)) at every shape the setups meet: config #3 at 128³ on one
@@ -46,6 +46,23 @@ smallest subtree that holds the pair, so all pairs give the whole tree
 - ``--norms``: the setups' λ_max(D⁻¹A), port against the JAX package's
   ``_jit_power``, per grid (``ordered_sum._middle_lanes_vf``,
   ``device_setup._unfused_centre``).
+- ``--norms2d``: the 2-D power iteration's orders (~10 min).  (1) The two
+  reductions of its norm, each compiled alone on a (p0, p1) input for p0,
+  p1 ≤ 32 (the same LLVM code as inside ``_jit_power``: compared by
+  ``XLA_FLAGS=--xla_dump_to=DIR --xla_dump_hlo_as_text``, the
+  ``reduce_sqrt_fusion`` and ``add_multiply_fusion`` ``*ir-with-opt.ll`` and
+  object files): Σ y² of a small grid (``jnp.sum(y * y)``) and Σ of window
+  partials (``jnp.sum(p)``), on random data, against
+  ``ordered_sum._middle_lanes_vf``'s lanes (``_rows_lanes``) or the chain;
+  prints the shapes where the port differs.  (2) The window order of a grid
+  whose axis 1 is padded by one (63², FPRev on ``jnp.sum``).  (3) The matvec
+  alone (``d * A.matvec(x)`` jitted, the fusion of the power iteration) on
+  5- and 9-point grids with n1 of 1 to 12 against
+  ``ordered_stencil.plan_2d``.  (4) λ against ``_jit_power`` on 2-D Poisson
+  and seeded 5- and 9-point grids, tiny ones (``ordered_sum.ONE_CALL``:
+  which grids XLA compiles into one function shows in the dump as a
+  ``call.N_computation`` module in place of ``reduce_sqrt_fusion``) and two
+  window levels.
 """
 
 from __future__ import annotations
@@ -452,9 +469,95 @@ def probe_norms():
               "norm lanes", ordered_sum._middle_lanes_vf(dims), flush=True)
 
 
+def _jax_sum(square: bool):
+    return jax.jit((lambda p: jnp.sum(p * p)) if square else (lambda p: jnp.sum(p)))
+
+
+def probe_norms2d():
+    from parallel_amg_tpu.amg import device_setup as jds_
+    from parallel_amg_tpu_torch.ops import ordered_stencil
+
+    rng = np.random.default_rng(0)
+    for square in (True, False):
+        f, bad = _jax_sum(square), []
+        for p0, p1 in itertools.product(range(1, 33), repeat=2):
+            if p0 * p1 == 1:
+                continue
+            Y = rng.standard_normal((8, p0, p1)).astype(F32) * np.exp2(
+                rng.integers(-8, 8, (8, p0, p1))).astype(F32)
+            Y[:4] = rng.uniform(0.5, 1.0, (4, p0, p1)).astype(F32)
+            want = np.stack([np.asarray(f(jnp.asarray(y))) for y in Y]).view(np.int32)
+            vf = ordered_sum._middle_lanes_vf((p0, p1), square=square)
+            T = torch.from_numpy(Y)
+            if vf:
+                got = ordered_sum._rows_lanes(T, vf, square)
+            else:
+                flat = T.reshape(8, -1)
+                got = (ordered_sum.row_dot(flat, flat, ordered_sum.CHAIN) if square
+                       else ordered_sum.row_sum(flat, 1, ordered_sum.CHAIN))
+            if not np.array_equal(got.numpy().view(np.int32), want):
+                bad.append((p0, p1, vf))
+        print("norm", "squares" if square else "partials",
+              "(p0, p1) ≤ 32 where the port differs:", bad, flush=True)
+    # (2) a window with its last column checked apart: FPRev along leaf 0
+    n, f = 63, _jax_sum(False)
+    pos = {}
+    for r, c in itertools.product(range(32), range(32)):
+        if r == c == 0:
+            continue
+        P = np.ones((n, n), F32)
+        P[0, 0], P[r, c] = BIG, -BIG
+        pos[r, c] = float(np.asarray(f(jnp.asarray(P))))
+    order = [(0, 0)] + sorted(pos, key=lambda k: -pos[k])
+    rows_first = [(r, c) for r in range(32) for c in range(31)] + [(r, 31) for r in range(32)]
+    print("63² window (0, 0): each row's columns 0-30, then column 31 down the rows:",
+          order == rows_first, flush=True)
+    # (3) the matvec alone against plan_2d
+    bad = []
+    for pts, n1, n0 in itertools.product((5, 9), range(1, 13), (1, 3, 4, 8, 16, 17, 20, 40,
+                                                               61, 69, 100)):
+        offs = tuple(o for o in itertools.product((-1, 0, 1), repeat=2)
+                     if pts == 9 or sum(map(abs, o)) <= 1)
+        W = rng.uniform(-1, 1, (pts, n0, n1)).astype(F32)
+        W[offs.index((0, 0))] = rng.uniform(4, 8, (n0, n1)).astype(F32)
+        d = (1 / W[offs.index((0, 0))]).astype(F32)
+        x = (rng.random((n0, n1)) - 0.5).astype(F32)
+        want = np.asarray(jax.jit(lambda w, d, x: d * JStencil(w, offs, (n0, n1)).matvec(x))(
+            W, d, x)).view(np.int32)
+        plan = ds.power_plan(Stencil(torch.from_numpy(W), offs, (n0, n1)), torch.from_numpy(d))
+        got = ordered_stencil.matvec(plan, [torch.from_numpy(x).reshape(plan.slab)])[0]
+        if not np.array_equal(got.numpy().reshape(n0, n1).view(np.int32), want):
+            bad.append((n0, n1, pts))
+    print("matvec: (n0, n1, points) where plan_2d differs:", bad, flush=True)
+    # (4) λ through the JAX package's power iteration
+    from parallel_amg_tpu_torch.problems import poisson_stencil
+
+    for dims, pts in [((128, 128), 5), ((243, 243), 5), ((243, 100), 5), ((1000, 40), 5),
+                      ((63, 63), 9), ((2048, 40), 9), ((1100, 1100), 5), ((17, 8), 9),
+                      ((40, 9), 9), ((69, 5), 5), ((2, 4), 9), ((3, 4), 5), ((1, 11), 9)]:
+        equal = []
+        for seed in range(2):
+            if seed == 0 and pts == 5:
+                A = poisson_stencil(dims, device="cpu")
+                offs, W = A.offsets, A.weights.numpy()
+            else:
+                offs = tuple(o for o in itertools.product((-1, 0, 1), repeat=2)
+                             if pts == 9 or sum(map(abs, o)) <= 1)
+                r = np.random.default_rng(seed)
+                W = r.uniform(-1, 1, (pts,) + dims).astype(F32)
+                W[offs.index((0, 0))] = r.uniform(4, 8, dims).astype(F32)
+            d = (1 / W[offs.index((0, 0))]).astype(F32)
+            want = jds_._jit_power(JStencil(jnp.asarray(W), offs, dims), jnp.asarray(d),
+                                   iters=15, seed=seed)
+            got = ds.power_iteration_lambda_max(Stencil(torch.from_numpy(W), offs, dims),
+                                                torch.from_numpy(d), 15, seed=seed)
+            equal.append(float(got) == float(want))
+        print(dims, pts, "points: λ equal (Poisson or seeded, seeded)", equal, flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    for name in ("dot", "pool", "rsqrt", "bucketed", "norms"):
+    for name in ("dot", "pool", "rsqrt", "bucketed", "norms", "norms2d"):
         ap.add_argument(f"--{name}", action="store_true")
     ap.add_argument("--bucketed-solve", nargs="*", default=None, metavar="DIMSxPOINTS",
                     help="e.g. 8x7x6x27 (the last number the points)")
@@ -465,8 +568,8 @@ def main():
                   for a in args.bucketed_solve]
         probe_bucketed_solve(shapes or None)
         return
-    chosen = [n for n in ("dot", "pool", "rsqrt", "bucketed", "norms")
-              if getattr(args, n)] or ["dot", "pool", "rsqrt", "bucketed", "norms"]
+    names = ("dot", "pool", "rsqrt", "bucketed", "norms", "norms2d")
+    chosen = [n for n in names if getattr(args, n)] or list(names)
     for name in chosen:
         print(f"== {name}", flush=True)
         globals()[f"probe_{name}"]()

@@ -12,6 +12,10 @@
   ``chip_smoke.py`` charges the kernels);
 - ``cycle_collective_volume`` equal to the JAX package's on the 27³ fixture
   of ``tests/test_roofline_model.py``, before and after a backend swap;
+- ``cycle_latency_model``, ``scaling_projection`` and
+  ``weak_scaling_projection`` equal to the JAX package's, number for number,
+  on a 12³ structured hierarchy on one device and 24 × 12 × 12 in 4 parts, both given the
+  JAX module's link rate and latency; the port's refuse to run without them;
 - ``check_finite`` raises on a NaN; ``trace`` writes a Chrome trace.
 """
 
@@ -32,6 +36,9 @@ from parallel_amg_tpu.problems import poisson2d as j_poisson2d
 from parallel_amg_tpu.problems.stencil_problems import poisson_stencil as j_pstencil
 from parallel_amg_tpu.utils.metrics import hierarchy_summary as j_summary
 from parallel_amg_tpu.utils.metrics import residual_history as j_history
+from parallel_amg_tpu.parallel import make_row_mesh as j_make_row_mesh
+from parallel_amg_tpu.parallel import pdevice_setup as jpd
+from parallel_amg_tpu.utils import roofline as j_roofline
 from parallel_amg_tpu.utils.roofline import (
     cycle_collective_volume as j_collective_volume,
 )
@@ -223,6 +230,62 @@ def test_cycle_collective_volume_matches_jax(backend):
         assert mine == j_collective_volume(jh, shards)
         assert mine["per_shard_cycle_bytes"] == roofline.cycle_collective_volume(
             _h27()[0], shards)["per_shard_cycle_bytes"]
+
+
+@functools.cache
+def _h12(parts: int):
+    """The port's and the JAX package's structured setups: 12³ on one device,
+    24 × 12 × 12 in ``parts`` parts (two sharded levels)."""
+    def cfg(mod):
+        return mod.AMGConfig(coarsening="sa", aggregate="block", block_size=3,
+                             smoother="chebyshev", n_coarse_max=64, agglomerate_n=256,
+                             on_device_setup=True)
+
+    if parts == 1:
+        dims = (12, 12, 12)
+        return (ptt.setup(poisson_stencil(dims, device="cpu"), cfg(ptt), device="cpu"),
+                pat.setup(j_pstencil(dims), cfg(pat)))
+    dims = (24, 12, 12)
+    A, td = ptt.poisson_stencil_sharded(dims, ptt.make_row_mesh(parts, device="cpu"), cfg(ptt))
+    jA, jtd = jpd.poisson_stencil_sharded(dims, j_make_row_mesh(parts), cfg(pat))
+    return (ptt.sharded_device_setup(A, cfg(ptt), true_dims=td),
+            jpd.sharded_device_setup(jA, cfg(pat), true_dims=jtd))
+
+
+_PROJECTIONS = {
+    "cycle_latency_model": lambda m, h, **k: m.cycle_latency_model(h, 4, 256, **k),
+    "scaling_projection": lambda m, h, **k: m.scaling_projection(h, 2.5e-3, (1, 2, 4, 8), 256,
+                                                                 **k),
+    "weak_scaling_projection": lambda m, h, **k: (
+        m.weak_scaling_projection(h, 2.5e-3, (1, 2, 4, 8), 256, **k)
+        + m.weak_scaling_projection(h, 2.5e-3, (2, 8), 256, scale_rows_to=13_000_000, **k)),
+}
+
+
+@pytest.mark.parametrize("parts", [1, 4])
+@pytest.mark.parametrize("name", sorted(_PROJECTIONS))
+def test_projections_match_jax(name, parts):
+    """The port's projection gives every number and key of the JAX
+    package's when both take the JAX module's two constants."""
+    h, jh = _h12(parts)
+    if parts > 1:
+        assert h.setup_stats["sharded_levels"] >= 1
+    jk = dict(ici_gbps=j_roofline.ICI_LINK_GBPS, lat_s=j_roofline.COLLECTIVE_LATENCY_S)
+    mine = _PROJECTIONS[name](roofline, h, link_gbps=j_roofline.ICI_LINK_GBPS,
+                              latency_s=j_roofline.COLLECTIVE_LATENCY_S)
+    assert mine == _PROJECTIONS[name](j_roofline, jh, **jk)
+
+
+def test_projections_need_the_link_figures():
+    """No link rate or latency of the port's own: each projection raises
+    without them."""
+    h, _ = _h12(1)
+    assert not any(hasattr(roofline, k) for k in ("ICI_LINK_GBPS", "COLLECTIVE_LATENCY_S"))
+    for name, call in _PROJECTIONS.items():
+        with pytest.raises(TypeError):
+            call(roofline, h)
+        with pytest.raises(TypeError):
+            call(roofline, h, link_gbps=100.0)
 
 
 def test_check_finite_raises_on_nan():
